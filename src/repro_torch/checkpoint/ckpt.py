@@ -1,0 +1,62 @@
+"""Checkpointing in the reference's npz format: one archive entry per
+leaf, keyed by its "/"-joined key path (src/repro/checkpoint/ckpt.py),
+with stacked super-blocks as the reference stores them. An archive
+written by either package restores into the other."""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from repro_torch.checkpoint.convert import (flatten_tree, params_from_jax,
+                                            params_to_jax, unflatten_tree)
+
+RING = ".ring/"  # the actor-param ring of a reference Trainer archive
+
+
+def save_checkpoint(path, params, step=None):
+    """Write the port's flat params with the reference's keys."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = flatten_tree(params_to_jax(params))
+    if step is not None:
+        flat["__step__"] = np.asarray(step)
+    np.savez(path, **flat)
+    return path
+
+
+def _read(path):
+    with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+        data = {k: z[k] for k in z.files}
+    step = data.pop("__step__", None)
+    return data, (int(step) if step is not None else None)
+
+
+def _match(params, example):
+    """`params` restricted to the keys of `example`, cast to each
+    example leaf's dtype and device."""
+    out = {}
+    for key, ref in example.items():
+        if key not in params:
+            raise KeyError(f"checkpoint has no entry for {key!r}")
+        out[key] = params[key].to(dtype=ref.dtype, device=ref.device)
+    return out
+
+
+def load_checkpoint(path, example):
+    """Restore flat params shaped like `example` (e.g. `policy.init(g)`).
+    Returns (params, step)."""
+    data, step = _read(path)
+    return _match(params_from_jax(unflatten_tree(data)), example), step
+
+
+def load_actor_policy(path, example, delay=0):
+    """The behaviour params a reference Trainer archive serves: slot
+    `delay` (clamped to the ring depth) of its `.ring/<policy path>`
+    arrays, as `agent.actor_policy(state, delay)` reads them."""
+    data, _ = _read(path)
+    ring = {k[len(RING):]: v[min(delay, v.shape[0] - 1)]
+            for k, v in data.items() if k.startswith(RING)}
+    if not ring:
+        raise KeyError(f"{path}: no {RING!r} entries; not a Trainer "
+                       f"archive")
+    return _match(params_from_jax(unflatten_tree(ring)), example)

@@ -1,0 +1,115 @@
+"""Shared kernel helpers: device resolution and the CUDA build-and-load.
+
+Every kernel source lives beside its Python wrapper as
+`kernels/<name>/csrc/*.cu` with a plain C interface. At first use,
+`load_kernels()` compiles all of them with `nvcc` for `sm_90a` (one
+`nvcc -c` per source, all started together, then one link) into
+`build/repro_torch/libkernels.so` at the repository root, and loads the
+library with ctypes. The library is rebuilt when the content hash of the
+sources or flags changes. Nothing is downloaded and nothing outside the
+repository's sources is compiled.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+REPO_ROOT = PACKAGE_DIR.parents[1]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; raises RuntimeError when CUDA is asked
+    for and this process has no card, instead of running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch sees no CUDA "
+            f"device; pass device='cpu' to run on the CPU")
+    return device
+
+
+def kernel_sources():
+    return sorted(PACKAGE_DIR.glob("kernels/*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built at "
+                           "first use on a machine with the CUDA toolkit")
+    return found
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build_kernels() -> tuple:
+    """Compile the kernel sources unless an up-to-date library exists.
+    Returns (library path, compiler log); the log holds ptxas's
+    register and shared-memory report of a fresh build, else is empty."""
+    sources = kernel_sources()
+    lib = BUILD_DIR / "libkernels.so"
+    stamp = BUILD_DIR / "libkernels.sha256"
+    digest = _digest(sources)
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    pid = os.getpid()  # concurrent builds write their own objects
+    objs = [BUILD_DIR / f"{src.parent.parent.name}_{src.stem}.{pid}.o"
+            for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                               str(obj)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    log = [proc.communicate()[0] for proc in procs]  # wait for every one
+    for src, proc, out in zip(sources, procs, log):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+    tmp = lib.with_suffix(f".so.{pid}")
+    link = subprocess.run([nvcc, "-shared", *map(str, objs), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
+    for obj in objs:
+        obj.unlink()
+    return lib, "".join(log)
+
+
+@functools.cache
+def load_kernels() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process."""
+    lib, _ = build_kernels()
+    dll = ctypes.CDLL(str(lib))
+    dll.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    dll.repro_cuda_error_string.restype = ctypes.c_char_p
+    return dll
+
+
+def check_launch(dll, code: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = dll.repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

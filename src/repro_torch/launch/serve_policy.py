@@ -1,0 +1,214 @@
+"""Policy-serving launcher: offered-load benchmark over the
+repro_torch.core.serving engine (the port of
+src/repro/launch/serve_policy.py).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_policy --algo ppo \
+      --env cartpole --load 500,2000 --buckets "1,4,16;16" --quick
+
+Publishes the MLP policy of the chosen algorithm (freshly initialized
+from --seed, or restored from a reference Trainer archive with --ckpt)
+into a versioned ParamStore, then replays an open-loop arrival process
+at each offered load (requests/second) against each bucket
+configuration: requests are admitted FIFO, padded to the smallest
+fitting bucket (one program per bucket, pinned flat), and hot-swapped
+onto fresh params halfway through every cell. Latency is charged from
+the *scheduled* arrival. Prints one JSON summary line.
+
+The Trainer is not ported yet, so `--train-iters` must be 0 unless
+`--ckpt` is given, and `--algo dqn` (whose served policy is the DQN
+Q-network) is refused until the DQN slice.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+ALGOS = ("a3c", "dqn", "impala", "ppo")
+HIDDEN = (64, 64)  # the algorithms' default policy widths
+
+
+def parse_buckets(spec: str):
+    """Bucket grammar: semicolon-separated configurations, each a
+    comma-separated strictly increasing list of positive micro-batch
+    sizes — e.g. "1,4,16;8,32" is two configurations."""
+    configs = []
+    for part in spec.split(";"):
+        if not part.strip():
+            raise ValueError(f"empty bucket configuration in {spec!r}")
+        try:
+            cfg_b = tuple(int(b) for b in part.split(","))
+        except ValueError:
+            raise ValueError(f"bad bucket configuration {part!r}: "
+                             f"expected comma-separated integers") \
+                from None
+        if any(b <= 0 for b in cfg_b) or \
+                any(b <= a for a, b in zip(cfg_b, cfg_b[1:])):
+            raise ValueError(
+                f"bad bucket configuration {part!r}: sizes must be "
+                f"positive and strictly increasing")
+        configs.append(cfg_b)
+    return configs
+
+
+def parse_loads(spec: str):
+    try:
+        loads = tuple(float(x) for x in spec.split(","))
+    except ValueError:
+        raise ValueError(f"bad --load {spec!r}: expected "
+                         f"comma-separated requests/second") from None
+    if not loads or any(x <= 0 for x in loads):
+        raise ValueError(f"offered loads must be positive, got {spec!r}")
+    return loads
+
+
+def run_offered_load(engine, obs_rows, load_rps, n, swap_params=None):
+    """Open-loop load replay: request i arrives at start + i/load_rps;
+    the engine serves as fast as it can, sleeping only when the queue is
+    empty and the next arrival is in the future. Latency = completion -
+    scheduled arrival. Halfway through, `swap_params` (if given) is
+    hot-swapped in."""
+    start = time.perf_counter() + 0.002
+    arrivals = [start + i / load_rps for i in range(n)]
+    submitted, swapped = 0, False
+    lats, versions = [], set()
+    last_done = start
+    while len(lats) < n:
+        now = time.perf_counter()
+        while submitted < n and arrivals[submitted] <= now:
+            engine.submit(obs_rows[submitted % len(obs_rows)],
+                          arrival=arrivals[submitted])
+            submitted += 1
+        if not len(engine.batcher):
+            time.sleep(max(0.0,
+                           arrivals[submitted] - time.perf_counter()))
+            continue
+        if swap_params is not None and not swapped and len(lats) >= n // 2:
+            engine.store.publish(swap_params)
+            swapped = True
+        for r in engine.step():
+            lats.append(r["latency_s"])
+            versions.add(r["version"])
+        last_done = time.perf_counter()
+    lat_ms = np.asarray(lats) * 1e3
+    return {"p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "throughput_rps": n / (last_done - start),
+            "offered_rps": load_rps, "n": n,
+            "hot_swaps": int(swapped), "versions": len(versions)}
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.serve_policy",
+        description="Batched low-latency policy serving: offered-load "
+                    "p50/p99 over repro_torch.core.serving.")
+    ap.add_argument("--algo", default="ppo", choices=ALGOS)
+    ap.add_argument("--env", default="cartpole", metavar="ENV",
+                    help="registered environment (repro_torch.envs)")
+    ap.add_argument("--load", default="300,1200", metavar="RPS,RPS,...",
+                    help="offered loads in requests/second; one cell per "
+                         "load x bucket-config")
+    ap.add_argument("--buckets", default="1,4,16;8,32",
+                    metavar="B,B;B,...",
+                    help="bucket configurations: semicolon-separated, "
+                         "each an ascending comma list of micro-batch "
+                         "sizes a request batch is padded to")
+    ap.add_argument("--requests", type=int, default=600,
+                    help="requests replayed per cell")
+    ap.add_argument("--train-iters", type=int, default=0,
+                    help="Trainer iterations before serving; must be 0 "
+                         "(serve the freshly initialized policy) until "
+                         "the Trainer is ported")
+    ap.add_argument("--ckpt", default=None, metavar="PATH",
+                    help="serve the behaviour params of a reference "
+                         "Trainer archive (.ring/ slot 0)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default: the card)")
+    ap.add_argument("--quick", action="store_true",
+                    help="smoke: fewer requests, default loads 500,2000 "
+                         "and buckets 4,16;16")
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.quick:
+        if args.load == ap.get_default("load"):
+            args.load = "500,2000"
+        if args.buckets == ap.get_default("buckets"):
+            args.buckets = "4,16;16"
+        if args.requests == ap.get_default("requests"):
+            args.requests = 160
+    try:
+        loads = parse_loads(args.load)
+        configs = parse_buckets(args.buckets)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.algo == "dqn":
+        ap.error("--algo dqn serves the DQN Q-network, which is ported "
+                 "with the DQN slice (ROADMAP queue 1, item 7)")
+    if args.train_iters > 0 and args.ckpt is None:
+        ap.error("--train-iters > 0 needs the Trainer, which is not "
+                 "ported yet: pass --train-iters 0 or --ckpt PATH")
+
+    import repro_torch.envs as envs
+    from repro_torch.core.networks import MLPPolicy
+    from repro_torch.core.serving import ParamStore, ServeEngine
+    from repro_torch.kernels.common import resolve_device
+
+    if args.env not in envs.available():
+        ap.error(f"--env {args.env} not registered; available: "
+                 f"{envs.available()}")
+    device = resolve_device(args.device)
+    env = envs.make(args.env)
+    spec = env.spec
+    policy = MLPPolicy.for_spec(spec, hidden=HIDDEN, device=device)
+    template = policy.init(torch.Generator().manual_seed(args.seed))
+    store = ParamStore()
+    if args.ckpt is not None:
+        store.load_checkpoint(args.ckpt, template)
+        source = "checkpoint"
+    else:
+        store.publish(template)
+        source = "fresh-init"
+    # the hot-swap payload: same shapes (template-validated), fresh
+    # values — published mid-cell
+    _, base_params = store.get()
+    swap_params = {k: v * (1 + 1e-3) if v.is_floating_point() else v
+                   for k, v in base_params.items()}
+    obs_rows = spec.observation.sample(
+        torch.Generator().manual_seed(args.seed + 1),
+        min(args.requests, 256)).numpy()
+
+    cells = []
+    warmup_compiles = total_compiles = hot_swaps = 0
+    for cfg_b in configs:
+        engine = ServeEngine(policy, spec.observation, buckets=cfg_b,
+                             store=store, seed=args.seed, device=device)
+        warmup_compiles += engine.warmup()
+        tag = "-".join(str(b) for b in cfg_b)
+        for load in loads:
+            cell = run_offered_load(engine, obs_rows, load, args.requests,
+                                    swap_params=swap_params)
+            hot_swaps += cell["hot_swaps"]
+            cells.append(dict(cell, buckets=tag))
+        total_compiles += engine.compile_count
+    print(json.dumps({
+        "algo": args.algo, "env": args.env, "loads": list(loads),
+        "bucket_configs": [list(c) for c in configs],
+        "requests_per_cell": args.requests,
+        "param_version": store.version,
+        "warmup_compiles": warmup_compiles,
+        "recompiles_after_warmup": total_compiles - warmup_compiles,
+        "hot_swaps": hot_swaps, "train_s": 0.0, "source": source,
+        "device": str(device), "cells": cells}))
+
+
+if __name__ == "__main__":
+    main()

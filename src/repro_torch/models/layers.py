@@ -1,0 +1,164 @@
+"""Shared primitive layers: parameter templates and init, norms, RoPE,
+SwiGLU MLP, embeddings.
+
+Parameters live as shape templates on the meta device inside
+`nn.Module`s; their values are a flat dict of tensors named by the JAX
+key path ("lm/stack/0/t0/mixer/wq"), made by `init_params` and handed to
+the module through `apply_params` (torch.func.functional_call). So the
+weights are inputs, and a hot swap changes only tensor contents.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+
+# -- parameter templates ----------------------------------------------------
+
+def dense_init(generator, shape, scale=None):
+    """Truncated-normal (±2) fan-in init, stored f32, drawn on the CPU from
+    `generator` so a seed gives the same weights on every device."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else fan_in ** -0.5
+    t = torch.empty(shape, dtype=torch.float32)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t * scale
+
+
+def dense(scale=None):
+    return lambda generator, shape: dense_init(generator, shape, scale)
+
+
+def const(value):
+    return lambda generator, shape: torch.full(shape, float(value))
+
+
+ones, zeros = const(1.0), const(0.0)
+
+
+def add_param(module: nn.Module, name: str, shape, init) -> None:
+    """Register a meta-device template `name` of `shape` on `module`;
+    `init(generator, shape)` makes its value in `init_params`."""
+    module.register_parameter(name, nn.Parameter(
+        torch.empty(tuple(shape), device="meta"), requires_grad=False))
+    if "_inits" not in module.__dict__:
+        module._inits = {}
+    module._inits[name] = (tuple(shape), init)
+
+
+class Params(nn.Module):
+    """A leaf group of named parameter templates, e.g.
+    `Params(w=((d, f), dense()), b=((f,), zeros))`. Indexable by name,
+    like the reference's param dicts."""
+
+    def __init__(self, **specs):
+        super().__init__()
+        for name, (shape, init) in specs.items():
+            add_param(self, name, shape, init)
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def __contains__(self, name):
+        return name in self._inits
+
+
+def init_params(module: nn.Module, generator, device="cpu") -> dict:
+    """Fresh values for every template under `module`, keyed by JAX key
+    path, drawn in module order from `generator` and moved to `device`."""
+    out = {}
+    for prefix, mod in module.named_modules():
+        for name, (shape, init) in mod.__dict__.get("_inits", {}).items():
+            key = f"{prefix}.{name}" if prefix else name
+            out[key.replace(".", "/")] = init(generator, shape).to(device)
+    return out
+
+
+def apply_params(module: nn.Module, params: dict, *args):
+    """Run `module(*args)` on the flat `params` (JAX key paths)."""
+    named = {k.replace("/", "."): v for k, v in params.items()}
+    return functional_call(module, named, args, strict=True)
+
+
+# -- norms ------------------------------------------------------------------
+
+def norm_params(cfg) -> Params:
+    if cfg.norm == "layernorm":
+        return Params(scale=((cfg.d_model,), ones),
+                      bias=((cfg.d_model,), zeros))
+    return Params(scale=((cfg.d_model,), ones))
+
+
+def apply_norm(params, x, eps=1e-6):
+    xf = x.float()
+    if "bias" in params:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * params["scale"] + params["bias"]
+    else:  # rmsnorm
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * params["scale"]
+    return y.to(x.dtype)
+
+
+# -- rotary embeddings ------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: broadcastable to (..., S). The
+    half-split rotation [x1·cos − x2·sin, x2·cos + x1·sin]."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    angles = positions[..., None].float() * freqs           # (..., S, D/2)
+    angles = angles[..., None, :]                           # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- MLP --------------------------------------------------------------------
+
+def mlp_params(cfg, d_ff=None) -> Params:
+    d_ff = d_ff or cfg.d_ff
+    return Params(wi=((cfg.d_model, d_ff), dense()),
+                  wg=((cfg.d_model, d_ff), dense()),
+                  wo=((d_ff, cfg.d_model), dense()))
+
+
+def apply_mlp(params, x):
+    """SwiGLU."""
+    h = torch.einsum("...d,df->...f", x, params["wi"].to(x.dtype))
+    g = torch.einsum("...d,df->...f", x, params["wg"].to(x.dtype))
+    h = nn.functional.silu(g) * h
+    return torch.einsum("...f,fd->...d", h, params["wo"].to(x.dtype))
+
+
+# -- embeddings -------------------------------------------------------------
+
+def embed_params(cfg) -> Params:
+    specs = {"tok": ((cfg.vocab, cfg.d_model), dense(cfg.d_model ** -0.5))}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ((cfg.d_model, cfg.vocab), dense())
+    return Params(**specs)
+
+
+def embed_tokens(params, tokens, cfg, dtype):
+    x = params["tok"][tokens].to(dtype)
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+    return x
+
+
+def unembed(params, x, cfg):
+    if cfg.tie_embeddings:
+        w = params["tok"].to(x.dtype).T
+    else:
+        w = params["unembed"].to(x.dtype)
+    return torch.einsum("...d,dv->...v", x, w)

@@ -1,0 +1,171 @@
+"""Weights carried between the JAX package and the port: the convert
+round trip, npz archives written by either package restoring into the
+other, and a JAX Trainer archive (its `.ring/...` actor-param history)
+served by the port with the JAX policy's logits and value.
+
+Round trips are bitwise; policy outputs are held to f32 atol = rtol =
+2e-5 (the same math summed in another order)."""
+import io
+import json
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.envs as jenvs
+import repro_torch.envs as tenvs
+from repro.checkpoint.ckpt import load_checkpoint as jax_load
+from repro.checkpoint.ckpt import save_checkpoint as jax_save
+from repro.configs.base import ATTN as JAX_ATTN
+from repro.configs.base import ModelConfig as JaxConfig
+from repro.core import agent as jax_agents
+from repro.core.networks import TrunkPolicy as JaxTrunk
+from repro_torch.checkpoint import (load_actor_policy, load_checkpoint,
+                                    params_from_jax, params_to_jax,
+                                    save_checkpoint)
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.core.networks import MLPPolicy, TrunkPolicy
+from repro_torch.core.serving import ParamStore
+from repro_torch.launch import serve_policy
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+SMALL = dict(name="small-trunk", family="dense", n_layers=3, d_model=32,
+             n_heads=4, n_kv_heads=2, d_ff=64, vocab=64)
+
+
+def _jax_trunk_params(spec_name="pendulum"):
+    spec = jenvs.make(spec_name).spec
+    pol = JaxTrunk.for_spec(spec, arch=JaxConfig(
+        **SMALL, layer_pattern=(JAX_ATTN,)), reduced=False)
+    return pol, pol.init(jax.random.PRNGKey(0))
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _assert_trees_equal(a, b):
+    la, ta = jax.tree_util.tree_flatten_with_path(a)
+    lb, tb = jax.tree_util.tree_flatten_with_path(b)
+    assert ta == tb
+    for (pa, xa), (pb, xb) in zip(la, lb):
+        assert pa == pb
+        assert np.asarray(xa).dtype == np.asarray(xb).dtype, pa
+        np.testing.assert_array_equal(np.asarray(xa), np.asarray(xb))
+
+
+def test_convert_round_trip_is_bitwise():
+    _, jparams = _jax_trunk_params()
+    tree = _np_tree(jparams)
+    flat = params_from_jax(tree)
+    # stacked super-blocks split per block: (repeats,) leading dim gone
+    assert flat["lm/stack/2/t0/mixer/wq"].shape == (32, 4, 8)
+    np.testing.assert_array_equal(flat["lm/stack/1/t0/ffn/wi"].numpy(),
+                                  tree["lm"]["stack"]["t0"]["ffn"]["wi"][1])
+    # params a mode does not use ride along (feature mode: the embedding)
+    assert "lm/embed/tok" in flat and "lm/embed/unembed" in flat
+    _assert_trees_equal(params_to_jax(flat), tree)
+    back = params_from_jax(params_to_jax(flat))
+    assert sorted(back) == sorted(flat)
+    for k in flat:
+        assert torch.equal(back[k], flat[k]), k
+
+
+def test_jax_archive_loads_into_port(tmp_path):
+    _, jparams = _jax_trunk_params()
+    path = jax_save(str(tmp_path / "jax.npz"), jparams, step=7)
+    template = TrunkPolicy.for_spec(
+        tenvs.make("pendulum").spec, arch=ModelConfig(
+            **SMALL, layer_pattern=(ATTN,)), reduced=False,
+        device="cpu").init(torch.Generator())
+    got, step = load_checkpoint(path, template)
+    assert step == 7
+    want = params_from_jax(_np_tree(jparams))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_port_archive_loads_into_jax(tmp_path):
+    pol, jparams = _jax_trunk_params()
+    params = params_from_jax(_np_tree(jparams))
+    path = save_checkpoint(str(tmp_path / "port.npz"), params, step=3)
+    example = pol.init(jax.random.PRNGKey(1))
+    tree, step = jax_load(path, example)
+    assert step == 3
+    _assert_trees_equal(tree, jparams)
+
+
+def _trainer_archive(tmp_path, algo, fit):
+    """A JAX Trainer TrainState archive: fitted for two iterations with a
+    two-slot actor ring, or (cheaper) freshly initialised."""
+    env = jenvs.make("cartpole")
+    if fit:
+        from repro.core.trainer import Trainer, TrainerConfig
+        cfg = TrainerConfig(algo=algo, iters=2, superstep=1, n_envs=4,
+                            unroll=4, policy_lag=1, seed=0, log_every=1)
+        trainer = Trainer(env, cfg)
+        state, _ = trainer.fit()
+        agent = trainer.agent
+    else:
+        agent = jax_agents.make(algo, env, ring_size=1, total_iters=1)
+        state = agent.init(jax.random.PRNGKey(0))
+    path = jax_save(str(tmp_path / f"{algo}.npz"), state)
+    return agent, state, path
+
+
+def _serve_outputs(path, agent, state, delay):
+    spec = tenvs.make("cartpole").spec
+    policy = MLPPolicy.for_spec(spec, hidden=serve_policy.HIDDEN,
+                                device="cpu")
+    store = ParamStore()
+    store.load_checkpoint(path, policy.init(torch.Generator()), delay)
+    _, params = store.get()
+    obs = np.random.default_rng(0).standard_normal((5, 4)).astype(np.float32)
+    got = policy.apply(params, torch.tensor(obs))
+    want = agent.policy.apply(agent.actor_policy(state, delay),
+                              jnp.asarray(obs))
+    return got, want
+
+
+@pytest.mark.parametrize("algo", ["a3c", "impala", "ppo"])
+def test_trainer_archive_serves_jax_policy(algo, tmp_path):
+    agent, state, path = _trainer_archive(tmp_path, algo, fit=False)
+    for got, want in zip(*_serve_outputs(path, agent, state, 0)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_fitted_trainer_archive_serves_each_ring_slot(tmp_path):
+    """After two PPO updates with a two-slot ring, slot `delay` of the
+    archive is what `agent.actor_policy(state, delay)` serves."""
+    agent, state, path = _trainer_archive(tmp_path, "ppo", fit=True)
+    outs = []
+    for delay in (0, 1):
+        got, want = _serve_outputs(path, agent, state, delay)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        outs.append(got[0])
+    assert not torch.equal(outs[0], outs[1])  # the slots differ
+
+
+def test_cli_serves_a_trainer_archive(tmp_path):
+    _, _, path = _trainer_archive(tmp_path, "impala", fit=False)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_policy.main(["--device", "cpu", "--algo", "impala",
+                           "--ckpt", path, "--train-iters", "5",
+                           "--load", "4000", "--buckets", "4",
+                           "--requests", "12"])
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert out["source"] == "checkpoint" and out["device"] == "cpu"
+    assert out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 1
+
+
+def test_archive_without_ring_is_refused(tmp_path):
+    _, jparams = _jax_trunk_params()
+    path = jax_save(str(tmp_path / "plain.npz"), jparams)
+    with pytest.raises(KeyError, match="ring"):
+        load_actor_policy(path, {})
