@@ -6,15 +6,28 @@
 Phases, in order; the script exits non-zero at the first failure:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions, the TF32 flags (both set False), and the kernel build;
-  2. kernels: every kernel of the path against its plain PyTorch version
-     on the card at the path's shapes, with times for the kernel, the
+  2. kernels: every kernel of the paths against its plain PyTorch version
+     on the card at the paths' shapes, with times for the kernel, the
      plain version and the PyTorch library call computing the same
-     function (a yardstick only; the port never calls it);
+     function where there is one (a yardstick only; the port never calls
+     it): flash attention, then the discounted-return scan, its adjoint
+     and V-trace at (T, B) = (32, 32) (the training path), (32, 4096) and
+     (2048, 128);
   3. slice: the full-width `paper-drl-trunk` policy served through
      ServeEngine for cartpole and pendulum at 500 and 2000 offered
      requests/s, with a hot swap in every cell; the kernel's launch count
      over that run must be 4 (one per layer) per dispatch;
-  4. CLI: `repro_torch.launch.serve_policy --train-iters 0 --quick`.
+  4. training: `repro_torch.launch.rl_train` at the default config
+     (60 iterations of 32 envs x 32 steps, MLP (64, 64)) on cartpole for
+     ppo and a3c, impala through `Trainer` with the V-trace kernel, and
+     ppo on pendulum for 20 iterations; each run checks finite losses,
+     its kernels' launch counts per iteration, and (cartpole) a learning
+     bar on the mean of the last two logged episode returns;
+  5. path agreement: one learner_step per algorithm from one state and
+     trajectory, kernels on against the plain scans, on the card;
+  6. the flash-attention kernel raises on an input that requires grad;
+  7. CLI: `repro_torch.launch.serve_policy --quick` (trains 4 iterations
+     in-process, then serves).
 It then prints the kernels' JSON line and, last, the device line.
 """
 import contextlib
@@ -39,6 +52,12 @@ KERNEL_CASES = [SERVE_CASE,
                 (2, 2, 2, 96, 32, False, 0),
                 (1, 2, 1, 512, 256, True, 0)]
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SM_CLOCK_HZ = 1.98e9          # H100 SXM boost clock
+FMA_CYCLES = 4                # latency of one dependent f32 FMA
+SCAN_SHAPES = [(32, 32), (32, 4096), (2048, 128)]  # (T, B); first = path
+# learning bars on the mean of the last two logged returns (cartpole,
+# default config): about half of what the JAX package reaches
+BARS = {"ppo": 50.0, "a3c": 30.0, "impala": 30.0}
 
 
 def fail(msg):
@@ -171,6 +190,80 @@ def phase_kernels():
     return results
 
 
+def scan_tol(T):
+    """nvcc contracts `b + c*acc` into one FMA, the plain loop rounds
+    twice: rtol = atol = 1e-5 at T <= 128, 1e-4 at T = 2048."""
+    return 1e-5 if T <= 128 else 1e-4
+
+
+def phase_scan_kernels():
+    """The discounted-return scan, its adjoint and V-trace against their
+    plain versions on the card; returns {name: row at the path shape}."""
+    import torch
+    from repro_torch.kernels.advantages.kernel import (
+        discounted_return_adjoint_tb, discounted_return_tb)
+    from repro_torch.kernels.advantages.ref import (
+        discounted_return_adjoint_ref, discounted_return_ref)
+    from repro_torch.kernels.vtrace.kernel import vtrace_tb
+    from repro_torch.kernels.vtrace.ref import vtrace_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    path = {}
+    for T, B in SCAN_SHAPES:
+        def mat(scale=1.0):
+            return scale * torch.randn((T, B), generator=gen, device="cuda")
+        base, g, rew, val = mat(), mat(), mat(), mat()
+        coef = 0.99 * torch.rand((T, B), generator=gen, device="cuda")
+        init = torch.randn((B,), generator=gen, device="cuda")
+        log_rhos = mat(0.5)
+        out = discounted_return_ref(base, coef, init)
+        cases = {
+            # name: (kernel, plain, bytes moved, f32 operations per (t, b))
+            "discounted_return_tb": (
+                lambda: (discounted_return_tb(base, coef, init),),
+                lambda: (discounted_return_ref(base, coef, init),),
+                4 * (3 * T * B + B), 2),
+            "discounted_return_adjoint_tb": (
+                lambda: discounted_return_adjoint_tb(g, coef, out, init),
+                lambda: discounted_return_adjoint_ref(g, coef, out, init),
+                4 * (5 * T * B + 2 * B), 3),
+            "vtrace_tb": (
+                lambda: vtrace_tb(log_rhos, coef, rew, val, init),
+                lambda: vtrace_ref(log_rhos, coef, rew, val, init),
+                4 * (6 * T * B + B), 16),
+        }
+        tol = scan_tol(T)
+        for name, (kernel, plain, nbytes, ops_per) in cases.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err = 0.0
+            for a, b in zip(got, want):
+                check(torch.isfinite(a).all().item(),
+                      f"{name} non-finite at {(T, B)}")
+                check(bool(((a - b).abs() <= tol + tol * b.abs()).all()),
+                      f"{name} {(T, B)} outside rtol = atol = {tol}")
+                err = max(err, (a - b).abs().max().item())
+            ms = cuda_time_ms(kernel, 200)
+            plain_ms = cuda_time_ms(plain, 5 if T > 128 else 50, warmup=2)
+            t_bytes = nbytes / H100_BYTES_PER_S
+            # operations: the larger of their count over the f32 peak and
+            # the serial chain of T dependent FMAs each column must run
+            t_chain = T * FMA_CYCLES / SM_CLOCK_HZ
+            t_ops = max(ops_per * T * B / PEAK_OPS["float32"], t_chain)
+            row = {"name": name, "shape": [T, B], "max_abs_err": err,
+                   "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations", "bytes": nbytes,
+                   "ops": ops_per * T * B, "chain_ms": t_chain * 1e3}
+            print("kernel_case " + json.dumps(row))
+            if (T, B) == SCAN_SHAPES[0]:
+                path[name] = row
+    print("kernels_checked " + json.dumps({"kernels": sorted(path)}))
+    return path
+
+
 def phase_slice(card):
     import numpy as np
     import torch
@@ -256,13 +349,143 @@ def phase_slice(card):
     return launches
 
 
+def scan_counters():
+    from repro_torch.kernels.advantages.kernel import (
+        discounted_return_adjoint_tb, discounted_return_tb)
+    from repro_torch.kernels.vtrace.kernel import vtrace_tb
+    return {f.__name__: f for f in (discounted_return_tb,
+                                    discounted_return_adjoint_tb,
+                                    vtrace_tb)}
+
+
+def phase_training(card, scan_rows):
+    """Drive the training path; returns the launch counts of the run."""
+    import torch
+    import repro_torch.envs as envs
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.launch.rl_train import main as rl_main
+    counters = scan_counters()
+    cfg = TrainerConfig()          # the default config: 60 x 32 x 32
+
+    def rl_train(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rl_main(argv)
+        return json.loads(buf.getvalue().strip().splitlines()[-1])["history"]
+
+    def trainer(algo, **algo_kwargs):
+        return Trainer(envs.make("cartpole"), TrainerConfig(
+            algo=algo, algo_kwargs=algo_kwargs)).fit()[1]
+
+    # (label, algo, env, iters, run it, launches per iteration)
+    runs = [
+        ("ppo", "ppo", "cartpole", cfg.iters,
+         lambda: rl_train(["--algo", "ppo", "--env", "cartpole"]),
+         {"discounted_return_tb": 1}),
+        ("a3c", "a3c", "cartpole", cfg.iters,
+         lambda: rl_train(["--algo", "a3c", "--env", "cartpole"]),
+         {"discounted_return_tb": 1, "discounted_return_adjoint_tb": 1}),
+        ("impala", "impala", "cartpole", cfg.iters,
+         lambda: trainer("impala", use_kernel=True), {"vtrace_tb": 1}),
+        ("ppo-pendulum", "ppo", "pendulum", 20,
+         lambda: rl_train(["--algo", "ppo", "--env", "pendulum",
+                           "--iters", "20"]),
+         {"discounted_return_tb": 1}),
+    ]
+    for fn in counters.values():
+        fn.launches = 0
+    totals = dict.fromkeys(counters, 0)
+    for label, algo, env, iters, drive, per_iter in runs:
+        before = {n: f.launches for n, f in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = drive()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: f.launches - before[n] for n, f in counters.items()}
+        want = {n: per_iter.get(n, 0) * iters for n in counters}
+        check(got == want, f"{label}: kernel launches {got}, expected "
+                           f"{want}")
+        check(all(math.isfinite(h["loss"]) for h in hist),
+              f"{label}: non-finite loss in {hist}")
+        rets = [h["episode_return"] for h in hist[-2:]]
+        mean_ret = sum(rets) / len(rets)
+        check(math.isfinite(mean_ret), f"{label}: returns {rets}")
+        if env == "cartpole":
+            check(mean_ret >= BARS[algo],
+                  f"{label}: mean of the last two logged returns "
+                  f"{mean_ret} below the bar {BARS[algo]}")
+        env_steps = iters * cfg.n_envs * cfg.unroll
+        share = {n: got[n] * scan_rows[n]["ms"] / (wall * 1e3)
+                 for n in counters if got[n]}
+        print("train_run " + json.dumps({
+            "run": label, "algo": algo, "env": env, "iters": iters,
+            "n_envs": cfg.n_envs, "unroll": cfg.unroll, "wall_s": wall,
+            "ms_per_iter": wall * 1e3 / iters,
+            "env_steps_per_s": env_steps / wall, "launches": got,
+            "kernel_share_of_wall": share, "last_returns": rets,
+            "mean_last_two": mean_ret, "bar": BARS.get(algo)
+            if env == "cartpole" else None, "history": hist, "card": card}))
+        for n in counters:
+            totals[n] += got[n]
+    return totals
+
+
+def phase_path_agreement():
+    """One learner_step per algorithm from the same state and trajectory,
+    with the kernels and with the plain scans, on the card."""
+    import torch
+    import repro_torch.envs as envs
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.rollout import rollout_fresh
+    env = envs.make("cartpole")
+    for algo in ("ppo", "a3c", "impala"):
+        kern = agent_api.make(algo, env=env, use_kernel=True)
+        plain = agent_api.make(algo, env=env, use_kernel=False)
+        state = kern.init(torch.Generator().manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        traj, env_state = rollout_fresh(kern.policy, kern.actor_policy(
+            state, 0), env, gen, 32, 32)
+        boot = env.obs(env_state)
+        if algo == "ppo":
+            perms = torch.rand((kern.n_epochs, 32 * 32), generator=gen,
+                               device="cuda").argsort(dim=-1, stable=True)
+            a, la = kern.learner_step_perms(state, traj, boot, perms)
+            b, lb = plain.learner_step_perms(state, traj, boot, perms)
+        else:
+            a, la = kern.learner_step(state, traj, boot)
+            b, lb = plain.learner_step(state, traj, boot)
+        err = max((a.params[k] - b.params[k]).abs().max().item()
+                  for k in a.params)
+        check(err <= 1e-5, f"{algo}: kernel vs plain learner_step params "
+                           f"max_abs_err {err} > 1e-5")
+        print(f"path {algo}: kernels vs plain learner_step params "
+              f"max_abs_err {err:.3e}, loss {la['loss'].item():.6f} vs "
+              f"{lb['loss'].item():.6f}")
+
+
+def phase_flash_guard():
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_hsd
+    q = torch.randn((1, 2, 4, 64), device="cuda", requires_grad=True)
+    k = torch.randn((1, 1, 4, 64), device="cuda")
+    try:
+        flash_attention_hsd(q, k, k)
+    except RuntimeError as e:
+        print(f"flash guard: raised under grad: {e}")
+    else:
+        fail("flash_attention_hsd ran on an input that requires grad")
+
+
 def phase_cli():
     from repro_torch.launch.serve_policy import main as serve_main
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        serve_main(["--train-iters", "0", "--quick"])
+        serve_main(["--quick"])
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     check(out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 4
+          and out["source"] == "trained-in-process"
           and out["device"].startswith("cuda"), f"CLI summary {out}")
     print("cli " + json.dumps(out))
 
@@ -275,18 +498,35 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a card")
     card = phase_device()
     cases = phase_kernels()
+    scan_rows = phase_scan_kernels()
     launches = phase_slice(card)
+    train_launches = phase_training(card, scan_rows)
+    phase_path_agreement()
+    phase_flash_guard()
     phase_cli()
     serve = cases[(SERVE_CASE, "float32")]
-    print(json.dumps({"kernels": [{
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels = [dict({
         "name": "flash_attention_hsd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-        "launches": launches, "max_abs_err": serve["max_abs_err"],
-        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
-        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
-        "library_ms": serve["library_ms"]}]}))
+        "launches": launches}, **{k: serve[k] for k in keys})]
+    replaces = {
+        "discounted_return_tb": "src/repro/kernels/advantages/kernel.py:43",
+        "discounted_return_adjoint_tb":
+            "src/repro/kernels/advantages/kernel.py:43",
+        "vtrace_tb": "src/repro/kernels/vtrace/kernel.py:55"}
+    for name, row in scan_rows.items():
+        src = "vtrace/csrc/vtrace.cu" if name == "vtrace_tb" \
+            else "advantages/csrc/advantages.cu"
+        kernels.append(dict({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{src}",
+            "replaces": replaces[name],
+            "launches": train_launches[name]}, **{k: row[k] for k in keys}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

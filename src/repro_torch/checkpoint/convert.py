@@ -1,5 +1,5 @@
-"""Weights carried between the reference's param pytrees and the port's
-flat params.
+"""Weights and train states carried between the reference's pytrees and
+the port's flat params.
 
 The reference keeps a LanguageModel's repeated super-blocks stacked:
 every leaf under `.../stack/t<t>/...` has a leading (repeats,) dim from a
@@ -96,3 +96,28 @@ def params_to_jax(params) -> dict:
     for jkey, blocks in stacked.items():
         flat[jkey] = np.stack([blocks[r] for r in range(len(blocks))])
     return unflatten_tree(flat)
+
+
+def train_state_from_jax(state):
+    """A reference `TrainState` with numpy leaves (`tree_map(np.asarray,
+    ·)`) -> the port's TrainState on the CPU: params, the optimizer state
+    (the adamw `step`, `m` and `v`, or any dict of such trees), the
+    actor-param ring and the `steps` counter, key paths as
+    `params_from_jax` gives them."""
+    from repro_torch.core.agent import TrainState
+    if state.extra:
+        raise ValueError(f"TrainState.extra {sorted(state.extra)} is "
+                         f"algorithm state (the DQN replay) that the DQN "
+                         f"slice carries across")
+
+    def leaf_or_tree(v):
+        if v is None:
+            return None
+        if isinstance(v, (dict, list, tuple)):
+            return params_from_jax(v)
+        return torch.tensor(np.asarray(v))
+
+    opt_state = {k: leaf_or_tree(v) for k, v in state.opt_state.items()}
+    return TrainState(params_from_jax(state.params), opt_state, {},
+                      params_from_jax(state.ring),
+                      torch.tensor(np.asarray(state.steps)))

@@ -29,7 +29,7 @@ from repro_torch.models.layers import (Params, add_param, apply_norm,
 _M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
-def _splitmix64(x):
+def splitmix64(x):
     """SplitMix64 finalizer over a uint64 array (wrapping arithmetic)."""
     x = x + np.uint64(0x9E3779B97F4A7C15)
     x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
@@ -41,10 +41,10 @@ def request_uniforms(seed: int, ids, n: int) -> np.ndarray:
     """(len(ids), n) float64 uniforms in (0, 1), each a pure function of
     (seed, request id, column): a counter-based hash, vectorized."""
     with np.errstate(over="ignore"):
-        key = _splitmix64(np.array([int(seed) & int(_M64)], np.uint64))
+        key = splitmix64(np.array([int(seed) & int(_M64)], np.uint64))
         ids = np.asarray(ids, np.int64).astype(np.uint64)[:, None]
         cols = np.arange(n, dtype=np.uint64)[None, :]
-        bits = _splitmix64(_splitmix64(key ^ ids) ^ cols)
+        bits = splitmix64(splitmix64(key ^ ids) ^ cols)
     return ((bits >> np.uint64(11)).astype(np.float64) + 0.5) * 2.0 ** -53
 
 
@@ -82,6 +82,17 @@ class _ActorCritic(nn.Module):
         u = request_uniforms(seed, ids, 2 * w)
         z = np.sqrt(-2.0 * np.log(u[:, :w])) * np.cos(2 * np.pi * u[:, w:])
         return z.astype(np.float32)
+
+    def sample_noise(self, generator, n) -> torch.Tensor:
+        """(n, noise_dim) f32 sampling noise drawn from `generator` on its
+        device: Gumbel for a categorical head, standard normal for the
+        Gaussian head (the rollout's per-step draw)."""
+        shape, dev = (n, self.noise_dim), generator.device
+        if self.discrete:
+            u = torch.rand(shape, generator=generator, device=dev)
+            tiny = torch.finfo(torch.float32).tiny
+            return -torch.log(-torch.log(u.clamp_min(tiny)))
+        return torch.randn(shape, generator=generator, device=dev)
 
     def _dist_sample(self, params, pi, noise):
         """Draw (action, log_prob) from the head output `pi` with `noise`

@@ -85,6 +85,11 @@ class ParamStore:
         self._params = params
         return self._version
 
+    def publish_from_state(self, agent, state, delay: int = 0) -> int:
+        """Publish what `agent.actor_policy(state, delay)` serves the
+        rollout: the live actor-param ring view of a Trainer state."""
+        return self.publish(agent.actor_policy(state, delay))
+
     def load_checkpoint(self, path, template, delay: int = 0) -> int:
         """Publish the behaviour params of a reference Trainer archive
         (its `.ring/...` slot `delay`), shaped like `template`."""

@@ -50,6 +50,7 @@ class Env:
                                f"available: {sorted(base)}")
         self._scenario = base
         self._ranges = dict(ranges or {})
+        self._scenario_on = {}   # device -> the scenario moved there
 
     # -- the contract --------------------------------------------------
     @property
@@ -89,8 +90,11 @@ class Env:
         """Draw `n` scenarios: base values with `ranges` entries sampled
         uniformly (integers inclusive, floats half-open) per episode."""
         dev = generator.device
-        scn = {k: v.to(dev).expand((n,) + v.shape).clone()
-               for k, v in self._scenario.items()}
+        if dev not in self._scenario_on:  # one host-to-device copy
+            self._scenario_on[dev] = {k: v.to(dev)
+                                      for k, v in self._scenario.items()}
+        scn = {k: v.expand((n,) + v.shape).clone()
+               for k, v in self._scenario_on[dev].items()}
         for name in sorted(self._ranges):
             lo, hi = self._ranges[name]
             base = scn[name]

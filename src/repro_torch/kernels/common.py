@@ -113,3 +113,27 @@ def check_launch(dll, code: int, name: str) -> None:
     if code != 0:
         msg = dll.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def mat_args(t):
+    """A (T, B) tensor as the kernels' (pointer, row stride, column
+    stride) arguments, strides in elements."""
+    return t.data_ptr(), t.stride(0), t.stride(1)
+
+
+def check_tb(name, T, B, mats, vecs):
+    """Raise unless every (T, B) matrix in `mats` and (B,) vector in
+    `vecs` is float32 on one device, with 1 <= T, B < 2^31."""
+    dev = mats[0].device
+    for t in (*mats, *vecs):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on different devices")
+    if any(tuple(t.shape) != (T, B) for t in mats) or \
+            any(tuple(t.shape) != (B,) for t in vecs):
+        raise ValueError(f"{name}: expected (T, B) = {(T, B)} matrices and "
+                         f"({B},) vectors, got "
+                         f"{[tuple(t.shape) for t in (*mats, *vecs)]}")
+    if not (1 <= T < 2 ** 31 and 1 <= B < 2 ** 31):
+        raise ValueError(f"{name}: T={T}, B={B} outside [1, 2^31)")

@@ -36,6 +36,14 @@ def flash_attention_hsd(q, k, v, *, causal=True, window=0, valid_len=None):
     if not q.is_cuda:
         return attention_ref(q, k, v, causal=causal, window=window,
                              valid_len=valid_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel writes through ctypes: its output has no grad_fn, so
+        # running it here would train without an attention gradient
+        raise RuntimeError(
+            "flash_attention_hsd: q, k or v requires grad, but the "
+            "flash-attention backward kernel is not ported yet (slice 4, "
+            "with --policy trunk training); run under torch.no_grad() / "
+            "inference_mode, or use use_kernels=False to train")
     B, H, S, D = q.shape
     KVH = k.shape[1]
     if k.shape != (B, KVH, S, D) or v.shape != k.shape:

@@ -5,18 +5,18 @@ src/repro/launch/serve_policy.py).
   PYTHONPATH=src python -m repro_torch.launch.serve_policy --algo ppo \
       --env cartpole --load 500,2000 --buckets "1,4,16;16" --quick
 
-Publishes the MLP policy of the chosen algorithm (freshly initialized
-from --seed, or restored from a reference Trainer archive with --ckpt)
-into a versioned ParamStore, then replays an open-loop arrival process
+Publishes the MLP policy of the chosen algorithm (trained in-process
+for --train-iters Trainer iterations, freshly initialized from --seed
+with --train-iters 0, or restored from a reference Trainer archive with
+--ckpt) into a versioned ParamStore, then replays an open-loop arrival process
 at each offered load (requests/second) against each bucket
 configuration: requests are admitted FIFO, padded to the smallest
 fitting bucket (one program per bucket, pinned flat), and hot-swapped
 onto fresh params halfway through every cell. Latency is charged from
 the *scheduled* arrival. Prints one JSON summary line.
 
-The Trainer is not ported yet, so `--train-iters` must be 0 unless
-`--ckpt` is given, and `--algo dqn` (whose served policy is the DQN
-Q-network) is refused until the DQN slice.
+`--algo dqn` (whose served policy is the DQN Q-network) is refused
+until the DQN slice.
 """
 from __future__ import annotations
 
@@ -86,7 +86,10 @@ def run_offered_load(engine, obs_rows, load_rps, n, swap_params=None):
             time.sleep(max(0.0,
                            arrivals[submitted] - time.perf_counter()))
             continue
-        if swap_params is not None and not swapped and len(lats) >= n // 2:
+        # halfway, or before the last dispatch when a slow host serves
+        # the second half in one step: old and new params both answer
+        if swap_params is not None and not swapped and lats and (
+                len(lats) >= n // 2 or submitted == n):
             engine.store.publish(swap_params)
             swapped = True
         for r in engine.step():
@@ -119,10 +122,9 @@ def build_parser():
                          "sizes a request batch is padded to")
     ap.add_argument("--requests", type=int, default=600,
                     help="requests replayed per cell")
-    ap.add_argument("--train-iters", type=int, default=0,
-                    help="Trainer iterations before serving; must be 0 "
-                         "(serve the freshly initialized policy) until "
-                         "the Trainer is ported")
+    ap.add_argument("--train-iters", type=int, default=20,
+                    help="Trainer iterations before serving (0 = serve "
+                         "the freshly initialized policy)")
     ap.add_argument("--ckpt", default=None, metavar="PATH",
                     help="serve the behaviour params of a reference "
                          "Trainer archive (.ring/ slot 0)")
@@ -130,8 +132,8 @@ def build_parser():
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card)")
     ap.add_argument("--quick", action="store_true",
-                    help="smoke: fewer requests, default loads 500,2000 "
-                         "and buckets 4,16;16")
+                    help="smoke: fewer requests and iterations, "
+                         "default loads 500,2000 and buckets 4,16;16")
     return ap
 
 
@@ -145,6 +147,8 @@ def main(argv=None):
             args.buckets = "4,16;16"
         if args.requests == ap.get_default("requests"):
             args.requests = 160
+        if args.train_iters == ap.get_default("train_iters"):
+            args.train_iters = 4
     try:
         loads = parse_loads(args.load)
         configs = parse_buckets(args.buckets)
@@ -153,13 +157,14 @@ def main(argv=None):
     if args.algo == "dqn":
         ap.error("--algo dqn serves the DQN Q-network, which is ported "
                  "with the DQN slice (ROADMAP queue 1, item 7)")
-    if args.train_iters > 0 and args.ckpt is None:
-        ap.error("--train-iters > 0 needs the Trainer, which is not "
-                 "ported yet: pass --train-iters 0 or --ckpt PATH")
+    if args.train_iters < 0:
+        ap.error(f"--train-iters {args.train_iters}: the Trainer "
+                 f"iterations must be 0 or more")
 
     import repro_torch.envs as envs
     from repro_torch.core.networks import MLPPolicy
     from repro_torch.core.serving import ParamStore, ServeEngine
+    from repro_torch.core.trainer import Trainer, TrainerConfig
     from repro_torch.kernels.common import resolve_device
 
     if args.env not in envs.available():
@@ -168,15 +173,29 @@ def main(argv=None):
     device = resolve_device(args.device)
     env = envs.make(args.env)
     spec = env.spec
-    policy = MLPPolicy.for_spec(spec, hidden=HIDDEN, device=device)
-    template = policy.init(torch.Generator().manual_seed(args.seed))
+    t0 = time.time()
     store = ParamStore()
-    if args.ckpt is not None:
-        store.load_checkpoint(args.ckpt, template)
-        source = "checkpoint"
+    if args.ckpt is None and args.train_iters > 0:
+        # the reference's in-process training config
+        # (repro/launch/serve_policy.py:185-188)
+        trainer = Trainer(env, TrainerConfig(
+            algo=args.algo, iters=args.train_iters,
+            superstep=min(4, args.train_iters), n_envs=8, unroll=16,
+            seed=args.seed, log_every=args.train_iters), device=device)
+        state, _ = trainer.fit()
+        policy = trainer.agent.policy
+        store.publish_from_state(trainer.agent, state)
+        source = "trained-in-process"
     else:
-        store.publish(template)
-        source = "fresh-init"
+        policy = MLPPolicy.for_spec(spec, hidden=HIDDEN, device=device)
+        template = policy.init(torch.Generator().manual_seed(args.seed))
+        if args.ckpt is not None:
+            store.load_checkpoint(args.ckpt, template)
+            source = "checkpoint"
+        else:
+            store.publish(template)
+            source = "fresh-init"
+    train_s = time.time() - t0 if source == "trained-in-process" else 0.0
     # the hot-swap payload: same shapes (template-validated), fresh
     # values — published mid-cell
     _, base_params = store.get()
@@ -206,7 +225,8 @@ def main(argv=None):
         "param_version": store.version,
         "warmup_compiles": warmup_compiles,
         "recompiles_after_warmup": total_compiles - warmup_compiles,
-        "hot_swaps": hot_swaps, "train_s": 0.0, "source": source,
+        "hot_swaps": hot_swaps, "train_s": round(train_s, 1),
+        "source": source,
         "device": str(device), "cells": cells}))
 
 

@@ -5,15 +5,27 @@ machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances are those of tests/test_kernels.py: 2e-5 for f32 (every
-product and sum in f32, TF32 off), 3e-2 for bf16 inputs."""
+Attention tolerances are those of tests/test_kernels.py: 2e-5 for f32
+(every product and sum in f32, TF32 off), 3e-2 for bf16 inputs. The scans
+(discounted return, its adjoint, V-trace) are f32 throughout; nvcc
+contracts `b + c·acc` into one FMA where the plain loop rounds twice, so
+they are held to rtol = atol = 1e-5 at T <= 128 and 1e-4 at T = 2048,
+where the rounding differences of 2048 chained steps add up."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.advantages.kernel import (
+    DiscountedReturn, discounted_return_adjoint_tb, discounted_return_tb)
+from repro_torch.kernels.advantages.ref import discounted_return_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_hsd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.vtrace.kernel import vtrace_tb
+from repro_torch.kernels.vtrace.ref import vtrace_ref
+
+# (T, B): the training path's, a wide batch, a long horizon
+SCAN_SHAPES = [(32, 32), (32, 4096), (2048, 128)]
 
 
 @pytest.fixture
@@ -80,3 +92,106 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         flash_attention_hsd(q, k, k)
     assert flash_attention_hsd.launches == 0
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_to_cut_the_gradient(cuda):
+    """The kernel has no backward yet: an input that requires grad under
+    grad mode raises instead of training without an attention gradient;
+    under no_grad it runs."""
+    q = torch.randn((1, 2, 8, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 1, 8, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="backward"):
+        flash_attention_hsd(q, k, k)
+    assert flash_attention_hsd.launches == 0
+    with torch.no_grad():
+        flash_attention_hsd(q, k, k)
+    assert flash_attention_hsd.launches == 1
+
+
+def _scan_tol(T):
+    return 1e-5 if T <= 128 else 1e-4
+
+
+def _scan_inputs(T, B, cuda, seed=7):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    base = torch.randn((T, B), generator=g, device=cuda)
+    coef = 0.99 * torch.rand((T, B), generator=g, device=cuda)
+    init = torch.randn((B,), generator=g, device=cuda)
+    return base, coef, init
+
+
+@pytest.fixture
+def scans(cuda):
+    for fn in (discounted_return_tb, discounted_return_adjoint_tb,
+               vtrace_tb):
+        fn.launches = 0
+    return cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", SCAN_SHAPES)
+def test_discounted_return_matches_plain(scans, T, B):
+    base, coef, init = _scan_inputs(T, B, scans)
+    out = discounted_return_tb(base, coef, init)
+    torch.cuda.synchronize()
+    assert discounted_return_tb.launches == 1
+    tol = _scan_tol(T)
+    torch.testing.assert_close(out, discounted_return_ref(base, coef, init),
+                               atol=tol, rtol=tol)
+    # strided views (a transposed buffer) are read as they are
+    out_t = discounted_return_tb(base.t().contiguous().t(), coef, init)
+    torch.testing.assert_close(out_t, out, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", SCAN_SHAPES)
+def test_adjoint_matches_plain_autograd(scans, T, B):
+    """dbase, dcoef and dinit of the adjoint kernel against autograd
+    through the plain forward, for a dense cotangent and for the
+    expanded (stride 0) one a mean hands back."""
+    tol = _scan_tol(T)
+    inputs = _scan_inputs(T, B, scans)
+    w = torch.randn((T, B), device=scans)
+    for reduce in (lambda o: (o * w).sum(), lambda o: o.mean()):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        got = torch.autograd.grad(reduce(DiscountedReturn.apply(*leaves)),
+                                  leaves)
+        ref = [t.clone().requires_grad_() for t in inputs]
+        want = torch.autograd.grad(reduce(discounted_return_ref(*ref)), ref)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+    assert discounted_return_tb.launches == 2
+    assert discounted_return_adjoint_tb.launches == 2
+
+
+@pytest.mark.cuda
+def test_adjoint_computes_only_what_is_needed(scans):
+    base, coef, init = _scan_inputs(32, 32, scans)
+    init.requires_grad_()
+    DiscountedReturn.apply(base, coef, init).sum().backward()
+    assert base.grad is None and coef.grad is None
+    ref = init.detach().clone().requires_grad_()
+    discounted_return_ref(base, coef, ref).sum().backward()
+    torch.testing.assert_close(init.grad, ref.grad, atol=1e-5, rtol=1e-5)
+    with pytest.raises(RuntimeError, match="DiscountedReturn"):
+        discounted_return_tb(base, coef, init)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", SCAN_SHAPES)
+def test_vtrace_matches_plain(scans, T, B):
+    g = torch.Generator(device=scans).manual_seed(3)
+    log_rhos = 0.5 * torch.randn((T, B), generator=g, device=scans)
+    discounts = 0.99 * (torch.rand((T, B), generator=g, device=scans)
+                        > 0.05).float()
+    rewards, values = (torch.randn((T, B), generator=g, device=scans)
+                       for _ in range(2))
+    boot = torch.randn((B,), generator=g, device=scans)
+    vs, adv = vtrace_tb(log_rhos, discounts, rewards, values, boot)
+    torch.cuda.synchronize()
+    assert vtrace_tb.launches == 1
+    r_vs, r_adv = vtrace_ref(log_rhos, discounts, rewards, values, boot)
+    tol = _scan_tol(T)
+    torch.testing.assert_close(vs, r_vs, atol=tol, rtol=tol)
+    torch.testing.assert_close(adv, r_adv, atol=tol, rtol=tol)

@@ -324,9 +324,32 @@ def test_cli_quick_on_cpu():
         assert cell["p99_ms"] >= cell["p50_ms"] > 0
 
 
+@pytest.mark.parametrize("algo", ["ppo", "a3c", "impala"])
+def test_cli_trains_in_process(algo):
+    """--train-iters N > 0 trains the policy with the port's Trainer
+    before serving it, as the reference does."""
+    out = _run_cli(["--device", "cpu", "--algo", algo, "--train-iters",
+                    "2", "--load", "4000", "--buckets", "4",
+                    "--requests", "12"])
+    assert out["source"] == "trained-in-process" and out["train_s"] >= 0
+    assert out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 1
+
+
+def test_cli_quick_trains_four_iterations(monkeypatch):
+    import repro_torch.core.trainer as trainer_mod
+    iters = []
+    fit = trainer_mod.Trainer.fit
+    monkeypatch.setattr(trainer_mod.Trainer, "fit",
+                        lambda self, *a: iters.append(self.cfg.iters)
+                        or fit(self, *a))
+    out = _run_cli(["--device", "cpu", "--quick", "--load", "4000",
+                    "--buckets", "4", "--requests", "8"])
+    assert iters == [4] and out["source"] == "trained-in-process"
+
+
 @pytest.mark.parametrize("flags,frag", [
     (["--algo", "dqn"], "DQN"),
-    (["--train-iters", "5"], "Trainer"),
+    (["--train-iters", "-1"], "Trainer"),
     (["--load", "0"], "positive"), (["--load", "abc"], "load"),
     (["--buckets", "4,2"], "increasing"), (["--buckets", ";"], "empty"),
     (["--buckets", "x,y"], "integers"), (["--env", "nope"], "registered")])
