@@ -12,25 +12,34 @@ Phases, in order; the script exits non-zero at the first failure:
      function where there is one (a yardstick only; the port never calls
      it): flash attention, then the discounted-return scan, its adjoint
      and V-trace at (T, B) = (32, 32) (the training path), (32, 4096) and
-     (2048, 128);
+     (2048, 128), then the prioritized replay draw at (C, size, n) =
+     (20000, 12800, 64) (the DQN path), a full 1M-slot buffer with n = 256,
+     nearly empty and empty buffers, and forced ties (indices exact,
+     weights within 1e-5; the yardstick is torch.topk over the scores);
   3. slice: the full-width `paper-drl-trunk` policy served through
      ServeEngine for cartpole and pendulum at 500 and 2000 offered
      requests/s, with a hot swap in every cell; the kernel's launch count
      over that run must be 4 (one per layer) per dispatch;
   4. training: `repro_torch.launch.rl_train` at the default config
      (60 iterations of 32 envs x 32 steps, MLP (64, 64)) on cartpole for
-     ppo and a3c, impala through `Trainer` with the V-trace kernel, and
-     ppo on pendulum for 20 iterations; each run checks finite losses,
-     its kernels' launch counts per iteration, and (cartpole) a learning
-     bar on the mean of the last two logged episode returns;
+     ppo, a3c and dqn, impala through `Trainer` with the V-trace kernel,
+     ppo on pendulum for 20 iterations, and dqn on GridWorld(4, 16) at the
+     reference's learning-bar config (tests/test_trainer.py) for 16 seeds;
+     each run checks finite losses and its kernels' launch counts per
+     iteration; the learning bars: cartpole ppo/a3c/impala on the mean of
+     the last two logged returns, GridWorld dqn on the mean over the seeds
+     of the mean of the last four;
   5. path agreement: one learner_step per algorithm from one state and
-     trajectory, kernels on against the plain scans, on the card;
+     trajectory, kernels on against the plain versions, on the card; the
+     dqn step with the kernel runs under
+     torch.cuda.set_sync_debug_mode("error"), so it syncs nothing;
   6. the flash-attention kernel raises on an input that requires grad;
-  7. CLI: `repro_torch.launch.serve_policy --quick` (trains 4 iterations
-     in-process, then serves).
+  7. CLI: `repro_torch.launch.serve_policy --quick` for ppo and dqn
+     (trains 4 iterations in-process, then serves).
 It then prints the kernels' JSON line and, last, the device line.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -58,6 +67,22 @@ SCAN_SHAPES = [(32, 32), (32, 4096), (2048, 128)]  # (T, B); first = path
 # learning bars on the mean of the last two logged returns (cartpole,
 # default config): about half of what the JAX package reaches
 BARS = {"ppo": 50.0, "a3c": 30.0, "impala": 30.0}
+# DQN on GridWorld(4, 16) at tests/test_trainer.py's config: per seed,
+# the mean of the last four logged returns (iterations 70, 80, 90, 99);
+# the bar holds their mean over GRID_SEEDS. One seed is no gate: the JAX
+# package itself stays under 0.8 at 10 of 48 seeds (DQN's policy dips for
+# some iterations at this config), while a policy that does not learn
+# times out near -0.16 and a random one scores ~0.21
+GRID_BAR = 0.8
+GRID_SEEDS = range(16)
+GRID_CFG = dict(iters=100, superstep=10, n_envs=16, unroll=8, log_every=10,
+                algo_kwargs={"warmup": 5, "eps_decay_steps": 60,
+                             "target_update": 20})
+# (C, size, n, forced ties); first = the DQN path's shape
+REPLAY_CASES = [(20000, 12800, 64, False), (1048576, 1048576, 256, False),
+                (4096, 10, 64, False), (131, 100, 1, False),
+                (4096, 0, 16, False), (20000, 12800, 64, True)]
+REPLAY_TOL = 1e-5
 
 
 def fail(msg):
@@ -264,6 +289,75 @@ def phase_scan_kernels():
     return path
 
 
+def phase_replay_kernel():
+    """The prioritized replay draw against its plain version on the card;
+    returns its row at the path shape."""
+    import torch
+    from repro_torch.kernels.replay_sample.kernel import prioritized_sample_c
+    from repro_torch.kernels.replay_sample.ref import prioritized_sample_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    path = None
+    for C, size, n, ties in REPLAY_CASES:
+        prio = torch.randn((C,), generator=gen, device="cuda").abs() + 0.01
+        u = torch.rand((C,), generator=gen, device="cuda")
+        gumbel = -torch.log(-torch.log(u.clamp_min(
+            torch.finfo(torch.float32).tiny)))
+        if ties:
+            prio[1::7] = prio[0]
+            gumbel[1::7] = gumbel[0]
+        s = torch.tensor([size], dtype=torch.int32, device="cuda")
+
+        def kernel():
+            return prioritized_sample_c(prio, gumbel, s, n)
+
+        def plain():
+            return prioritized_sample_ref(prio, s[0], gumbel, n)
+
+        nvalid = max(size, 1)
+        valid = torch.arange(C, device="cuda") < nvalid
+        scores = torch.where(valid, 0.6 * torch.log(prio + 1e-6) + gumbel,
+                             -torch.inf)
+
+        def library():
+            return torch.topk(scores, n)
+
+        idx, w = kernel()
+        torch.cuda.synchronize()
+        ridx, rw = plain()
+        check(torch.equal(idx, ridx),
+              f"prioritized_sample_c {(C, size, n, ties)}: indices differ "
+              f"from the plain draw")
+        check(torch.isfinite(w).all().item(),
+              f"prioritized_sample_c non-finite weights at {(C, size, n)}")
+        err = (w - rw).abs().max().item()
+        check(bool(((w - rw).abs() <= REPLAY_TOL
+                    + REPLAY_TOL * rw.abs()).all()),
+              f"prioritized_sample_c {(C, size, n, ties)}: weights outside "
+              f"rtol = atol = {REPLAY_TOL} (max_abs_err {err})")
+        iters = 20 if C > 100000 else 100
+        ms = cuda_time_ms(kernel, iters)
+        plain_ms = cuda_time_ms(plain, iters)
+        library_ms = cuda_time_ms(library, iters)
+        # the draw reads p and g of the filled slots (and size) and writes
+        # idx and w; per filled slot ~6 f32 operations (log, mul, add,
+        # exp, sub, add)
+        nbytes = 8 * nvalid + 4 + 8 * n
+        ops = 6 * nvalid
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / PEAK_OPS["float32"]
+        row = {"name": "prioritized_sample_c", "shape": [C, size, n],
+               "ties": ties, "max_abs_err": err, "tol": REPLAY_TOL,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops}
+        print("kernel_case " + json.dumps(row))
+        if path is None:
+            path = row
+    print("kernels_checked " + json.dumps(
+        {"kernels": ["prioritized_sample_c"]}))
+    return path
+
+
 def phase_slice(card):
     import numpy as np
     import torch
@@ -349,23 +443,26 @@ def phase_slice(card):
     return launches
 
 
-def scan_counters():
+def train_counters():
     from repro_torch.kernels.advantages.kernel import (
         discounted_return_adjoint_tb, discounted_return_tb)
+    from repro_torch.kernels.replay_sample.kernel import prioritized_sample_c
     from repro_torch.kernels.vtrace.kernel import vtrace_tb
     return {f.__name__: f for f in (discounted_return_tb,
                                     discounted_return_adjoint_tb,
-                                    vtrace_tb)}
+                                    vtrace_tb, prioritized_sample_c)}
 
 
-def phase_training(card, scan_rows):
+def phase_training(card, path_rows):
     """Drive the training path; returns the launch counts of the run."""
     import torch
     import repro_torch.envs as envs
     from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.envs.gridworld import GridWorld
     from repro_torch.launch.rl_train import main as rl_main
-    counters = scan_counters()
+    counters = train_counters()
     cfg = TrainerConfig()          # the default config: 60 x 32 x 32
+    grid = TrainerConfig(algo="dqn", **GRID_CFG)
 
     def rl_train(argv):
         buf = io.StringIO()
@@ -377,25 +474,40 @@ def phase_training(card, scan_rows):
         return Trainer(envs.make("cartpole"), TrainerConfig(
             algo=algo, algo_kwargs=algo_kwargs)).fit()[1]
 
-    # (label, algo, env, iters, run it, launches per iteration)
+    # (label, algo, env, config, run it, launches per iteration, bar as
+    # (number of last logged returns, threshold) or None)
     runs = [
-        ("ppo", "ppo", "cartpole", cfg.iters,
+        ("ppo", "ppo", "cartpole", cfg,
          lambda: rl_train(["--algo", "ppo", "--env", "cartpole"]),
-         {"discounted_return_tb": 1}),
-        ("a3c", "a3c", "cartpole", cfg.iters,
+         {"discounted_return_tb": 1}, (2, BARS["ppo"])),
+        ("a3c", "a3c", "cartpole", cfg,
          lambda: rl_train(["--algo", "a3c", "--env", "cartpole"]),
-         {"discounted_return_tb": 1, "discounted_return_adjoint_tb": 1}),
-        ("impala", "impala", "cartpole", cfg.iters,
-         lambda: trainer("impala", use_kernel=True), {"vtrace_tb": 1}),
-        ("ppo-pendulum", "ppo", "pendulum", 20,
+         {"discounted_return_tb": 1, "discounted_return_adjoint_tb": 1},
+         (2, BARS["a3c"])),
+        ("impala", "impala", "cartpole", cfg,
+         lambda: trainer("impala", use_kernel=True), {"vtrace_tb": 1},
+         (2, BARS["impala"])),
+        ("ppo-pendulum", "ppo", "pendulum",
+         dataclasses.replace(cfg, iters=20),
          lambda: rl_train(["--algo", "ppo", "--env", "pendulum",
                            "--iters", "20"]),
-         {"discounted_return_tb": 1}),
-    ]
+         {"discounted_return_tb": 1}, None),
+        ("dqn", "dqn", "cartpole", cfg,
+         lambda: rl_train(["--algo", "dqn", "--env", "cartpole"]),
+         {"prioritized_sample_c": 1}, None),
+    ] + [
+        (f"dqn-gridworld-seed{seed}", "dqn", "gridworld(4,16)",
+         dataclasses.replace(grid, seed=seed),
+         lambda seed=seed: Trainer(GridWorld(n=4, max_steps=16),
+                                   dataclasses.replace(grid, seed=seed)
+                                   ).fit()[1],
+         {"prioritized_sample_c": 1}, (4, None)) for seed in GRID_SEEDS]
     for fn in counters.values():
         fn.launches = 0
     totals = dict.fromkeys(counters, 0)
-    for label, algo, env, iters, drive, per_iter in runs:
+    grid_means = []
+    for label, algo, env, run_cfg, drive, per_iter, bar in runs:
+        iters = run_cfg.iters
         before = {n: f.launches for n, f in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -408,26 +520,38 @@ def phase_training(card, scan_rows):
                            f"{want}")
         check(all(math.isfinite(h["loss"]) for h in hist),
               f"{label}: non-finite loss in {hist}")
-        rets = [h["episode_return"] for h in hist[-2:]]
+        n_last, threshold = bar or (2, None)
+        rets = [h["episode_return"] for h in hist[-n_last:]]
         mean_ret = sum(rets) / len(rets)
         check(math.isfinite(mean_ret), f"{label}: returns {rets}")
-        if env == "cartpole":
-            check(mean_ret >= BARS[algo],
-                  f"{label}: mean of the last two logged returns "
-                  f"{mean_ret} below the bar {BARS[algo]}")
-        env_steps = iters * cfg.n_envs * cfg.unroll
-        share = {n: got[n] * scan_rows[n]["ms"] / (wall * 1e3)
+        if threshold is not None:
+            check(mean_ret >= threshold,
+                  f"{label}: mean of the last {n_last} logged returns "
+                  f"{mean_ret} below the bar {threshold}")
+        env_steps = iters * run_cfg.n_envs * run_cfg.unroll
+        share = {n: got[n] * path_rows[n]["ms"] / (wall * 1e3)
                  for n in counters if got[n]}
         print("train_run " + json.dumps({
             "run": label, "algo": algo, "env": env, "iters": iters,
-            "n_envs": cfg.n_envs, "unroll": cfg.unroll, "wall_s": wall,
-            "ms_per_iter": wall * 1e3 / iters,
+            "n_envs": run_cfg.n_envs, "unroll": run_cfg.unroll,
+            "wall_s": wall, "ms_per_iter": wall * 1e3 / iters,
             "env_steps_per_s": env_steps / wall, "launches": got,
             "kernel_share_of_wall": share, "last_returns": rets,
-            "mean_last_two": mean_ret, "bar": BARS.get(algo)
-            if env == "cartpole" else None, "history": hist, "card": card}))
+            "mean_last": mean_ret, "bar": threshold, "history": hist,
+            "card": card}))
         for n in counters:
             totals[n] += got[n]
+        if label.startswith("dqn-gridworld"):
+            grid_means.append(mean_ret)
+    grid_mean = sum(grid_means) / len(grid_means)
+    print("train_bar " + json.dumps({
+        "run": "dqn-gridworld", "seeds": list(GRID_SEEDS),
+        "mean_last_four": grid_means, "mean_over_seeds": grid_mean,
+        "bar": GRID_BAR, "card": card}))
+    check(grid_mean >= GRID_BAR,
+          f"dqn-gridworld: mean over seeds {list(GRID_SEEDS)} of the mean "
+          f"of the last four logged returns {grid_mean} below the bar "
+          f"{GRID_BAR}")
     return totals
 
 
@@ -462,6 +586,57 @@ def phase_path_agreement():
         print(f"path {algo}: kernels vs plain learner_step params "
               f"max_abs_err {err:.3e}, loss {la['loss'].item():.6f} vs "
               f"{lb['loss'].item():.6f}")
+    dqn_path_agreement(env)
+
+
+def dqn_path_agreement(env):
+    """One DQN learner_step with the replay kernel against one with the
+    plain draw, from one state (13 iterations in: 13312 of 20000 slots
+    filled, past warmup), trajectory and Gumbel vector: the same indices,
+    params within 1e-6. The kernel step runs under sync debug mode
+    "error": a host sync inside it raises."""
+    import torch
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.rollout import rollout
+    kern = agent_api.make("dqn", env=env, total_iters=60, warmup=0)
+    plain = agent_api.make("dqn", env=env, total_iters=60, warmup=0,
+                           use_kernel=False)
+    state = kern.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    env_state = env.reset(gen, 32)
+    for _ in range(13):
+        traj, env_state = rollout(kern.policy, kern.actor_policy(state, 0),
+                                  env, gen, env_state, 32)
+        state, _ = kern.learner_step(state, traj, env.obs(env_state), gen)
+    traj, env_state = rollout(kern.policy, kern.actor_policy(state, 0), env,
+                              gen, env_state, 32)
+    boot = env.obs(env_state)
+    g = kern.replay.noise(gen, kern.batch_size)
+    rstate = kern.replay.add_batch(state.extra["replay"],
+                                   kern.transitions(traj))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, la = kern.learner_step_noise(state, traj, boot, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b, lb = plain.learner_step_noise(state, traj, boot, g)
+    _, ia, wa = kern.replay.sample_with(rstate, g, kern.batch_size)
+    _, ib, wb = plain.replay.sample_with(rstate, g, kern.batch_size)
+    check(torch.equal(ia, ib), "dqn: kernel and plain draws differ")
+    check(int(a.params["steps"]) == 14, "dqn: the step did not update")
+    err = max((a.params[k].float() - b.params[k].float()).abs().max().item()
+              for k in a.params)
+    check(err <= 1e-6, f"dqn: kernel vs plain learner_step params "
+                       f"max_abs_err {err} > 1e-6")
+    check(torch.equal(a.extra["replay"]["prio"], b.extra["replay"]["prio"]),
+          "dqn: kernel vs plain priorities differ")
+    print(f"path dqn: same {ia.numel()} indices (size "
+          f"{int(rstate['size'])}), weights max_abs_err "
+          f"{(wa - wb).abs().max().item():.3e}, params max_abs_err "
+          f"{err:.3e}, loss {la['loss'].item():.6f} vs "
+          f"{lb['loss'].item():.6f}; the kernel step ran under sync debug "
+          f"mode 'error'")
 
 
 def phase_flash_guard():
@@ -480,14 +655,16 @@ def phase_flash_guard():
 
 def phase_cli():
     from repro_torch.launch.serve_policy import main as serve_main
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        serve_main(["--quick"])
-    out = json.loads(buf.getvalue().strip().splitlines()[-1])
-    check(out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 4
-          and out["source"] == "trained-in-process"
-          and out["device"].startswith("cuda"), f"CLI summary {out}")
-    print("cli " + json.dumps(out))
+    for algo in ("ppo", "dqn"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_main(["--algo", algo, "--quick"])
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 4
+              and out["source"] == "trained-in-process"
+              and out["algo"] == algo
+              and out["device"].startswith("cuda"), f"CLI summary {out}")
+        print("cli " + json.dumps(out))
 
 
 def main():
@@ -499,8 +676,10 @@ def main():
     card = phase_device()
     cases = phase_kernels()
     scan_rows = phase_scan_kernels()
+    replay_row = phase_replay_kernel()
     launches = phase_slice(card)
-    train_launches = phase_training(card, scan_rows)
+    train_launches = phase_training(
+        card, dict(scan_rows, prioritized_sample_c=replay_row))
     phase_path_agreement()
     phase_flash_guard()
     phase_cli()
@@ -526,6 +705,13 @@ def main():
             "source": f"src/repro_torch/kernels/{src}",
             "replaces": replaces[name],
             "launches": train_launches[name]}, **{k: row[k] for k in keys}))
+    kernels.append(dict({
+        "name": "prioritized_sample_c", "route": "cuda",
+        "source": "src/repro_torch/kernels/replay_sample/csrc/"
+                  "replay_sample.cu",
+        "replaces": "src/repro/kernels/replay_sample/kernel.py:137",
+        "launches": train_launches["prioritized_sample_c"]},
+        **{k: replay_row[k] for k in keys}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

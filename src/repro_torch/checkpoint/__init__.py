@@ -1,4 +1,5 @@
 from repro_torch.checkpoint.ckpt import (load_actor_policy,  # noqa: F401
-                                         load_checkpoint, save_checkpoint)
+                                         load_checkpoint, load_train_state,
+                                         save_checkpoint)
 from repro_torch.checkpoint.convert import (params_from_jax,  # noqa: F401
                                             params_to_jax)

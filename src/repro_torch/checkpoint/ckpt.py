@@ -4,12 +4,16 @@ with stacked super-blocks as the reference stores them. An archive
 written by either package restores into the other."""
 from __future__ import annotations
 
+import dataclasses
 import os
+import types
 
 import numpy as np
 
 from repro_torch.checkpoint.convert import (flatten_tree, params_from_jax,
-                                            params_to_jax, unflatten_tree)
+                                            params_to_jax,
+                                            train_state_from_jax,
+                                            unflatten_tree)
 
 RING = ".ring/"  # the actor-param ring of a reference Trainer archive
 
@@ -60,3 +64,26 @@ def load_actor_policy(path, example, delay=0):
         raise KeyError(f"{path}: no {RING!r} entries; not a Trainer "
                        f"archive")
     return _match(params_from_jax(unflatten_tree(ring)), example)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
+
+
+def load_train_state(path, device="cpu"):
+    """A reference Trainer archive (its `.params/`, `.opt_state/`,
+    `.extra/`, `.ring/` and `.steps` entries) as the port's TrainState on
+    `device` (convert.train_state_from_jax)."""
+    data, _ = _read(path)
+    if ".steps" not in data:
+        raise KeyError(f"{path}: no '.steps' entry; not a Trainer archive")
+    tree = unflatten_tree(data)
+    fields = {f: tree.get("." + f, {}) for f in ("params", "opt_state",
+                                                  "extra", "ring")}
+    state = train_state_from_jax(types.SimpleNamespace(
+        steps=tree[".steps"], **fields))
+    return dataclasses.replace(state, **{
+        f: _to(getattr(state, f), device) for f in (
+            "params", "opt_state", "extra", "ring", "steps")})

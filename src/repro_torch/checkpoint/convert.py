@@ -98,17 +98,21 @@ def params_to_jax(params) -> dict:
     return unflatten_tree(flat)
 
 
+def _tensors(tree):
+    """Nested dicts of arrays -> the same dicts of CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree))
+
+
 def train_state_from_jax(state):
     """A reference `TrainState` with numpy leaves (`tree_map(np.asarray,
     ·)`) -> the port's TrainState on the CPU: params, the optimizer state
     (the adamw `step`, `m` and `v`, or any dict of such trees), the
-    actor-param ring and the `steps` counter, key paths as
-    `params_from_jax` gives them."""
+    algorithm state in `extra` (the DQN replay: its store, `prio`, `ptr`
+    and `size`, as nested dicts), the actor-param ring (`ring_from_jax`)
+    and the `steps` counter, key paths as `params_from_jax` gives them."""
     from repro_torch.core.agent import TrainState
-    if state.extra:
-        raise ValueError(f"TrainState.extra {sorted(state.extra)} is "
-                         f"algorithm state (the DQN replay) that the DQN "
-                         f"slice carries across")
 
     def leaf_or_tree(v):
         if v is None:
@@ -118,6 +122,20 @@ def train_state_from_jax(state):
         return torch.tensor(np.asarray(v))
 
     opt_state = {k: leaf_or_tree(v) for k, v in state.opt_state.items()}
-    return TrainState(params_from_jax(state.params), opt_state, {},
-                      params_from_jax(state.ring),
+    return TrainState(params_from_jax(state.params), opt_state,
+                      _tensors(state.extra), ring_from_jax(state.ring),
                       torch.tensor(np.asarray(state.steps)))
+
+
+def ring_from_jax(ring) -> dict:
+    """A reference actor-param ring (every leaf with a leading (ring_size,)
+    dim) -> the port's: each slot converted by `params_from_jax` (which
+    splits stacked super-blocks along their own leading dim), then
+    restacked."""
+    flat = {k: np.asarray(v) for k, v in flatten_tree(ring).items()}
+    if not flat:
+        return {}
+    slots = [params_from_jax(unflatten_tree({k: v[r]
+                                             for k, v in flat.items()}))
+             for r in range(next(iter(flat.values())).shape[0])]
+    return {k: torch.stack([s[k] for s in slots]) for k in slots[0]}

@@ -32,20 +32,23 @@ class TrainState:
     steps: torch.Tensor              # int32 learner-update counter
 
 
-def value_and_grad(loss_fn, params, *args):
+def value_and_grad(loss_fn, params, *args, has_aux=False):
     """(loss, grads) of `loss_fn(params, *args)` with respect to every
     floating param; a param the loss does not reach gets a zero gradient,
-    as under jax.grad."""
+    as under jax.grad. With `has_aux`, `loss_fn` returns (loss, aux) and
+    the result is ((loss, aux), grads)."""
     leaves = {k: v.detach().requires_grad_(v.is_floating_point())
               for k, v in params.items()}
     with torch.enable_grad():
-        loss = loss_fn(leaves, *args)
+        out = loss_fn(leaves, *args)
+    loss = out[0] if has_aux else out
     keys = [k for k, v in leaves.items() if v.requires_grad]
     grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
                                 allow_unused=True)
-    return loss.detach(), {
-        k: torch.zeros_like(leaves[k]) if g is None else g
-        for k, g in zip(keys, grads)}
+    grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+             for k, g in zip(keys, grads)}
+    value = (loss.detach(), out[1]) if has_aux else loss.detach()
+    return value, grads
 
 
 class Agent:

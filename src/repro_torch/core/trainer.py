@@ -13,8 +13,8 @@ and again before its learner step, as the reference's `_iter_key` folds
 the iteration into its base key. So fused and unfused fits are bitwise
 equal by construction.
 
-Distribution plans, the pipelined mode and DQN are later slices; the
-Trainer refuses them by name.
+Distribution plans and the pipelined mode are later slices; the Trainer
+refuses them by name.
 """
 from __future__ import annotations
 
@@ -80,9 +80,6 @@ class Trainer:
             raise ValueError("TrainerConfig.pipeline: the decoupled "
                              "actor-learner pipeline is ported with the "
                              "pipeline slice (ROADMAP queue 1, item 11)")
-        if cfg.algo == "dqn":
-            raise ValueError("algo 'dqn' is ported with the DQN slice "
-                             "(slice 3, ROADMAP queue 1, item 7)")
         self.device = resolve_device(device)
         self.env = env
         self.cfg = cfg

@@ -1,0 +1,89 @@
+"""ctypes binding of the Hopper prioritized-sampling kernel
+(csrc/replay_sample.cu), the port of the Pallas `prioritized_sample_c`.
+
+A CUDA tensor launches the kernel (two passes, counted as one launch of
+the op) or raises; a CPU tensor takes the plain version (ref.py).
+`prioritized_sample_c.launches` counts launches, so a run can show that
+its main path went through the kernel. `size` stays on the device, as the
+Pallas kernel takes it as a (1, 1) array: reading it on the host would
+sync once per draw.
+"""
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.common import check_launch, load_kernels
+from repro_torch.kernels.replay_sample.ref import prioritized_sample_ref
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MAX_N = 1024                # the kernel's kMaxN
+MAX_BLOCKS = 1024           # the kernel's kMaxBlocks
+
+
+@functools.cache
+def _launcher():
+    dll = load_kernels()
+    fn = dll.prioritized_sample_c
+    fn.argtypes = [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P,
+                   _P]
+    fn.restype = _I
+    dll.replay_sample_tile.restype = _I
+    return dll, fn, dll.replay_sample_tile()
+
+
+def prioritized_sample_c(prio, gumbel, size, n, alpha=0.6, beta=0.4,
+                         eps=1e-6):
+    """prio, gumbel (C,) f32 contiguous; size an int32 tensor of one
+    element on their device. Returns (idx (n,) int32, w (n,) f32)."""
+    if not prio.is_cuda:
+        return prioritized_sample_ref(prio, size, gumbel, n, alpha, beta,
+                                      eps)
+    C = prio.shape[0]
+    dev = prio.device
+    for name, t, dtype in (("prio", prio, torch.float32),
+                           ("gumbel", gumbel, torch.float32),
+                           ("size", size, torch.int32)):
+        if t.dtype != dtype:
+            raise ValueError(f"prioritized_sample_c: {name} must be {dtype}, "
+                             f"got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"prioritized_sample_c: {name} on {t.device}, "
+                             f"prio on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"prioritized_sample_c: {name} is not "
+                             f"contiguous")
+    if prio.ndim != 1 or tuple(gumbel.shape) != (C,) or size.numel() != 1:
+        raise ValueError(f"prioritized_sample_c: expected prio and gumbel "
+                         f"(C,) and one size, got {tuple(prio.shape)}, "
+                         f"{tuple(gumbel.shape)}, {tuple(size.shape)}")
+    if not 1 <= n <= min(C, MAX_N):
+        raise ValueError(f"prioritized_sample_c: n={n} outside [1, "
+                         f"min(C={C}, {MAX_N})]")
+    dll, fn, tile = _launcher()
+    nblocks = -(-C // tile)
+    if nblocks > MAX_BLOCKS:
+        raise ValueError(f"prioritized_sample_c: C={C} above "
+                         f"{tile * MAX_BLOCKS} slots")
+    # one allocation: outputs idx, w (n each), then the workspace: the
+    # candidates' scores and indices (nblocks * n each) and the partials
+    # m_b, s_b (nblocks each), all 4-byte words
+    buf = torch.empty((2 * n * (nblocks + 1) + 2 * nblocks,),
+                      dtype=torch.int32, device=dev)
+    idx, w = buf[:n], buf[n:2 * n].view(torch.float32)
+    ptr, word = buf.data_ptr(), buf.element_size()
+    cand_s = ptr + word * 2 * n
+    cand_i = cand_s + word * nblocks * n
+    part_m = cand_i + word * nblocks * n
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(prio.data_ptr(), gumbel.data_ptr(), size.data_ptr(), C, n,
+                  float(alpha), float(beta), float(eps), cand_s, cand_i,
+                  part_m, part_m + word * nblocks, idx.data_ptr(),
+                  w.data_ptr(), stream)
+    prioritized_sample_c.launches += 1
+    check_launch(dll, code, "prioritized_sample_c")
+    return idx, w
+
+
+prioritized_sample_c.launches = 0

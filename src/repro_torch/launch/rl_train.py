@@ -4,8 +4,7 @@ of src/repro/launch/rl_train.py without a distribution plan).
   PYTHONPATH=src python -m repro_torch.launch.rl_train --algo ppo \\
       --env cartpole --device cpu
 
-  --algo      a3c | impala | ppo          (Agent registry; dqn comes
-                                           with the DQN slice)
+  --algo      a3c | dqn | impala | ppo    (Agent registry)
   --env       a registered environment    (repro_torch.envs)
   --policy    mlp | trunk                 the policy network
   --device    the torch device (default: the card; raises without one)
@@ -85,8 +84,6 @@ def refusal(args):
                                                     "(core/sync.py delays, "
                                                     "ROADMAP queue 1, item "
                                                     "10)"),
-        "--algo dqn": (args.algo == "dqn", "the DQN slice (slice 3, "
-                                           "ROADMAP queue 1, item 7)"),
     }
     for flag, (asked, slice_) in later.items():
         if asked:

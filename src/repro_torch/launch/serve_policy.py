@@ -5,18 +5,17 @@ src/repro/launch/serve_policy.py).
   PYTHONPATH=src python -m repro_torch.launch.serve_policy --algo ppo \
       --env cartpole --load 500,2000 --buckets "1,4,16;16" --quick
 
-Publishes the MLP policy of the chosen algorithm (trained in-process
-for --train-iters Trainer iterations, freshly initialized from --seed
-with --train-iters 0, or restored from a reference Trainer archive with
---ckpt) into a versioned ParamStore, then replays an open-loop arrival process
+Publishes what the chosen algorithm's `actor_policy` serves its rollout
+(the MLP policy; for dqn the Q-network and its annealed ε), trained
+in-process for --train-iters Trainer iterations, freshly initialized from
+--seed with --train-iters 0, or restored from a reference Trainer archive
+with --ckpt (its `.ring/` slot 0, and for dqn ε from its `.steps`), into
+a versioned ParamStore, then replays an open-loop arrival process
 at each offered load (requests/second) against each bucket
 configuration: requests are admitted FIFO, padded to the smallest
 fitting bucket (one program per bucket, pinned flat), and hot-swapped
 onto fresh params halfway through every cell. Latency is charged from
 the *scheduled* arrival. Prints one JSON summary line.
-
-`--algo dqn` (whose served policy is the DQN Q-network) is refused
-until the DQN slice.
 """
 from __future__ import annotations
 
@@ -154,15 +153,13 @@ def main(argv=None):
         configs = parse_buckets(args.buckets)
     except ValueError as e:
         ap.error(str(e))
-    if args.algo == "dqn":
-        ap.error("--algo dqn serves the DQN Q-network, which is ported "
-                 "with the DQN slice (ROADMAP queue 1, item 7)")
     if args.train_iters < 0:
         ap.error(f"--train-iters {args.train_iters}: the Trainer "
                  f"iterations must be 0 or more")
 
     import repro_torch.envs as envs
-    from repro_torch.core.networks import MLPPolicy
+    from repro_torch.checkpoint.ckpt import load_train_state
+    from repro_torch.core import agent as agent_api
     from repro_torch.core.serving import ParamStore, ServeEngine
     from repro_torch.core.trainer import Trainer, TrainerConfig
     from repro_torch.kernels.common import resolve_device
@@ -187,14 +184,18 @@ def main(argv=None):
         store.publish_from_state(trainer.agent, state)
         source = "trained-in-process"
     else:
-        policy = MLPPolicy.for_spec(spec, hidden=HIDDEN, device=device)
-        template = policy.init(torch.Generator().manual_seed(args.seed))
+        # the agent the reference's one-iteration Trainer config builds
+        agent = agent_api.make(args.algo, env=env, ring_size=1,
+                               total_iters=max(args.train_iters, 1),
+                               device=device)
+        policy = agent.policy
         if args.ckpt is not None:
-            store.load_checkpoint(args.ckpt, template)
+            state = load_train_state(args.ckpt, device)
             source = "checkpoint"
         else:
-            store.publish(template)
+            state = agent.init(torch.Generator().manual_seed(args.seed))
             source = "fresh-init"
+        store.publish_from_state(agent, state)
     train_s = time.time() - t0 if source == "trained-in-process" else 0.0
     # the hot-swap payload: same shapes (template-validated), fresh
     # values — published mid-cell

@@ -10,7 +10,11 @@ Attention tolerances are those of tests/test_kernels.py: 2e-5 for f32
 (discounted return, its adjoint, V-trace) are f32 throughout; nvcc
 contracts `b + c·acc` into one FMA where the plain loop rounds twice, so
 they are held to rtol = atol = 1e-5 at T <= 128 and 1e-4 at T = 2048,
-where the rounding differences of 2048 chained steps add up."""
+where the rounding differences of 2048 chained steps add up. The replay
+draw's indices must equal the plain draw's exactly (its logits and scores
+round as the plain version's do) and its weights agree within
+rtol = atol = 1e-5 (the partition function is summed in another order),
+ties forced."""
 import numpy as np
 import pytest
 import torch
@@ -21,6 +25,8 @@ from repro_torch.kernels.advantages.ref import discounted_return_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_hsd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.replay_sample.kernel import prioritized_sample_c
+from repro_torch.kernels.replay_sample.ref import prioritized_sample_ref
 from repro_torch.kernels.vtrace.kernel import vtrace_tb
 from repro_torch.kernels.vtrace.ref import vtrace_ref
 
@@ -195,3 +201,94 @@ def test_vtrace_matches_plain(scans, T, B):
     tol = _scan_tol(T)
     torch.testing.assert_close(vs, r_vs, atol=tol, rtol=tol)
     torch.testing.assert_close(adv, r_adv, atol=tol, rtol=tol)
+
+
+# (C, size, n): the DQN path's, a full 1M buffer, nearly empty, odd C,
+# empty, n > size, and n above one tile's filled slots
+REPLAY_CASES = [(20000, 12800, 64), (1048576, 1048576, 256),
+                (4096, 10, 64), (131, 100, 1), (4096, 0, 16), (64, 10, 32),
+                (9000, 4100, 1024)]
+
+
+def _replay_inputs(C, size, ties, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    prio = torch.randn((C,), generator=g, device=device).abs() + 0.01
+    u = torch.rand((C,), generator=g, device=device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    if ties:
+        prio[1::7] = prio[0]
+        gumbel[1::7] = gumbel[0]
+    return prio, gumbel, torch.tensor([size], dtype=torch.int32,
+                                      device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("C,size,n", REPLAY_CASES)
+def test_replay_sample_matches_plain(cuda, C, size, n, ties):
+    prio, gumbel, s = _replay_inputs(C, size, ties, cuda)
+    prioritized_sample_c.launches = 0
+    idx, w = prioritized_sample_c(prio, gumbel, s, n)
+    torch.cuda.synchronize()
+    assert prioritized_sample_c.launches == 1
+    ridx, rw = prioritized_sample_ref(prio, s[0], gumbel, n)
+    assert idx.dtype == torch.int32 and torch.equal(idx, ridx)
+    torch.testing.assert_close(w, rw, atol=1e-5, rtol=1e-5)
+    assert int(idx.max()) < max(size, 1)
+
+
+@pytest.mark.cuda
+def test_replay_sample_repeats_calls_bitwise(cuda):
+    """No float atomics: two draws on the same inputs are bitwise equal."""
+    prio, gumbel, s = _replay_inputs(300000, 250000, True, cuda, seed=1)
+    a = prioritized_sample_c(prio, gumbel, s, 128)
+    b = prioritized_sample_c(prio, gumbel, s, 128)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["n_above_C", "float64", "strided",
+                                 "size_int64"])
+def test_replay_sample_refuses_what_it_does_not_take(cuda, bad):
+    prio, gumbel, s = _replay_inputs(256, 200, False, cuda)
+    n = 16
+    if bad == "n_above_C":
+        n = 257
+    elif bad == "float64":
+        prio = prio.double()
+    elif bad == "strided":
+        prio = torch.stack([prio, prio], 1)[:, 0]
+    else:
+        s = s.long()
+    prioritized_sample_c.launches = 0
+    with pytest.raises(ValueError, match="prioritized_sample_c"):
+        prioritized_sample_c(prio, gumbel, s, n)
+    assert prioritized_sample_c.launches == 0
+
+
+@pytest.mark.cuda
+def test_dqn_learner_step_kernel_matches_plain(cuda):
+    """One DQN learner_step, the replay kernel against the plain draw,
+    from one state, trajectory and Gumbel vector."""
+    import repro_torch.envs as envs
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.rollout import rollout_fresh
+    env = envs.make("cartpole")
+    kern = agent_api.make("dqn", env=env, total_iters=60, warmup=0,
+                          replay_capacity=4096)
+    plain = agent_api.make("dqn", env=env, total_iters=60, warmup=0,
+                           replay_capacity=4096, use_kernel=False)
+    state = kern.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    traj, env_state = rollout_fresh(kern.policy, kern.actor_policy(state, 0),
+                                    env, gen, 32, 32)
+    g = kern.replay.noise(gen, kern.batch_size)
+    prioritized_sample_c.launches = 0
+    a, la = kern.learner_step_noise(state, traj, env.obs(env_state), g)
+    assert prioritized_sample_c.launches == 1
+    b, lb = plain.learner_step_noise(state, traj, env.obs(env_state), g)
+    assert prioritized_sample_c.launches == 1
+    assert torch.equal(a.extra["replay"]["prio"], b.extra["replay"]["prio"])
+    for k in a.params:
+        torch.testing.assert_close(a.params[k], b.params[k], atol=1e-6,
+                                   rtol=1e-6)

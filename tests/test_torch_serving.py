@@ -348,7 +348,6 @@ def test_cli_quick_trains_four_iterations(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,frag", [
-    (["--algo", "dqn"], "DQN"),
     (["--train-iters", "-1"], "Trainer"),
     (["--load", "0"], "positive"), (["--load", "abc"], "load"),
     (["--buckets", "4,2"], "increasing"), (["--buckets", ";"], "empty"),

@@ -262,8 +262,7 @@ def test_fit_is_finite_and_learns(algo):
 def test_trainer_refuses_later_slices():
     env = envs.make("cartpole")
     for kw, frag in (({"plan": "workers=2"}, "distribution"),
-                     ({"pipeline": True}, "pipeline"),
-                     ({"algo": "dqn"}, "DQN")):
+                     ({"pipeline": True}, "pipeline")):
         with pytest.raises(ValueError, match=frag):
             Trainer(env, TrainerConfig(**kw), device="cpu")
 
@@ -298,7 +297,7 @@ def test_cli_prints_the_json_line(algo):
 
 @pytest.mark.parametrize("flags,frag", [
     (["--plan", "workers=2:allreduce:bsp"], "--plan"),
-    (["--algo", "dqn"], "DQN"), (["--pipeline"], "pipeline"),
+    (["--pipeline"], "pipeline"),
     (["--actors", "8,16"], "--actors"), (["--n-workers", "2"], "n-workers"),
     (["--sync", "asp"], "sync"), (["--env", "pendulum-norm"], "registered")])
 def test_cli_refuses_what_later_slices_bring(flags, frag, capsys):
