@@ -35,7 +35,21 @@ Phases, in order; the script exits non-zero at the first failure:
      torch.cuda.set_sync_debug_mode("error"), so it syncs nothing;
   6. the flash-attention kernel raises on an input that requires grad;
   7. CLI: `repro_torch.launch.serve_policy --quick` for ppo and dqn
-     (trains 4 iterations in-process, then serves).
+     (trains 4 iterations in-process, then serves);
+  8. gmm kernel: the grouped matmul against its plain version at the LM
+     serving path's shapes (deepseek-moe-16b experts, batch 4, prompt 32:
+     decode C = 8, prefill C = 15) in bf16 and f32, ragged shapes and a C
+     below the smallest tile (f32 within rtol 1e-4, bf16 against the f32
+     product within one bf16 rounding, 2^-8), with times for the kernel,
+     the plain version and torch.bmm;
+  9. LM serve: `repro_torch.launch.serve.serve` of the full-width
+     deepseek-moe-16b in bf16 with use_kernels on weights drawn on the card
+     from seed 0 (2 prefills and 17 decode steps: 1539 gmm_ecd and 56
+     flash-attention launches), finite logits, peak device memory, and the
+     kernel path against use_kernels=False on the same params
+     (`lm_agreement`: f32 compute end to end, prefill and first decode
+     logits within 1e-3 x max|logit|; bf16 layer by layer within 2^-6);
+     then smollm-360m at full width in bf16 (flash attention only).
 It then prints the kernels' JSON line and, last, the device line.
 """
 import contextlib
@@ -55,7 +69,10 @@ H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,     # CUDA-core f32, H100 SXM data sheet
             "bfloat16": 989e12}   # dense bf16 tensor cores
 SERVE_CASE = (32, 4, 2, 4, 64, True, 0)  # B, H, KVH, S, D, causal, window
-KERNEL_CASES = [SERVE_CASE,
+# the LM serve path's prefill attention (batch 4, prompt 32)
+LM_FLASH_CASES = [(4, 16, 16, 32, 128, True, 0),   # deepseek-moe-16b
+                  (4, 15, 5, 32, 64, True, 0)]     # smollm-360m
+KERNEL_CASES = [SERVE_CASE, *LM_FLASH_CASES,
                 (2, 4, 2, 384, 64, True, 0),
                 (1, 4, 1, 256, 64, True, 64),
                 (2, 2, 2, 96, 32, False, 0),
@@ -83,6 +100,19 @@ REPLAY_CASES = [(20000, 12800, 64, False), (1048576, 1048576, 256, False),
                 (4096, 10, 64, False), (131, 100, 1, False),
                 (4096, 0, 16, False), (20000, 12800, 64, True)]
 REPLAY_TOL = 1e-5
+# (E, C, d, f) of the grouped matmul: the LM serve path's (decode wi/wg,
+# decode wo, prefill wi/wg, prefill wo; the first is the path's row in the
+# kernels line), then ragged shapes and a C below the smallest C-tile
+GMM_PATH = [(64, 8, 2048, 1408), (64, 8, 1408, 2048), (64, 15, 2048, 1408),
+            (64, 15, 1408, 2048)]
+GMM_CASES = GMM_PATH + [(4, 70, 96, 130), (8, 16, 512, 64), (3, 3, 100, 37)]
+GMM_RTOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
+LM = dict(arch="deepseek-moe-16b", batch=4, prompt_len=32, gen_len=16)
+# kernel path against use_kernels=False on the same params (lm_agreement):
+# f32 end to end, x max|logit| (f32 sums in another order over 28 layers);
+# bf16 layer by layer, x max|plain output| (2^-6: a few bf16 roundings)
+LM_F32_TOL = 1e-3
+LM_BF16_TOL = 2.0 ** -6
 
 
 def fail(msg):
@@ -154,8 +184,8 @@ def phase_kernels():
     from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    cases = [(c, "float32") for c in KERNEL_CASES] + [(SERVE_CASE,
-                                                      "bfloat16")]
+    cases = [(c, "float32") for c in KERNEL_CASES] + [
+        (c, "bfloat16") for c in (SERVE_CASE, *LM_FLASH_CASES)]
     for (B, H, KVH, S, D, causal, window), dname in cases:
         dt = getattr(torch, dname)
         G = H // KVH
@@ -667,6 +697,248 @@ def phase_cli():
         print("cli " + json.dumps(out))
 
 
+def phase_gmm_kernel():
+    """The grouped matmul against its plain version on the card; returns
+    {(shape, dtype): row}."""
+    import torch
+    from repro_torch.kernels.gmm.kernel import gmm_ecd
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for E, C, d, f in GMM_CASES:
+            x = torch.randn((E, C, d), generator=gen, device="cuda").to(dt)
+            w = (torch.randn((E, d, f), generator=gen, device="cuda")
+                 * d ** -0.5).to(dt)
+
+            def kernel():
+                return gmm_ecd(x, w)
+
+            def plain():
+                return gmm_ref(x, w)
+
+            def library():
+                return torch.bmm(x, w)
+
+            out = kernel()
+            torch.cuda.synchronize()
+            ref = gmm_ref(x.float(), w.float())
+            check(torch.isfinite(out.float()).all().item(),
+                  f"gmm_ecd non-finite at {(E, C, d, f)} {dname}")
+            scale = ref.abs().max().item()
+            err = (out.float() - ref).abs().max().item()
+            ok = ((out.float() - ref).abs()
+                  <= 1e-4 * scale + GMM_RTOL[dname] * ref.abs()).all()
+            check(bool(ok), f"gmm_ecd {dname} {(E, C, d, f)} outside rtol "
+                            f"{GMM_RTOL[dname]}, atol 1e-4 x {scale} "
+                            f"(max_abs_err {err})")
+            check(torch.equal(kernel(), out),
+                  f"gmm_ecd {(E, C, d, f)} {dname}: not bitwise repeatable")
+            big = E * d * f > 10 ** 8
+            ms = cuda_time_ms(kernel, 50 if big else 200)
+            plain_ms = cuda_time_ms(plain, 10 if big else 50, warmup=2)
+            library_ms = cuda_time_ms(library, 50 if big else 200)
+            es = torch.finfo(dt).bits // 8
+            nbytes = es * (E * C * d + E * d * f + E * C * f)
+            ops = 2 * E * C * d * f
+            t_bytes, t_ops = (nbytes / H100_BYTES_PER_S,
+                              ops / PEAK_OPS[dname])
+            row = {"name": "gmm_ecd", "shape": [E, C, d, f], "dtype": dname,
+                   "max_abs_err": err, "max_abs_ref": scale,
+                   "rtol": GMM_RTOL[dname], "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": nbytes, "ops": ops,
+                   "gb_per_s": nbytes / ms / 1e6}
+            print("kernel_case " + json.dumps(row))
+            rows[((E, C, d, f), dname)] = row
+            del x, w, out, ref
+    torch.cuda.empty_cache()
+    print("kernels_checked " + json.dumps({"kernels": ["gmm_ecd"]}))
+    return rows
+
+
+def phase_lm_serve(card):
+    """Serve the full-width deepseek-moe-16b (bf16, use_kernels) through
+    `repro_torch.launch.serve.serve`; returns its launch counts."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_hsd
+    from repro_torch.kernels.gmm.kernel import gmm_ecd
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import ModelOpts, build_model
+    arch, B, S, gen_len = (LM[k] for k in ("arch", "batch", "prompt_len",
+                                           "gen_len"))
+    model = build_model(arch, ModelOpts(dtype="bfloat16", use_kernels=True))
+    cfg = model.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff)
+          == (28, 2048, 64, 1408), f"{arch}: not the full-width config")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    n_params = sum(v.numel() for v in params.values())
+    # param_count (the reference's) leaves out the norm scales
+    n_norm = (2 * cfg.n_layers + 1) * cfg.d_model
+    check(n_params == cfg.param_count() + n_norm,
+          f"{arch}: {n_params} params, config says {cfg.param_count()} + "
+          f"{n_norm} norm scales")
+    prompts = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(1))
+
+    # the main path: counts at 0 just before, read just after
+    flash_attention_hsd.launches = 0
+    gmm_ecd.launches = 0
+    res = serve(arch, reduced=False, batch=B, prompt_len=S,
+                gen_len=gen_len, seed=0, dtype="bfloat16", device="cuda",
+                use_kernels=True, params=params, prompts=prompts)
+    launches = {"gmm_ecd": gmm_ecd.launches,
+                "flash_attention_hsd": flash_attention_hsd.launches}
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    want = {"gmm_ecd": 3 * n_moe * (2 + gen_len + 1),
+            "flash_attention_hsd": 2 * cfg.n_layers}
+    check(want == {"gmm_ecd": 1539, "flash_attention_hsd": 56},
+          f"expected launch counts {want}")
+    check(launches == want, f"{arch} serve: launches {launches}, expected "
+                            f"{want}")
+    check(res["generated_shape"] == [B, gen_len],
+          f"{arch} serve: generated_shape {res['generated_shape']}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # checks below launch the kernels again; they are not the main path
+    agree = lm_agreement(model, params, prompts, S + gen_len)
+    print("lm_serve " + json.dumps(dict(
+        res, init_s=init_s, weight_bytes=weight_bytes, n_params=n_params,
+        init_peak_bytes=init_peak, serve_peak_bytes=peak,
+        launches=launches, agreement=agree, card=card)))
+    del params, model
+    torch.cuda.empty_cache()
+
+    # smollm-360m at full width, flash attention only (the CLI's default)
+    flash_attention_hsd.launches = 0
+    gmm_ecd.launches = 0
+    res = serve("smollm-360m", reduced=False, batch=B, prompt_len=S,
+                gen_len=gen_len, seed=0, dtype="bfloat16", device="cuda",
+                use_kernels=True)
+    small = {"gmm_ecd": gmm_ecd.launches,
+             "flash_attention_hsd": flash_attention_hsd.launches}
+    check(small == {"gmm_ecd": 0, "flash_attention_hsd": 64},
+          f"smollm-360m serve: launches {small}")
+    check(res["generated_shape"] == [B, gen_len], f"smollm-360m {res}")
+    print("lm_serve " + json.dumps(dict(res, launches=small, card=card)))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_agreement(model, params, prompts, capacity):
+    """The kernel path against use_kernels=False on the same (bf16)
+    params. bf16 compute end to end is dominated by rounding for this
+    random-init model (the reference's fan-in of the (E, d, f) expert
+    weights is E, so the residual stream grows to ~10^3 and one bf16 ulp
+    there moves the router): the bf16 plain path alone lands as far from
+    the f32 plain path as the bf16 kernel path does. So the gates are:
+      * f32 compute on the same params (each bf16 weight cast to f32 at
+        use), end to end: prefill and first decode-step logits, kernels
+        (f32 gmm_ecd and flash) against plain, within LM_F32_TOL x
+        max|logit|;
+      * bf16 compute, layer by layer on the plain path's activations:
+        each layer's attention (flash vs blockwise) on the same input and
+        its FFN (gmm_ecd vs einsum) on the same input, within LM_BF16_TOL
+        x max|plain output|.
+    The bf16 end-to-end logits of both paths are reported against the f32
+    plain logits, ungated."""
+    import torch
+    from repro_torch.checkpoint.convert import unflatten_tree
+    from repro_torch.configs.base import ATTN
+    from repro_torch.models.attention import gqa_seq
+    from repro_torch.models.layers import (apply_mlp, apply_norm,
+                                           embed_tokens)
+    from repro_torch.models.model import ModelOpts, build_model
+    from repro_torch.models.moe import apply_moe
+    arch, cfg = model.cfg.name, model.cfg
+    models = {(dt, k): build_model(cfg, ModelOpts(dtype=dt, use_kernels=k))
+              for dt in ("float32", "bfloat16") for k in (False, True)}
+    S = prompts.shape[1]
+    logits = {}
+    tok = None
+    with torch.inference_mode():
+        for key, m in models.items():
+            lp, cache = m.prefill(params, prompts, capacity)
+            if tok is None:  # every path decodes the f32 plain path's token
+                tok = torch.argmax(lp[:, -1].float(), dim=-1)[:, None]
+            ld, _ = m.decode_step(params, tok, cache, S)
+            logits[key] = {"prefill": lp.float(), "decode": ld.float()}
+            del cache
+    out = {}
+    for name in ("prefill", "decode"):
+        ref = logits[("float32", False)][name]
+        scale = ref.abs().max().item()
+        for key, got in logits.items():
+            check(torch.isfinite(got[name]).all().item(),
+                  f"{arch} {name} {key}: non-finite logits")
+            err = (got[name] - ref).abs().max().item()
+            out[f"{name} {key[0]} kernels={key[1]} vs f32 plain"] = {
+                "max_abs_err": err, "max_abs_logit": scale,
+                "argmax_equal": int((got[name].argmax(-1)
+                                     == ref.argmax(-1)).sum()),
+                "rows": ref.shape[0]}
+        err = out[f"{name} float32 kernels=True vs f32 plain"]["max_abs_err"]
+        check(err <= LM_F32_TOL * scale,
+              f"{arch} {name}: f32 kernel path vs use_kernels=False logits "
+              f"max_abs_err {err} > {LM_F32_TOL} x {scale}")
+
+    tree = unflatten_tree(params)
+    kern, plain = models[("bfloat16", True)], models[("bfloat16", False)]
+    worst = {"attention": 0.0, "ffn": 0.0}
+    with torch.inference_mode():
+        x = embed_tokens(tree["embed"], prompts, cfg, torch.bfloat16)
+        for name, blk in plain.layers():
+            p = tree
+            for part in name.split("/"):
+                p = p[int(part)] if part.isdigit() else p[part]
+            h = apply_norm(p["norm1"], x)
+            ak, _ = gqa_seq(cfg, p["mixer"], h, 0, ATTN, kern.attn_opts)
+            ap, _ = gqa_seq(cfg, p["mixer"], h, 0, ATTN, plain.attn_opts)
+            x = x + ap
+            h2 = apply_norm(p["norm2"], x)
+            if blk.is_moe:
+                fk, _ = apply_moe(cfg, p["ffn"], h2, use_kernels=True)
+                fp, _ = apply_moe(cfg, p["ffn"], h2, use_kernels=False)
+            else:
+                fk = fp = apply_mlp(p["ffn"], h2)
+            for part, a, b in (("attention", ak, ap), ("ffn", fk, fp)):
+                rel = ((a.float() - b.float()).abs().max()
+                       / b.float().abs().max()).item()
+                worst[part] = max(worst[part], rel)
+                check(rel <= LM_BF16_TOL,
+                      f"{arch} {name} {part}: bf16 kernel vs plain "
+                      f"max_abs_err / max|plain| = {rel} > {LM_BF16_TOL}")
+            x = x + fp
+    out["bf16 per-layer worst max_abs_err / max|plain|"] = worst
+    return out
+
+
+def phase_gmm_guard():
+    import torch
+    from repro_torch.kernels.gmm.kernel import gmm_ecd
+    x = torch.randn((2, 8, 64), device="cuda", requires_grad=True)
+    w = torch.randn((2, 64, 32), device="cuda")
+    try:
+        gmm_ecd(x, w)
+    except RuntimeError as e:
+        print(f"gmm guard: raised under grad: {e}")
+    else:
+        fail("gmm_ecd ran on an input that requires grad")
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -683,6 +955,9 @@ def main():
     phase_path_agreement()
     phase_flash_guard()
     phase_cli()
+    gmm_rows = phase_gmm_kernel()
+    phase_gmm_guard()
+    lm_launches = phase_lm_serve(card)
     serve = cases[(SERVE_CASE, "float32")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -712,6 +987,13 @@ def main():
         "replaces": "src/repro/kernels/replay_sample/kernel.py:137",
         "launches": train_launches["prioritized_sample_c"]},
         **{k: replay_row[k] for k in keys}))
+    gmm_row = gmm_rows[(GMM_PATH[0], "bfloat16")]
+    kernels.append(dict({
+        "name": "gmm_ecd", "route": "cuda",
+        "source": "src/repro_torch/kernels/gmm/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/gmm/kernel.py:42",
+        "launches": lm_launches["gmm_ecd"]},
+        **{k: gmm_row[k] for k in keys}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

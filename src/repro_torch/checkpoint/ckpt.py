@@ -14,6 +14,7 @@ from repro_torch.checkpoint.convert import (flatten_tree, params_from_jax,
                                             params_to_jax,
                                             train_state_from_jax,
                                             unflatten_tree)
+from repro_torch.kernels.common import resolve_device
 
 RING = ".ring/"  # the actor-param ring of a reference Trainer archive
 
@@ -72,10 +73,12 @@ def _to(tree, device):
     return None if tree is None else tree.to(device)
 
 
-def load_train_state(path, device="cpu"):
+def load_train_state(path, device="cuda"):
     """A reference Trainer archive (its `.params/`, `.opt_state/`,
     `.extra/`, `.ring/` and `.steps` entries) as the port's TrainState on
-    `device` (convert.train_state_from_jax)."""
+    `device` (convert.train_state_from_jax): the card by default,
+    RuntimeError without one."""
+    device = resolve_device(device)
     data, _ = _read(path)
     if ".steps" not in data:
         raise KeyError(f"{path}: no '.steps' entry; not a Trainer archive")

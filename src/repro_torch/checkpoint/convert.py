@@ -5,9 +5,12 @@ The reference keeps a LanguageModel's repeated super-blocks stacked:
 every leaf under `.../stack/t<t>/...` has a leading (repeats,) dim from a
 vmapped init. The port runs the repeats as a ModuleList, so its flat
 params hold one entry per block, `.../stack/<r>/t<t>/...`. Everything
-else keeps its key path. Params a mode does not use (e.g. `embed` in
-feature mode) are carried too, so templates and checkpoints match the
-reference leaf for leaf.
+else keeps its key path: a list in the tree (an MoE model's `prefix` of
+dense blocks, a `tail`) becomes `prefix/<i>/...` and goes back as a
+list, and an MoE FFN's expert weights (E, d, f) keep their expert dim.
+A KV cache converts the same way (`stack/<r>/t<t>/k`). Params a mode
+does not use (e.g. `embed` in feature mode) are carried too, so
+templates and checkpoints match the reference leaf for leaf.
 """
 from __future__ import annotations
 

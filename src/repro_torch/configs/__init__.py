@@ -1,8 +1,9 @@
 """Architecture registry of the port; `load_all` registers every config
-the port has (so far the survey's policy trunk)."""
+the port has (the survey's policy trunk and the LM serving configs)."""
 from repro_torch.configs.base import (ATTN, ModelConfig,  # noqa: F401
-                                      get_config, register)
+                                      MoESpec, get_config, register)
 
 
 def load_all():
-    from repro_torch.configs import paper_drl  # noqa: F401
+    from repro_torch.configs import (deepseek_moe_16b,  # noqa: F401
+                                     paper_drl, smollm_360m)

@@ -1,6 +1,6 @@
 """Config system: model configs and the architecture registry (the
 port's own copy of the parts of src/repro/configs/base.py that the
-policy trunk needs).
+policy trunk and the LM serving path need).
 
 A model is a repeated "super-block" pattern of block kinds. Configs are
 plain frozen dataclasses, so they hash and compare.
@@ -9,10 +9,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 ATTN = "attn"  # full (global) softmax attention; other kinds wait for
 #                the LM zoo (ROADMAP queue 1, item 15)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """Mixture-of-experts FFN spec."""
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden dim
+    n_shared: int = 0              # always-on shared experts (DeepSeek-MoE)
+    every: int = 1                 # MoE FFN every `every` layers
+    first_dense: int = 0           # leading dense layers (DeepSeek-MoE layer 0)
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +41,7 @@ class ModelConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
     layer_pattern: Tuple[str, ...] = (ATTN,)   # repeated to cover n_layers
     window: int = 0                # sliding window of local attention
-    moe: Optional[Any] = None      # MoE configs wait for ROADMAP 1.15
+    moe: Optional[MoESpec] = None
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
     rope_head_dim: int = 64
@@ -62,21 +75,42 @@ class ModelConfig:
             return False
         return (i - m.first_dense) % m.every == 0
 
+    def param_count(self) -> int:
+        """Parameters of the ATTN / MoE / dense-FFN stack (the reference's
+        count for those kinds)."""
+        d, hd = self.d_model, self.head_dim
+        total = self.vocab * d  # embedding
+        if not self.tie_embeddings:
+            total += self.vocab * d
+        for i, kind in enumerate(self.pattern()):
+            if kind != ATTN:
+                raise NotImplementedError(f"param_count of kind {kind!r}")
+            total += 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+            if self.is_moe_layer(i):
+                m = self.moe
+                total += ((m.n_experts + m.n_shared) * 3 * d * m.d_ff
+                          + d * m.n_experts)  # + router
+            else:
+                total += 3 * d * self.d_ff  # swiglu
+        return int(total)
+
     def reduced(self) -> "ModelConfig":
         """The narrow variant used by default for policy trunks and CPU
-        tests (same rule as the reference's `reduced`)."""
-        if self.moe is not None:
-            raise NotImplementedError(
-                "reduced() of an MoE config: MoE is ported with the LM zoo "
-                "(ROADMAP queue 1, item 15)")
+        tests (the reference's `reduced`, MoE included)."""
         d = min(self.d_model, 128)
         n_heads = max(2, min(self.n_heads, 4))
         hd = max(8, d // n_heads)
         kv = 1 if self.n_kv_heads == 1 else max(1, min(self.n_kv_heads, 2))
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
+                d_ff=64, n_shared=min(self.moe.n_shared, 1),
+                first_dense=min(self.moe.first_dense, 1))
         n_layers = max(2, len(self.layer_pattern))
         return dataclasses.replace(
             self, n_layers=n_layers, d_model=d, n_heads=n_heads,
-            n_kv_heads=kv, head_dim=hd, d_ff=128, vocab=512,
+            n_kv_heads=kv, head_dim=hd, d_ff=128, vocab=512, moe=moe,
             q_lora_rank=min(self.q_lora_rank, 32) if self.q_lora_rank else 0,
             kv_lora_rank=min(self.kv_lora_rank, 32) if self.kv_lora_rank else 0,
             rope_head_dim=min(self.rope_head_dim, 16),

@@ -254,7 +254,7 @@ class TrunkPolicy(_ActorCritic):
             x = embed_tokens(self.lm.embed, tok, cfg, torch.float32)
         else:
             x = obs.float()[..., None] * self.feat.w + self.feat.b
-        x = self.lm(x, 0)
+        x = self.lm.run_blocks(x, 0)[0]
         h = apply_norm(self.lm.final_norm, x)[:, -1]
         pi = h @ self.pi.w + self.pi.b
         v = (h @ self.v.w + self.v.b)[..., 0]

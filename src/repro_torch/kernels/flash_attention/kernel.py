@@ -41,9 +41,10 @@ def flash_attention_hsd(q, k, v, *, causal=True, window=0, valid_len=None):
         # running it here would train without an attention gradient
         raise RuntimeError(
             "flash_attention_hsd: q, k or v requires grad, but the "
-            "flash-attention backward kernel is not ported yet (slice 4, "
-            "with --policy trunk training); run under torch.no_grad() / "
-            "inference_mode, or use use_kernels=False to train")
+            "flash-attention backward kernel is not ported yet (it comes "
+            "with --policy trunk training, ROADMAP queue 1 item 9); run "
+            "under torch.no_grad() / inference_mode, or use "
+            "use_kernels=False to train")
     B, H, S, D = q.shape
     KVH = k.shape[1]
     if k.shape != (B, KVH, S, D) or v.shape != k.shape:

@@ -1,0 +1,70 @@
+"""ctypes binding of the Hopper grouped-matmul kernel (csrc/gmm.cu), the
+port of the Pallas `gmm_ecd`.
+
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the
+plain version (ref.py). `gmm_ecd.launches` counts kernel launches, so a
+run can show that its main path went through the kernel.
+"""
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.common import check_launch, load_kernels
+from repro_torch.kernels.gmm.ref import gmm_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _launcher():
+    dll = load_kernels()
+    fn = dll.gmm_ecd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return dll, fn
+
+
+def gmm_ecd(x, w):
+    """x: (E,C,d); w: (E,d,f), both contiguous, both float32 or both
+    bfloat16. Returns (E,C,f) in x's dtype, f32 accumulation. No padding:
+    ragged C, d and f are masked inside the kernel."""
+    if not x.is_cuda:
+        return gmm_ref(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        # the kernel writes through ctypes: its output has no grad_fn
+        raise RuntimeError(
+            "gmm_ecd: x or w requires grad, but no gmm backward kernel is "
+            "ported (LM training is a later slice); run under "
+            "torch.no_grad() / inference_mode, or use use_kernels=False")
+    if x.ndim != 3 or w.ndim != 3 or w.shape[0] != x.shape[0] or \
+            w.shape[1] != x.shape[2]:
+        raise ValueError(f"gmm_ecd: expected x (E,C,d) and w (E,d,f); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"gmm_ecd: dtypes {x.dtype}, {w.dtype}; expected "
+                         f"both float32 or both bfloat16")
+    if w.device != x.device:
+        raise ValueError("gmm_ecd: x and w on different devices")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("gmm_ecd: x and w must be contiguous")
+    E, C, d = x.shape
+    f = w.shape[2]
+    if E > 65535 or max(C, d, f) >= 2 ** 31:
+        raise ValueError(f"gmm_ecd: (E,C,d,f) = {(E, C, d, f)} outside "
+                         f"E <= 65535, C, d, f < 2^31")
+    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    dll, fn = _launcher()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                  _DTYPES[x.dtype], E, C, d, f, stream)
+    gmm_ecd.launches += 1
+    check_launch(dll, code, "gmm_ecd")
+    return out
+
+
+gmm_ecd.launches = 0

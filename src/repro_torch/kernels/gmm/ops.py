@@ -1,0 +1,10 @@
+"""Public grouped-matmul wrapper (the port of src/repro/kernels/gmm/ops.py).
+The reference pads C, d and f to tile multiples and slices the result;
+the CUDA kernel masks the ragged edges itself, so this layer only casts
+w to x's dtype."""
+from repro_torch.kernels.gmm.kernel import gmm_ecd
+
+
+def gmm(x, w):
+    """x: (E,C,d) @ w: (E,d,f) -> (E,C,f), per expert."""
+    return gmm_ecd(x.contiguous(), w.to(x.dtype).contiguous())

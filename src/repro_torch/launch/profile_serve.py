@@ -9,20 +9,22 @@ through ServeEngine at one fixed bucket and reports, as one JSON line:
     host->device copy, forward, device->host copy), mean over the run;
   * `forward_ms`: CUDA-event time of the policy forward alone on the
     staged batch;
-  * a torch.profiler window over `--profile-dispatches` dispatches:
-    the device's busy share (sum of device time over the window's wall
-    time), the device time per dispatch, the number of device kernels
-    per dispatch and the top kernels by device time.
+  * a torch.profiler window over `--profile-dispatches` dispatches
+    (`launch/profiling.device_window`): the device's busy share (sum of
+    device time over the window's wall time), the device time and the
+    number of device kernels per dispatch, and the top kernels by device
+    time.
 Needs a card: there is no CPU mode.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
+
+from repro_torch.launch.profiling import card, device_window
 
 
 def main(argv=None):
@@ -42,9 +44,6 @@ def main(argv=None):
     from repro_torch.core.networks import TrunkPolicy
     from repro_torch.core.serving import ParamStore, ServeEngine
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
     spec = envs.make(args.env).spec
     policy = TrunkPolicy.for_spec(spec, reduced=False)
     store = ParamStore()
@@ -88,33 +87,10 @@ def main(argv=None):
     torch.cuda.synchronize()
     forward_ms = start.elapsed_time(end) / args.dispatches
 
-    from torch.profiler import ProfilerActivity, profile
-    n = args.profile_dispatches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        for _ in range(n):
-            dispatch()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - w0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
-        "card": card, "env": args.env, "bucket": B,
+        "card": card(), "env": args.env, "bucket": B,
         "dispatch_ms": dispatch_ms, "forward_ms": forward_ms,
-        "profile": {
-            "dispatches": n, "wall_ms": wall_us / 1e3,
-            "device_busy_share": busy_us / wall_us if wall_us else None,
-            "device_us_per_dispatch": busy_us / n,
-            "device_ops_per_dispatch": len(kernels) / n,
-            "top_device_us_per_dispatch": [
-                {"name": k[:80], "us": v / n} for k, v in top]},
+        "profile": device_window(dispatch, args.profile_dispatches),
         "served": engine.stats["served"]}))
 
 

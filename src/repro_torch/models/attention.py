@@ -1,8 +1,10 @@
-"""Attention token mixer: the grouped-query (GQA) full-sequence causal
-path of src/repro/models/attention.py.
+"""Attention token mixer: the grouped-query (GQA) paths of
+src/repro/models/attention.py for the `ATTN` kind — full-sequence causal
+attention (train, prefill, which may emit a KV cache) and one-token
+decode against that cache.
 
-Two execution paths, chosen by `AttnOpts.use_kernels` as in the
-reference:
+Two execution paths for the full sequence, chosen by
+`AttnOpts.use_kernels` as in the reference:
   * kernels on: core/attention.py, the flash-attention dispatcher (the
     Hopper kernel for CUDA tensors, its plain version on the CPU);
   * kernels off: the model's own blockwise online softmax
@@ -36,6 +38,7 @@ class AttnOpts:
     block_k: int = 512       # kv block for online softmax
     n_q_chunks: int = 8      # static causal query chunks
     use_kernels: bool = False  # route seq attention through the kernel
+    moe_local: bool = False    # row-local MoE dispatch (not ported)
 
 
 def attn_params(cfg, kind: str) -> Params:
@@ -51,6 +54,19 @@ def attn_params(cfg, kind: str) -> Params:
 # ---------------------------------------------------------------------------
 # Blockwise online-softmax attention core (plain PyTorch "flash")
 # ---------------------------------------------------------------------------
+
+def emit_ring(k, C):
+    """Lay out per-position entries k (B,S,...) into a ring cache of
+    capacity C such that position p sits in slot p % C. Requires C >= S
+    (pad right) or S % C == 0 (keep last C — slots align)."""
+    S = k.shape[1]
+    if C >= S:
+        return torch.nn.functional.pad(
+            k, [0, 0] * (k.ndim - 2) + [0, C - S])
+    if S % C:
+        raise ValueError(f"ring cache needs S%C==0, got S={S} C={C}")
+    return k[:, -C:]
+
 
 def _pad_axis(x, axis, to_multiple):
     n = x.shape[axis]
@@ -138,10 +154,11 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def gqa_seq(cfg, p, x, pos0, kind, opts: AttnOpts, causal=True):
-    """Full-sequence causal GQA with RoPE; returns the mixer output.
-    (The reference also emits a prefill cache; the port's serving and
-    training paths do not need one.)"""
+def gqa_seq(cfg, p, x, pos0, kind, opts: AttnOpts, cache_capacity=0,
+            causal=True):
+    """Full-sequence causal GQA with RoPE. Returns (out, cache): the KV
+    cache {'k','v'} (B,C,KVH,D) laid out as a ring of capacity
+    `cache_capacity`, or None when it is 0 (train mode)."""
     if kind != ATTN or not causal:
         raise _not_ported(f"GQA kind {kind!r} (causal={causal})")
     B, S, _ = x.shape
@@ -158,4 +175,38 @@ def gqa_seq(cfg, p, x, pos0, kind, opts: AttnOpts, causal=True):
         o = causal_attention(qg, k, v, pos0, n_q_chunks=opts.n_q_chunks,
                              block_k=opts.block_k)
     o = o.reshape(B, S, H, D)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    cache = None
+    if cache_capacity:
+        cache = {"k": emit_ring(k, cache_capacity),
+                 "v": emit_ring(v, cache_capacity)}
+    return out, cache
+
+
+def gqa_decode(cfg, p, x, cache, pos: int, kind, opts: AttnOpts):
+    """One-token decode. x: (B,1,d); cache {'k','v'}: (B,C,KVH,D); pos:
+    the position of this token. Writes its k and v into ring slot
+    pos % C of the cache IN PLACE (the reference returns an updated copy)
+    and attends over all C slots, in f32. Like the reference it assumes
+    a full cache: slots not yet written hold zeros and are attended all
+    the same (a reference quirk the port keeps, ROADMAP §3)."""
+    if kind != ATTN:
+        raise _not_ported(f"GQA decode of kind {kind!r}")
+    B = x.shape[0]
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KVH
+    dt = x.dtype
+    q, k, v = _qkv(cfg, p, x)
+    positions = torch.full((1,), pos, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    slot = pos % ck.shape[1]
+    ck[:, slot] = k[:, 0]
+    cv[:, slot] = v[:, 0]
+    qg = q.reshape(B, 1, KVH, G, D).float() * D ** -0.5
+    s = torch.einsum("bqhgd,bthd->bhgqt", qg, ck.float())  # (B,KVH,G,1,C)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqt,bthd->bqhgd", w, cv.float())
+    o = o.reshape(B, 1, H, D).to(dt)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(dt))

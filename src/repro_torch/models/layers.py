@@ -16,22 +16,27 @@ from torch.func import functional_call
 
 # -- parameter templates ----------------------------------------------------
 
-def dense_init(generator, shape, scale=None):
-    """Truncated-normal (±2) fan-in init, stored f32, drawn on the CPU from
-    `generator` so a seed gives the same weights on every device."""
+def dense_init(generator, shape, scale=None, dtype=torch.float32):
+    """Truncated-normal (±2) fan-in init, drawn in f32 on `generator`'s
+    device and stored in `dtype`: a seed gives the same weights on every
+    device for a CPU generator, and a CUDA generator draws on the card."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
-    t = torch.empty(shape, dtype=torch.float32)
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t * scale
+    return t.mul_(scale).to(dtype)
 
 
 def dense(scale=None):
-    return lambda generator, shape: dense_init(generator, shape, scale)
+    return lambda generator, shape, dtype: dense_init(generator, shape,
+                                                      scale, dtype)
 
 
 def const(value):
-    return lambda generator, shape: torch.full(shape, float(value))
+    """A constant leaf (norm scales and biases, policy-head biases); it
+    stays f32 whatever the storage dtype, as the reference uses it."""
+    return lambda generator, shape, dtype: torch.full(
+        shape, float(value), device=generator.device)
 
 
 ones, zeros = const(1.0), const(0.0)
@@ -39,7 +44,7 @@ ones, zeros = const(1.0), const(0.0)
 
 def add_param(module: nn.Module, name: str, shape, init) -> None:
     """Register a meta-device template `name` of `shape` on `module`;
-    `init(generator, shape)` makes its value in `init_params`."""
+    `init(generator, shape, dtype)` makes its value in `init_params`."""
     module.register_parameter(name, nn.Parameter(
         torch.empty(tuple(shape), device="meta"), requires_grad=False))
     if "_inits" not in module.__dict__:
@@ -64,21 +69,26 @@ class Params(nn.Module):
         return name in self._inits
 
 
-def init_params(module: nn.Module, generator, device="cpu") -> dict:
+def init_params(module: nn.Module, generator, device,
+                dtype=torch.float32) -> dict:
     """Fresh values for every template under `module`, keyed by JAX key
-    path, drawn in module order from `generator` and moved to `device`."""
+    path, drawn in module order from `generator` on its device one leaf at
+    a time, each stored at once in `dtype` (matrices; constant leaves stay
+    f32) and moved to `device`. No f32 copy of the whole model is made."""
     out = {}
     for prefix, mod in module.named_modules():
         for name, (shape, init) in mod.__dict__.get("_inits", {}).items():
             key = f"{prefix}.{name}" if prefix else name
-            out[key.replace(".", "/")] = init(generator, shape).to(device)
+            out[key.replace(".", "/")] = init(generator, shape,
+                                              dtype).to(device)
     return out
 
 
-def apply_params(module: nn.Module, params: dict, *args):
-    """Run `module(*args)` on the flat `params` (JAX key paths)."""
+def apply_params(module: nn.Module, params: dict, *args, **kwargs):
+    """Run `module(*args, **kwargs)` on the flat `params` (JAX key
+    paths)."""
     named = {k.replace("/", "."): v for k, v in params.items()}
-    return functional_call(module, named, args, strict=True)
+    return functional_call(module, named, args, kwargs, strict=True)
 
 
 # -- norms ------------------------------------------------------------------

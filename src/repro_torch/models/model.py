@@ -1,24 +1,34 @@
-"""LanguageModel: assembles blocks into the full architecture.
+"""LanguageModel: assembles blocks into the full architecture (the port
+of src/repro/models/model.py for the ATTN / MoE / dense-FFN stack).
 
 The reference factors the layer list into [prefix | R × super-block |
-tail] and runs the R repeats as one `lax.scan` over stacked params. The
-port keeps the factoring and the names, and runs the repeats as a loop
-over a `ModuleList` of super-blocks; its params are split per block
-("stack/<r>/t<t>/...", see checkpoint/convert.py). Prefill, decode, the
-encoder, frontends and the ZeRO-3 list form are not ported yet.
+tail] — the prefix is MoE's leading dense layers, the super-block the
+smallest repeating (kind, is_moe) period — and runs the R repeats as one
+`lax.scan` over stacked params. The port keeps the factoring and the
+names, and runs the repeats as a loop over a `ModuleList` of
+super-blocks; its params are split per block ("stack/<r>/t<t>/...", see
+checkpoint/convert.py), and so is its KV cache ("stack/<r>/t<t>/k").
+
+Execution modes: the block stack alone (`_run_seq`; the policy trunk
+calls `run_blocks`), `prefill` (emits the KV cache) and `decode_step`
+(one token against it, updating the cache in place). The encoder, frontends, train-mode `forward`/`loss`
+and the ZeRO-3 list form are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.kernels.common import resolve_device
 from repro_torch.models.attention import AttnOpts, _not_ported
-from repro_torch.models.blocks import init_block
-from repro_torch.models.layers import (apply_params, embed_params,
-                                       init_params, norm_params)
+from repro_torch.models.blocks import init_block, init_cache
+from repro_torch.models.layers import (apply_norm, apply_params,
+                                       embed_params, embed_tokens,
+                                       init_params, norm_params, unembed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +37,7 @@ class ModelOpts:
     use_kernels: bool = False
     block_k: int = 512
     n_q_chunks: int = 8
+    moe_local_dispatch: bool = False
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -36,51 +47,123 @@ class ModelOpts:
 class LanguageModel(nn.Module):
     def __init__(self, cfg: ModelConfig, opts: ModelOpts = ModelOpts()):
         super().__init__()
-        if cfg.enc_layers or cfg.frontend != "none" or cfg.moe is not None:
-            raise _not_ported(f"{cfg.name} (encoder, frontend or MoE)")
+        if cfg.enc_layers or cfg.frontend != "none":
+            raise _not_ported(f"{cfg.name} (encoder or frontend)")
         self.cfg = cfg
         self.opts = opts
         self.attn_opts = AttnOpts(dtype=opts.tdtype, block_k=opts.block_k,
                                   n_q_chunks=opts.n_q_chunks,
-                                  use_kernels=opts.use_kernels)
+                                  use_kernels=opts.use_kernels,
+                                  moe_local=opts.moe_local_dispatch)
         pat = cfg.pattern()
         self.specs = [(pat[i], cfg.is_moe_layer(i))
                       for i in range(cfg.n_layers)]
-        self.period = len(cfg.layer_pattern)
-        self.repeats = cfg.n_layers // self.period
-        self.tail_len = cfg.n_layers - self.repeats * self.period
-        self.stack_specs = self.specs[:self.period]
+        self.prefix_len = cfg.moe.first_dense if cfg.moe else 0
+        period = len(cfg.layer_pattern)
+        if cfg.moe:
+            period = math.lcm(period, cfg.moe.every)
+        rem = cfg.n_layers - self.prefix_len
+        self.period = period
+        self.repeats = rem // period
+        self.tail_len = rem - self.repeats * period
+        self.stack_specs = self.specs[self.prefix_len:
+                                      self.prefix_len + period]
 
         def block(spec):
             return init_block(cfg, spec[0], spec[1], self.attn_opts)
 
         self.embed = embed_params(cfg)
         self.final_norm = norm_params(cfg)
+        if self.prefix_len:
+            self.prefix = nn.ModuleList(block(self.specs[i])
+                                        for i in range(self.prefix_len))
         self.stack = nn.ModuleList(
             nn.ModuleDict({f"t{t}": block(self.stack_specs[t])
                            for t in range(self.period)})
             for _ in range(self.repeats))
         if self.tail_len:
-            base = self.repeats * self.period
+            base = self.prefix_len + self.repeats * self.period
             self.tail = nn.ModuleList(block(self.specs[base + i])
                                       for i in range(self.tail_len))
 
-    def init(self, generator, device="cpu") -> dict:
-        """Fresh params (flat, JAX key paths) from a torch.Generator."""
-        return init_params(self, generator, device)
+    def init(self, generator, device="cuda") -> dict:
+        """Fresh params (flat, JAX key paths) drawn leaf by leaf on
+        `generator`'s device (a CUDA generator draws on the card), the
+        matrices stored in `opts.dtype` and the norm scales in f32, then
+        placed on `device`: the card by default, RuntimeError without
+        one."""
+        return init_params(self, generator, resolve_device(device),
+                           self.opts.tdtype)
 
-    def forward(self, x, pos0=0):
-        """The block stack over embedded inputs x: (B, S, d)."""
-        for sb in self.stack:
+    def layers(self):
+        """(cache/param key prefix, block, spec) in execution order."""
+        for i, blk in enumerate(getattr(self, "prefix", ())):
+            yield f"prefix/{i}", blk
+        for r, sb in enumerate(self.stack):
             for t in range(self.period):
-                x = sb[f"t{t}"](x, pos0)
-        for blk in getattr(self, "tail", ()):
-            x = blk(x, pos0)
-        return x
+                yield f"stack/{r}/t{t}", sb[f"t{t}"]
+        for i, blk in enumerate(getattr(self, "tail", ())):
+            yield f"tail/{i}", blk
 
-    def _run_seq(self, params, x, pos0=0):
-        """Run the block stack on explicit params (no cache, no aux)."""
-        return apply_params(self, params, x, pos0)
+    def run_blocks(self, x, pos0=0, cache_capacity=0):
+        """The block stack over embedded inputs x: (B, S, d) (the policy
+        trunk calls it directly). Returns (x, cache as a flat dict keyed
+        like the params, the summed MoE aux loss: an f32 scalar tensor,
+        or 0.0 without MoE layers)."""
+        aux = 0.0
+        caches = {}
+        for name, blk in self.layers():
+            x, c, a = blk(x, pos0, cache_capacity)
+            aux = aux + a
+            caches.update({f"{name}/{k}": v for k, v in c.items()})
+        return x, caches, aux
+
+    def forward(self, x, pos0=0, *, mode="seq", cache=None, pos=None,
+                cache_capacity=0):
+        """Runs under `apply_params` (explicit params):
+          * "seq": the block stack over embedded x -> (x, cache, aux);
+          * "prefill": tokens x -> (last-token logits, cache);
+          * "decode": token x (B,1) at position `pos` against `cache`
+            -> (logits (B,1,V), cache updated in place)."""
+        cfg, dt = self.cfg, self.opts.tdtype
+        if mode == "seq":
+            return self.run_blocks(x, pos0, cache_capacity)
+        if mode == "prefill":
+            h = embed_tokens(self.embed, x, cfg, dt)
+            h, cache, _ = self.run_blocks(h, 0, cache_capacity)
+            h = apply_norm(self.final_norm, h[:, -1:])
+            return unembed(self.embed, h, cfg), cache
+        if mode == "decode":
+            h = embed_tokens(self.embed, x, cfg, dt)
+            for name, blk in self.layers():
+                h, _, _ = blk(h, cache={k: cache[f"{name}/{k}"]
+                                        for k in ("k", "v")}, pos=pos)
+            h = apply_norm(self.final_norm, h)
+            return unembed(self.embed, h, cfg), cache
+        raise ValueError(f"unknown mode {mode!r}")
+
+    def _run_seq(self, params, x, pos0=0, cache_capacity=0):
+        """Run the block stack on explicit params -> (x, cache, aux)."""
+        return apply_params(self, params, x, pos0, mode="seq",
+                            cache_capacity=cache_capacity)
+
+    def prefill(self, params, tokens, cache_capacity=None):
+        """tokens (B,S) int -> (last-token logits (B,1,V), cache)."""
+        cap = cache_capacity or tokens.shape[1] + 1  # one free slot
+        return apply_params(self, params, tokens, mode="prefill",
+                            cache_capacity=cap)
+
+    def decode_step(self, params, token, cache, pos: int):
+        """token: (B,1) int; pos: absolute position of this token. Returns
+        (logits (B,1,V), cache), the cache updated in place."""
+        return apply_params(self, params, token, mode="decode", cache=cache,
+                            pos=pos)
+
+    def make_cache(self, batch: int, capacity: int, device) -> dict:
+        """Zero cache with the keys decode_step expects."""
+        return {f"{name}/{k}": v for name, blk in self.layers()
+                for k, v in init_cache(self.cfg, blk.kind, batch, capacity,
+                                       self.opts.tdtype, device).items()}
 
 
 def build_model(name_or_cfg, opts: ModelOpts = ModelOpts(),

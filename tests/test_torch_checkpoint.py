@@ -169,3 +169,108 @@ def test_archive_without_ring_is_refused(tmp_path):
     path = jax_save(str(tmp_path / "plain.npz"), jparams)
     with pytest.raises(KeyError, match="ring"):
         load_actor_policy(path, {})
+
+
+def _jax_moe_lm():
+    """deepseek-moe-16b reduced, at 4 layers: a prefix list of one dense
+    block, then three stacked MoE super-blocks."""
+    import dataclasses
+    from repro.configs.base import get_config as jax_get_config
+    from repro.models import build_model as jax_build_model
+    cfg = dataclasses.replace(
+        jax_get_config("deepseek-moe-16b").reduced(), n_layers=4)
+    return jax_build_model(cfg).init(jax.random.PRNGKey(0))
+
+
+def test_moe_lm_round_trip_keeps_the_prefix_list():
+    tree = _np_tree(_jax_moe_lm())
+    assert isinstance(tree["prefix"], list) and len(tree["prefix"]) == 1
+    flat = params_from_jax(tree)
+    assert flat["prefix/0/ffn/wi"].shape == (128, 128)      # dense layer 0
+    assert flat["stack/2/t0/ffn/wi"].shape == (4, 128, 64)  # (E, d, f)
+    assert flat["stack/0/t0/ffn/shared/wo"].shape == (64, 128)
+    assert flat["stack/1/t0/ffn/router"].shape == (128, 4)
+    np.testing.assert_array_equal(flat["stack/1/t0/ffn/wo"].numpy(),
+                                  tree["stack"]["t0"]["ffn"]["wo"][1])
+    _assert_trees_equal(params_to_jax(flat), tree)
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import ModelOpts, build_model
+    tm = build_model(dataclasses.replace(
+        get_config("deepseek-moe-16b").reduced(), n_layers=4),
+        ModelOpts(dtype="float32"))
+    template = tm.init(torch.Generator(), "cpu")
+    assert sorted(template) == sorted(flat)
+    assert all(template[k].shape == flat[k].shape for k in flat)
+
+
+def test_moe_lm_port_archive_loads_into_jax(tmp_path):
+    jparams = _jax_moe_lm()
+    path = save_checkpoint(str(tmp_path / "moe.npz"),
+                           params_from_jax(_np_tree(jparams)))
+    tree, _ = jax_load(path, jparams)
+    _assert_trees_equal(tree, jparams)
+
+
+def test_lm_init_defaults_to_the_card():
+    """The LM entry point draws on the card unless told otherwise, and
+    raises without one instead of running on the CPU."""
+    from repro_torch.checkpoint import load_train_state
+    from repro_torch.models.model import ModelOpts, build_model
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without a card")
+    tm = build_model("smollm-360m", ModelOpts(dtype="float32"), reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.init(torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_train_state("unused.npz")
+
+
+def test_lm_init_stores_matrices_in_the_model_dtype():
+    """bf16 models store every matrix in bf16 and the norm scales in f32
+    (JAX stores f32 and casts each matrix to bf16 at use, and uses the
+    norm scales in f32): the same values, one cast made once."""
+    from repro_torch.models.model import ModelOpts, build_model
+    tm = build_model("deepseek-moe-16b", ModelOpts(dtype="bfloat16"),
+                     reduced=True)
+    params = tm.init(torch.Generator().manual_seed(0), "cpu")
+    f32 = sorted(k for k, v in params.items() if v.dtype == torch.float32)
+    assert f32 == ["final_norm/scale", "prefix/0/norm1/scale",
+                   "prefix/0/norm2/scale", "stack/0/t0/norm1/scale",
+                   "stack/0/t0/norm2/scale"]
+    assert all(v.dtype == torch.bfloat16 for k, v in params.items()
+               if k not in f32)
+    ref = build_model("deepseek-moe-16b", ModelOpts(dtype="float32"),
+                      reduced=True).init(torch.Generator().manual_seed(0),
+                                         "cpu")
+    for k in params:
+        assert torch.equal(params[k], ref[k].to(params[k].dtype)), k
+
+
+# sha256 over (key, bytes) in key order of the policies' params for
+# torch.Generator().manual_seed(0), as the port drew them before its LM
+# init moved to the generator's device
+POLICY_FINGERPRINTS = {
+    ("cartpole", "trunk"):
+        "e4980b30f355e7dec7ea93a846e5d74ea692f61b4ffd69e2f63b4fcb4bd86835",
+    ("cartpole", "mlp"):
+        "7360ed5f6dfd6c09d79091a5f728e1be534bbba145f628010cbfc77d7e2d248d",
+    ("pendulum", "trunk"):
+        "a9dc24786b0a49b8bf0935f80556a3a36fe1225294b902c922f1ba41540db08e",
+    ("pendulum", "mlp"):
+        "ecf665cf48e4e1a7efb7290481699be24c23ea094120279d427d81b4b4c30d6f",
+}
+
+
+@pytest.mark.parametrize("env_name,policy", sorted(POLICY_FINGERPRINTS))
+def test_cpu_generator_policy_weights_are_unchanged(env_name, policy):
+    import hashlib
+    spec = tenvs.make(env_name).spec
+    pol = (TrunkPolicy.for_spec(spec, reduced=False, device="cpu")
+           if policy == "trunk" else MLPPolicy.for_spec(spec, device="cpu"))
+    params = pol.init(torch.Generator().manual_seed(0))
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(params[k].contiguous().numpy().tobytes())
+    assert h.hexdigest() == POLICY_FINGERPRINTS[(env_name, policy)]

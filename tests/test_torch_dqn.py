@@ -317,7 +317,7 @@ def test_jax_dqn_archive_serves_its_ring_slot_and_epsilon(tmp_path):
     jtr = JaxTrainer(jenvs.make("cartpole"), cfg)
     js, _ = jtr.fit()
     path = jax_save(str(tmp_path / "dqn.npz"), js)
-    ts = load_train_state(path)
+    ts = load_train_state(path, device="cpu")
     assert int(ts.steps) == 3
     # the serving CLI's agent: total_iters = --train-iters (default 20)
     jag = jax_agents.make("dqn", env=jenvs.make("cartpole"), total_iters=20)

@@ -1,0 +1,70 @@
+"""The port's grouped matmul against the JAX package on the CPU: the plain
+version (`gmm_ref`) against JAX's `gmm_ref` and against JAX's `ops.gmm`
+(the Pallas kernel in interpret mode, as tests/test_kernels.py runs it),
+and the port's wrapper, which takes the plain version for CPU tensors.
+
+Tolerances: f32 atol = 3e-4, rtol = 1e-4 (tests/test_kernels.py's, the
+same f32 products summed in another order over d <= 512); bf16 inputs,
+bf16 outputs: atol = 0.2, rtol = 0.05 (tests/test_kernels.py's; both
+round one f32 sum to bf16). Inputs come from numpy with a fixed seed."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.gmm.ops import gmm as jax_gmm
+from repro.kernels.gmm.ref import gmm_ref as jax_gmm_ref
+from repro_torch.kernels.gmm.kernel import gmm_ecd
+from repro_torch.kernels.gmm.ops import gmm
+from repro_torch.kernels.gmm.ref import gmm_ref
+
+F32 = dict(atol=3e-4, rtol=1e-4)
+BF16 = dict(atol=0.2, rtol=0.05)
+
+
+def _inputs(E, C, d, f, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((E, C, d)).astype(np.float32),
+            rng.standard_normal((E, d, f)).astype(np.float32))
+
+
+@pytest.mark.parametrize("E,C,d,f", [
+    (4, 70, 96, 130),                  # padding on every axis
+    (2, 128, 128, 128),                # exact tiles
+    (8, 16, 512, 64),
+    (3, 5, 40, 24),                    # C below any tile
+])
+def test_gmm_ref_matches_jax(E, C, d, f):
+    x, w = _inputs(E, C, d, f)
+    got = gmm_ref(torch.tensor(x), torch.tensor(w))
+    assert got.dtype == torch.float32 and got.shape == (E, C, f)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jax_gmm_ref(jnp.asarray(x), jnp.asarray(w))), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jax_gmm(jnp.asarray(x), jnp.asarray(w))), **F32)
+
+
+def test_gmm_wrapper_takes_the_plain_version_on_the_cpu():
+    x, w = _inputs(4, 70, 96, 130, seed=1)
+    gmm_ecd.launches = 0
+    got = gmm(torch.tensor(x), torch.tensor(w))
+    assert gmm_ecd.launches == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jax_gmm(jnp.asarray(x), jnp.asarray(w))), **F32)
+
+
+def test_gmm_bf16_matches_jax():
+    """bf16 x, f32 w: the wrapper casts w to x's dtype, as JAX's ops.gmm
+    does (tests/test_kernels.py::test_gmm_bf16)."""
+    x, w = _inputs(2, 64, 64, 64, seed=2)
+    xb = torch.tensor(x).to(torch.bfloat16)
+    got = gmm(xb, torch.tensor(w))
+    want = jax_gmm(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(w))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(jax_gmm_ref(jnp.asarray(x).astype(jnp.bfloat16),
+                               jnp.asarray(w).astype(jnp.bfloat16)),
+                   np.float32), **BF16)

@@ -14,7 +14,12 @@ where the rounding differences of 2048 chained steps add up. The replay
 draw's indices must equal the plain draw's exactly (its logits and scores
 round as the plain version's do) and its weights agree within
 rtol = atol = 1e-5 (the partition function is summed in another order),
-ties forced."""
+ties forced. The grouped matmul sums f32 products in another order than
+the plain einsum: f32 is held to rtol = 1e-4 with atol = 1e-4 x max|ref|;
+bf16 outputs against the f32 product of the same bf16 inputs to rtol =
+2^-8 (the output's rounding to bf16) with the same atol. The MoE layer on
+the card, kernel against use_kernels=False, is held to the same bf16
+bounds on the layer output."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +30,8 @@ from repro_torch.kernels.advantages.ref import discounted_return_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_hsd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.gmm.kernel import gmm_ecd
+from repro_torch.kernels.gmm.ref import gmm_ref
 from repro_torch.kernels.replay_sample.kernel import prioritized_sample_c
 from repro_torch.kernels.replay_sample.ref import prioritized_sample_ref
 from repro_torch.kernels.vtrace.kernel import vtrace_tb
@@ -41,6 +48,7 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flash_attention_hsd.launches = 0
+    gmm_ecd.launches = 0
     return torch.device("cuda")
 
 
@@ -292,3 +300,90 @@ def test_dqn_learner_step_kernel_matches_plain(cuda):
     for k in a.params:
         torch.testing.assert_close(a.params[k], b.params[k], atol=1e-6,
                                    rtol=1e-6)
+
+
+# (E, C, d, f): the LM serving path's (deepseek-moe-16b, batch 4, prompt
+# 32: decode C = 8, prefill C = 15), ragged on every axis, and C below
+# the smallest C-tile
+GMM_SHAPES = [(64, 8, 2048, 1408), (64, 8, 1408, 2048), (64, 15, 2048, 1408),
+              (64, 15, 1408, 2048), (4, 70, 96, 130), (8, 16, 512, 64),
+              (3, 3, 100, 37), (2, 40, 33, 7)]
+
+
+def _gmm_inputs(E, C, d, f, dtype, device, seed=11):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((E, C, d), generator=gen, device=device)
+    w = torch.randn((E, d, f), generator=gen, device=device) * d ** -0.5
+    return x.to(dtype), w.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,f", GMM_SHAPES)
+def test_gmm_matches_plain(cuda, E, C, d, f, dtype):
+    x, w = _gmm_inputs(E, C, d, f, getattr(torch, dtype), cuda)
+    out = gmm_ecd(x, w)
+    torch.cuda.synchronize()
+    assert gmm_ecd.launches == 1
+    assert out.dtype == x.dtype and out.shape == (E, C, f)
+    ref = gmm_ref(x.float(), w.float())
+    atol = 1e-4 * float(ref.abs().max())
+    rtol = 1e-4 if dtype == "float32" else 2.0 ** -8
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    if dtype == "bfloat16":  # and the plain version in the working type
+        torch.testing.assert_close(out.float(), gmm_ref(x, w).float(),
+                                   rtol=2.0 ** -7, atol=atol)
+
+
+@pytest.mark.cuda
+def test_gmm_repeats_calls_bitwise(cuda):
+    x, w = _gmm_inputs(64, 15, 2048, 1408, torch.bfloat16, cuda)
+    a, b = gmm_ecd(x, w), gmm_ecd(x, w)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["grad", "strided", "float64", "mixed",
+                                 "shape"])
+def test_gmm_refuses_what_it_does_not_take(cuda, bad):
+    x, w = _gmm_inputs(4, 8, 64, 32, torch.float32, cuda)
+    if bad == "grad":
+        x.requires_grad_(True)
+        err = RuntimeError
+    else:
+        err = ValueError
+        if bad == "strided":
+            x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        elif bad == "float64":
+            x, w = x.double(), w.double()
+        elif bad == "mixed":
+            w = w.to(torch.bfloat16)
+        else:
+            w = w[:, :32]
+    with pytest.raises(err):
+        gmm_ecd(x, w)
+    assert gmm_ecd.launches == 0
+
+
+@pytest.mark.cuda
+def test_moe_layer_kernel_matches_plain(cuda):
+    """One deepseek-moe-16b MoE layer at full width in bf16 on the card:
+    use_kernels (three gmm_ecd launches) against the model's einsum."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.layers import init_params
+    cfg = get_config("deepseek-moe-16b")
+    tmpl = tmoe.init_moe(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    flat = init_params(tmpl, gen, cuda, torch.bfloat16)
+    p = {k: v for k, v in flat.items() if "/" not in k}
+    p["shared"] = {k.split("/")[1]: v for k, v in flat.items() if "/" in k}
+    x = torch.randn((4, 32, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        got, aux = tmoe.apply_moe(cfg, p, x, use_kernels=True)
+        want, waux = tmoe.apply_moe(cfg, p, x, use_kernels=False)
+    torch.cuda.synchronize()
+    assert gmm_ecd.launches == 3 and torch.equal(aux, waux)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-2 * float(want.float().abs().max()))

@@ -146,11 +146,11 @@ def test_run_seq_matches_jax(use_kernels):
                         ModelOpts(dtype="float32", use_kernels=use_kernels))
     jparams = jlm.init(jax.random.PRNGKey(0))
     tparams = _from_jax(jparams)
-    assert sorted(tparams) == sorted(tlm.init(torch.Generator()))
+    assert sorted(tparams) == sorted(tlm.init(torch.Generator(), "cpu"))
     x = np.random.default_rng(4).standard_normal((3, 7, 32)) \
         .astype(np.float32)
     want, _, _ = jlm._run_seq(jparams, jnp.asarray(x), jnp.int32(0), None, 0)
-    got = tlm._run_seq(tparams, torch.tensor(x))
+    got, _, _ = tlm._run_seq(tparams, torch.tensor(x))
     _close(got, want)
 
 
