@@ -16,6 +16,13 @@ Phases, in order; the script exits non-zero at the first failure:
      (20000, 12800, 64) (the DQN path), a full 1M-slot buffer with n = 256,
      nearly empty and empty buffers, and forced ties (indices exact,
      weights within 1e-5; the yardstick is torch.topk over the scores);
+     then the sharded replay service's per-shard draw `shard_topk_c` at
+     (R, chunk, local counts, k) = (2, 10000, (10000, 2800), 64) and
+     (4, 5000, (5000, 5000, 2800, 0), 64) (the replay=2 and replay=4 DQN
+     paths at size 12800), full 262144-slot shards with k = 256, ragged
+     1M-slot shards with an empty one, and forced ties (indices and scores
+     bitwise the plain version's; the yardstick is a batched torch.topk
+     over the masked (R, chunk) scores);
   3. slice: the full-width `paper-drl-trunk` policy served through
      ServeEngine for cartpole and pendulum at 500 and 2000 offered
      requests/s, with a hot swap in every cell; the kernel's launch count
@@ -25,14 +32,25 @@ Phases, in order; the script exits non-zero at the first failure:
      ppo, a3c and dqn, impala through `Trainer` with the V-trace kernel,
      ppo on pendulum for 20 iterations, and dqn on GridWorld(4, 16) at the
      reference's learning-bar config (tests/test_trainer.py) for 16 seeds;
+     ppo and dqn on cartpole for 20 iterations with `--sync asp` and with
+     `--sync ssp` (one worker, the plan's delay schedule);
      each run checks finite losses and its kernels' launch counts per
      iteration; the learning bars: cartpole ppo/a3c/impala on the mean of
      the last two logged returns, GridWorld dqn on the mean over the seeds
      of the mean of the last four;
+  4b. sharded replay: dqn at the default config on cartpole through
+     `rl_train --plan "workers=1:allreduce:bsp,replay=R:allreduce:bsp:replay"`
+     for R = 2 and 4 (the slice's main path, counts at 0 just before each
+     and read just after: 60 `shard_topk_c` launches and no
+     `prioritized_sample_c` launch per fit), each fit bitwise equal to the
+     same plan through `Trainer` with `use_kernel=False` (params,
+     optimizer state, the reassembled buffer, history), which is bitwise
+     the flat plan's plain fit; finite losses;
   5. path agreement: one learner_step per algorithm from one state and
      trajectory, kernels on against the plain versions, on the card; the
      dqn step with the kernel runs under
-     torch.cuda.set_sync_debug_mode("error"), so it syncs nothing;
+     torch.cuda.set_sync_debug_mode("error"), so it syncs nothing; so do
+     the dqn steps through the sharded replay service (R = 2 and 4);
   6. the flash-attention kernel raises on an input that requires grad;
   7. CLI: `repro_torch.launch.serve_policy --quick` for ppo and dqn
      (trains 4 iterations in-process, then serves);
@@ -100,6 +118,16 @@ REPLAY_CASES = [(20000, 12800, 64, False), (1048576, 1048576, 256, False),
                 (4096, 10, 64, False), (131, 100, 1, False),
                 (4096, 0, 16, False), (20000, 12800, 64, True)]
 REPLAY_TOL = 1e-5
+# (R, chunk, local counts, k, forced ties) of the per-shard draw; the first
+# two are the replay=2 and replay=4 DQN paths' shapes at size 12800 (the
+# first is the path's row in the kernels line)
+SHARD_CASES = [(2, 10000, (10000, 2800), 64, False),
+               (4, 5000, (5000, 5000, 2800, 0), 64, False),
+               (4, 262144, (262144,) * 4, 256, False),
+               (4, 1048576, (1048576, 1048576, 300000, 0), 256, False),
+               (2, 10000, (10000, 2800), 64, True)]
+REPLAY_SHARDS = (2, 4)   # the replay axis sizes the slice trains with
+SYNC_ITERS = 20
 # (E, C, d, f) of the grouped matmul: the LM serve path's (decode wi/wg,
 # decode wo, prefill wi/wg, prefill wo; the first is the path's row in the
 # kernels line), then ragged shapes and a C below the smallest C-tile
@@ -388,6 +416,72 @@ def phase_replay_kernel():
     return path
 
 
+def phase_shard_kernel():
+    """The sharded replay service's per-shard draw against its plain
+    version on the card; returns its row at the replay=2 path shape."""
+    import torch
+    from repro_torch.kernels.replay_sample.kernel import shard_topk_c
+    from repro_torch.kernels.replay_sample.ref import \
+        shard_gumbel_topk_stack_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    path = None
+    for R, chunk, counts, k, ties in SHARD_CASES:
+        prio = torch.randn((R, chunk), generator=gen,
+                           device="cuda").abs() + 0.01
+        u = torch.rand((R, chunk), generator=gen, device="cuda")
+        gumbel = -torch.log(-torch.log(u.clamp_min(
+            torch.finfo(torch.float32).tiny)))
+        if ties:
+            prio[:, 1::7] = prio[:, :1]
+            gumbel[:, 1::7] = gumbel[:, :1]
+        nvalid = torch.tensor(counts, dtype=torch.int32, device="cuda")
+
+        def kernel():
+            return shard_topk_c(prio, gumbel, nvalid, k)
+
+        def plain():
+            return shard_gumbel_topk_stack_ref(prio, nvalid, gumbel, k)
+
+        valid = torch.arange(chunk, device="cuda") < nvalid[:, None]
+        scores = torch.where(valid, 0.6 * torch.log(prio + 1e-6) + gumbel,
+                             -torch.inf)
+
+        def library():
+            return torch.topk(scores, k, dim=-1)
+
+        s, idx = kernel()
+        torch.cuda.synchronize()
+        rs, ridx = plain()
+        case = (R, chunk, counts, k, ties)
+        check(torch.equal(idx, ridx),
+              f"shard_topk_c {case}: indices differ from the plain draw")
+        check(torch.equal(s, rs),
+              f"shard_topk_c {case}: scores not bitwise the plain draw's")
+        err = (s - rs).abs().nan_to_num(0.0).max().item()
+        iters = 20 if chunk > 100000 else 100
+        ms = cuda_time_ms(kernel, iters)
+        plain_ms = cuda_time_ms(plain, iters)
+        library_ms = cuda_time_ms(library, iters)
+        # the draw reads p and g of the filled slots and the R counts, and
+        # writes R*k (score, index) pairs; ~4 f32 operations per filled
+        # slot (add, log, mul, add)
+        filled = sum(counts)
+        nbytes = 8 * filled + 8 * R * k + 4 * R
+        ops = 4 * filled
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / PEAK_OPS["float32"]
+        row = {"name": "shard_topk_c", "shape": [R, chunk, list(counts), k],
+               "ties": ties, "max_abs_err": err, "tol": 0.0, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops}
+        print("kernel_case " + json.dumps(row))
+        if path is None:
+            path = row
+    print("kernels_checked " + json.dumps({"kernels": ["shard_topk_c"]}))
+    return path
+
+
 def phase_slice(card):
     import numpy as np
     import torch
@@ -476,11 +570,13 @@ def phase_slice(card):
 def train_counters():
     from repro_torch.kernels.advantages.kernel import (
         discounted_return_adjoint_tb, discounted_return_tb)
-    from repro_torch.kernels.replay_sample.kernel import prioritized_sample_c
+    from repro_torch.kernels.replay_sample.kernel import (
+        prioritized_sample_c, shard_topk_c)
     from repro_torch.kernels.vtrace.kernel import vtrace_tb
     return {f.__name__: f for f in (discounted_return_tb,
                                     discounted_return_adjoint_tb,
-                                    vtrace_tb, prioritized_sample_c)}
+                                    vtrace_tb, prioritized_sample_c,
+                                    shard_topk_c)}
 
 
 def phase_training(card, path_rows):
@@ -497,8 +593,11 @@ def phase_training(card, path_rows):
     def rl_train(argv):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rl_main(argv)
-        return json.loads(buf.getvalue().strip().splitlines()[-1])["history"]
+            _, _, history = rl_main(argv)
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(json.dumps(out["history"]) == json.dumps(history[-5:]),
+              f"rl_train {argv}: printed history {out['history']}")
+        return history
 
     def trainer(algo, **algo_kwargs):
         return Trainer(envs.make("cartpole"), TrainerConfig(
@@ -525,6 +624,15 @@ def phase_training(card, path_rows):
         ("dqn", "dqn", "cartpole", cfg,
          lambda: rl_train(["--algo", "dqn", "--env", "cartpole"]),
          {"prioritized_sample_c": 1}, None),
+    ] + [
+        (f"{algo}-{mech}", algo, "cartpole",
+         dataclasses.replace(cfg, iters=SYNC_ITERS),
+         lambda algo=algo, mech=mech: rl_train([
+             "--algo", algo, "--env", "cartpole", "--sync", mech,
+             "--iters", str(SYNC_ITERS)]),
+         {"ppo": {"discounted_return_tb": 1},
+          "dqn": {"prioritized_sample_c": 1}}[algo], None)
+        for algo in ("ppo", "dqn") for mech in ("asp", "ssp")
     ] + [
         (f"dqn-gridworld-seed{seed}", "dqn", "gridworld(4,16)",
          dataclasses.replace(grid, seed=seed),
@@ -585,6 +693,91 @@ def phase_training(card, path_rows):
     return totals
 
 
+def tree_equal(a, b):
+    """Bitwise equality of two nests of dicts of tensors."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k])
+                                            for k in a)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_replay_training(card, shard_row):
+    """Drive the slice's main path, dqn on the sharded replay service
+    through `rl_train --plan`, once per replay axis size; returns the
+    shard_topk_c launches of those runs."""
+    import torch
+    import repro_torch.envs as envs
+    from repro_torch.core.distribution import DistPlan
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.launch.rl_train import main as rl_main
+    counters = train_counters()
+    cfg = TrainerConfig(algo="dqn")          # the default config
+    hist_json = lambda h: json.dumps(h)      # NaN-safe equality
+    flat_state, flat_hist = Trainer(envs.make("cartpole"), dataclasses.replace(
+        cfg, algo_kwargs={"use_kernel": False})).fit()
+    total = 0
+    for R in REPLAY_SHARDS:
+        spec = f"workers=1:allreduce:bsp,replay={R}:allreduce:bsp:replay"
+        argv = ["--algo", "dqn", "--env", "cartpole", "--plan", spec]
+        # the main path: counts at 0 just before, read just after
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            trainer, state, hist = rl_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: f.launches for n, f in counters.items()}
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        want = dict.fromkeys(counters, 0)
+        want["shard_topk_c"] = cfg.iters
+        check(got == want, f"dqn replay={R}: kernel launches {got}, "
+                           f"expected {want}")
+        check(out["partition_replay"] == {
+            "axis": "replay", "n_shards": R, "capacity": 20000,
+            "chunk": 20000 // R} and out["plan"] == spec
+            and out["n_devices"] == R, f"dqn replay={R}: CLI line {out}")
+        check(all(math.isfinite(h["loss"]) for h in hist),
+              f"dqn replay={R}: non-finite loss in {hist}")
+        total += got["shard_topk_c"]
+        # checks below are not the main path
+        plain_state, plain_hist = Trainer(
+            envs.make("cartpole"), dataclasses.replace(
+                cfg, plan=DistPlan.replay(1, R),
+                algo_kwargs={"use_kernel": False})).fit()
+        check(counters["shard_topk_c"].launches == got["shard_topk_c"],
+              f"dqn replay={R}: the use_kernel=False fit launched the "
+              f"kernel")
+        for what, a, b in (("kernel vs plain", state, plain_state),
+                           ("plain vs flat plain", plain_state,
+                            flat_state)):
+            for part in ("params", "opt_state", "extra", "ring"):
+                check(tree_equal(getattr(a, part), getattr(b, part)),
+                      f"dqn replay={R} {what}: {part} not bitwise equal")
+        check(hist_json(hist) == hist_json(plain_hist) == hist_json(
+            flat_hist), f"dqn replay={R}: histories differ")
+        check(state.extra["replay"]["prio"].shape == (20000,),
+              f"dqn replay={R}: fit did not return the flat buffer")
+        iters = cfg.iters
+        print("train_run " + json.dumps({
+            "run": f"dqn-replay{R}", "algo": "dqn", "env": "cartpole",
+            "plan": spec, "iters": iters, "n_envs": cfg.n_envs,
+            "unroll": cfg.unroll, "wall_s": wall,
+            "ms_per_iter": wall * 1e3 / iters,
+            "env_steps_per_s": iters * cfg.n_envs * cfg.unroll / wall,
+            "launches": got, "kernel_share_of_wall": {
+                "shard_topk_c": got["shard_topk_c"] * shard_row["ms"]
+                / (wall * 1e3)},
+            "partition_replay": out["partition_replay"],
+            "bitwise": ["kernel vs use_kernel=False", "vs flat plain"],
+            "last_returns": [h["episode_return"] for h in hist[-2:]],
+            "history": hist, "card": card}))
+    return total
+
+
 def phase_path_agreement():
     """One learner_step per algorithm from the same state and trajectory,
     with the kernels and with the plain scans, on the card."""
@@ -617,6 +810,60 @@ def phase_path_agreement():
               f"max_abs_err {err:.3e}, loss {la['loss'].item():.6f} vs "
               f"{lb['loss'].item():.6f}")
     dqn_path_agreement(env)
+    for R in REPLAY_SHARDS:
+        dqn_sharded_path_agreement(env, R)
+
+
+def dqn_sharded_path_agreement(env, R):
+    """One DQN learner_step through the sharded replay service, the
+    per-shard kernel against its plain version, from one state (13
+    iterations in, size 13312 of 20000), trajectory and Gumbel vector:
+    bitwise equal params and priorities. The kernel step runs under sync
+    debug mode "error": a host sync inside it raises."""
+    import torch
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.replay_service import ShardedPrioritizedReplay
+    from repro_torch.core.rollout import rollout
+    from repro_torch.kernels.replay_sample.kernel import shard_topk_c
+    kern = agent_api.make("dqn", env=env, total_iters=60, warmup=0)
+    plain = agent_api.make("dqn", env=env, total_iters=60, warmup=0)
+    kern.replay = ShardedPrioritizedReplay(20000, "replay", R)
+    plain.replay = ShardedPrioritizedReplay(20000, "replay", R,
+                                            use_kernel=False)
+    state = kern.init(torch.Generator().manual_seed(0))
+    state = agent_api.TrainState(
+        state.params, state.opt_state,
+        {"replay": kern.replay.shard_state(state.extra["replay"])},
+        state.ring, state.steps)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    env_state = env.reset(gen, 32)
+    for _ in range(13):
+        traj, env_state = rollout(kern.policy, kern.actor_policy(state, 0),
+                                  env, gen, env_state, 32)
+        state, _ = kern.learner_step(state, traj, env.obs(env_state), gen)
+    traj, env_state = rollout(kern.policy, kern.actor_policy(state, 0), env,
+                              gen, env_state, 32)
+    boot = env.obs(env_state)
+    g = kern.replay.noise(gen, kern.batch_size)
+    before = shard_topk_c.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, la = kern.learner_step_noise(state, traj, boot, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(shard_topk_c.launches == before + 1,
+          f"dqn replay={R}: the step did not launch shard_topk_c once")
+    b, lb = plain.learner_step_noise(state, traj, boot, g)
+    check(int(a.params["steps"]) == 14, "dqn: the step did not update")
+    check(tree_equal(a.params, b.params),
+          f"dqn replay={R}: kernel vs plain learner_step params differ")
+    check(torch.equal(a.extra["replay"]["prio"], b.extra["replay"]["prio"]),
+          f"dqn replay={R}: kernel vs plain priorities differ")
+    print(f"path dqn replay={R}: params and priorities bitwise the plain "
+          f"step's (size {int(state.extra['replay']['size'])}), loss "
+          f"{la['loss'].item():.6f} vs {lb['loss'].item():.6f}; the kernel "
+          f"step ran under sync debug mode 'error'")
 
 
 def dqn_path_agreement(env):
@@ -949,9 +1196,11 @@ def main():
     cases = phase_kernels()
     scan_rows = phase_scan_kernels()
     replay_row = phase_replay_kernel()
+    shard_row = phase_shard_kernel()
     launches = phase_slice(card)
     train_launches = phase_training(
         card, dict(scan_rows, prioritized_sample_c=replay_row))
+    shard_launches = phase_replay_training(card, shard_row)
     phase_path_agreement()
     phase_flash_guard()
     phase_cli()
@@ -987,6 +1236,12 @@ def main():
         "replaces": "src/repro/kernels/replay_sample/kernel.py:137",
         "launches": train_launches["prioritized_sample_c"]},
         **{k: replay_row[k] for k in keys}))
+    kernels.append(dict({
+        "name": "shard_topk_c", "route": "cuda",
+        "source": "src/repro_torch/kernels/replay_sample/csrc/"
+                  "replay_sample.cu",
+        "replaces": "src/repro/kernels/replay_sample/kernel.py:113",
+        "launches": shard_launches}, **{k: shard_row[k] for k in keys}))
     gmm_row = gmm_rows[(GMM_PATH[0], "bfloat16")]
     kernels.append(dict({
         "name": "gmm_ecd", "route": "cuda",

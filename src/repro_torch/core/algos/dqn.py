@@ -209,8 +209,10 @@ class DQNAgent(Agent):
                    "next_obs": obs_zero,
                    "done": torch.zeros((), dtype=torch.bool,
                                        device=self.device)}
+        # the flat buffer, also when the Trainer has swapped a sharded
+        # replay service into self.replay: it shards this state itself
         return TrainState(params, self.opt.init(online),
-                          {"replay": self.replay.init(example)},
+                          {"replay": self.dqn.replay.init(example)},
                           self._ring_init(online),
                           torch.zeros((), dtype=torch.int32,
                                       device=self.device))

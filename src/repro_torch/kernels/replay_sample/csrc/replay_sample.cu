@@ -43,6 +43,16 @@
 // another order than the plain version, so weights agree to rounding.
 // Limits (checked by the launcher): n <= kMaxN, C <= kTile * kMaxBlocks
 // (4M slots; the reference's capacities reach 1M).
+//
+// `shard_topk_c` (replacing the Pallas `shard_topk_c`, kernel.py:104,
+// pallas_call at :113) is the sharded replay service's per-shard draw: pass
+// 1 exposed on its own over a (tiles, R shards) grid, each shard's LOCAL
+// filled count read from device memory with no max(., 1) guard, then one
+// merge block per shard down to its k candidates (no weights, no surplus
+// rule). Slots past a shard's count come out as (-inf, position) directly:
+// the Pallas kernel's finite _NEG stand-in is a TPU workaround that its
+// ops.py turns back into -inf. One call covers all R shards. Bound: bytes,
+// 8 per filled slot read plus 8 per candidate written.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -145,6 +155,12 @@ __device__ __forceinline__ void own_best(const float* score, int len,
     }
 }
 
+// Pass 1. kShard = false: the flat draw, one row of C slots, nvalid =
+// max(size, 1), and the tile's partial (m_b, s_b) for the weights. kShard =
+// true: blockIdx.y is the shard, each a row of C slots with its LOCAL count
+// in size_p[blockIdx.y], no guard and no partials (the caller weighs
+// against the global priority mass).
+template <bool kShard>
 __global__ void __launch_bounds__(kThreads)
     tile_topk_kernel(const float* __restrict__ prio,
                      const float* __restrict__ gumbel,
@@ -157,12 +173,16 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float red_s[33];
   __shared__ int red_i[32];
   __shared__ Best win;
+  const int shard = kShard ? blockIdx.y : 0;
+  prio += int64_t(shard) * C;
+  gumbel += int64_t(shard) * C;
   const int start = blockIdx.x * kTile;
   const int len = min(kTile, C - start);
-  const int nvalid = max(__ldg(size_p), 1);
+  const int nvalid = kShard ? __ldg(size_p + shard) : max(__ldg(size_p), 1);
   const int nv = min(max(nvalid - start, 0), len);  // filled: a prefix
-  float* out_s = cand_s + int64_t(blockIdx.x) * n;
-  int* out_i = cand_i + int64_t(blockIdx.x) * n;
+  const int64_t list = int64_t(shard) * gridDim.x + blockIdx.x;
+  float* out_s = cand_s + list * n;
+  int* out_i = cand_i + list * n;
 
   float m = -INFINITY;
   for (int j = threadIdx.x; j < len; j += kThreads) {
@@ -175,13 +195,17 @@ __global__ void __launch_bounds__(kThreads)
     score[j] = s;
     m = fmaxf(m, l);
   }
-  m = block_reduce<true>(m, red_s);
-  float z = 0.f;
-  for (int j = threadIdx.x; j < nv; j += kThreads) z += expf(lg[j] - m);
-  z = block_reduce<false>(z, red_s);
-  if (threadIdx.x == 0) {
-    part_m[blockIdx.x] = m;
-    part_s[blockIdx.x] = z;
+  if (!kShard) {
+    m = block_reduce<true>(m, red_s);
+    float z = 0.f;
+    for (int j = threadIdx.x; j < nv; j += kThreads) z += expf(lg[j] - m);
+    z = block_reduce<false>(z, red_s);
+    if (threadIdx.x == 0) {
+      part_m[blockIdx.x] = m;
+      part_s[blockIdx.x] = z;
+    }
+  } else {
+    __syncthreads();  // score[] complete before the first own_best
   }
 
   // the first nv picks are the filled slots; pick r >= nv is the -inf slot
@@ -274,6 +298,52 @@ __global__ void merge_kernel(const float* __restrict__ prio,
     w_out[j] = __fdiv_rn(w_out[j], fmaxf(wmax, 1e-12f));
 }
 
+// Pass 2 of the sharded draw, one block per shard: a k-way merge of the
+// shard's per-tile lists (one list per thread) under the (score desc, index
+// asc) order, k rounds, writing the shard's k (score, local index) pairs.
+// Every tile lists min(k, its length) real entries (filled slots first,
+// then its -inf slots in index order), so k <= chunk real entries exist,
+// and positions past the shard's filled count come out as (-inf, position).
+__global__ void shard_merge_kernel(const float* __restrict__ cand_s,
+                                   const int* __restrict__ cand_i,
+                                   int nblocks, int k,
+                                   float* __restrict__ s_out,
+                                   int* __restrict__ i_out) {
+  __shared__ float red_s[33];
+  __shared__ int red_i[32];
+  __shared__ Best win;
+  const int t = threadIdx.x;
+  const int64_t list = int64_t(blockIdx.x) * nblocks + t;
+  float* out_s = s_out + int64_t(blockIdx.x) * k;
+  int* out_i = i_out + int64_t(blockIdx.x) * k;
+  float bs = NAN, ns = NAN;
+  int bi = INT_MAX, ni = INT_MAX, next = 1;
+  const float* my_s = cand_s + list * k;
+  const int* my_i = cand_i + list * k;
+  if (t < nblocks) {
+    bs = my_s[0];
+    bi = my_i[0];
+    if (k > 1) {
+      ns = my_s[1];
+      ni = my_i[1];
+    }
+  }
+  for (int r = 0; r < k; ++r) {
+    const Best w = block_best(bs, bi, red_s, red_i, &win);
+    if (t == 0) {
+      out_s[r] = w.s;
+      out_i[r] = w.i;
+    }
+    if (t < nblocks && w.i == bi) {  // this thread's list head won
+      bs = ns;
+      bi = ni;
+      ++next;
+      ns = next < k ? my_s[next] : NAN;
+      ni = next < k ? my_i[next] : INT_MAX;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -296,13 +366,45 @@ int prioritized_sample_c(const float* prio, const float* gumbel,
   const int nblocks = (C + kTile - 1) / kTile;
   if (nblocks > kMaxBlocks) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  tile_topk_kernel<<<nblocks, kThreads, 0, s>>>(
+  tile_topk_kernel<false><<<nblocks, kThreads, 0, s>>>(
       prio, gumbel, size, C, n, alpha, eps, cand_s, cand_i, part_m, part_s);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = min(kMaxBlocks, (nblocks + 31) / 32 * 32);
   merge_kernel<<<1, threads, 0, s>>>(prio, size, nblocks, n, alpha, beta, eps,
                                      cand_s, cand_i, part_m, part_s, idx, w);
+  return cudaGetLastError();
+}
+
+// The per-shard candidate draw of the sharded replay service (the port of
+// the Pallas `shard_topk_c`, src/repro/kernels/replay_sample/kernel.py:104,
+// pallas_call at :113), R shards in one call: prio, gumbel (R, chunk)
+// contiguous f32; nvalid (R,) int32 in device memory, each shard's LOCAL
+// filled count (no max(., 1) guard); workspace cand_s, cand_i
+// (R * ceil(chunk / kTile) * k); outputs scores (R, k) f32 and idx (R, k)
+// int32, per shard the top k of alpha * log(p + eps) + g over its filled
+// slots in (score desc, index asc) order, positions past the filled count
+// (-inf, position). Launches pass 1 over a (tiles, R) grid and one merge
+// block per shard on `stream`, allocates nothing, and returns
+// cudaGetLastError() (cudaErrorInvalidValue for R outside [1, 65535], k < 1,
+// k > chunk, k > kMaxN or chunk > kTile * kMaxBlocks).
+int shard_topk_c(const float* prio, const float* gumbel, const int* nvalid,
+                 int R, int chunk, int k, float alpha, float eps,
+                 float* cand_s, int* cand_i, float* scores, int* idx,
+                 void* stream) {
+  if (R < 1 || R > 65535 || k < 1 || k > chunk || k > kMaxN)
+    return cudaErrorInvalidValue;
+  const int nblocks = (chunk + kTile - 1) / kTile;
+  if (nblocks > kMaxBlocks) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  tile_topk_kernel<true><<<dim3(nblocks, R), kThreads, 0, s>>>(
+      prio, gumbel, nvalid, chunk, k, alpha, eps, cand_s, cand_i, nullptr,
+      nullptr);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int threads = min(kMaxBlocks, (nblocks + 31) / 32 * 32);
+  shard_merge_kernel<<<R, threads, 0, s>>>(cand_s, cand_i, nblocks, k, scores,
+                                           idx);
   return cudaGetLastError();
 }
 

@@ -1,12 +1,13 @@
-"""ctypes binding of the Hopper prioritized-sampling kernel
-(csrc/replay_sample.cu), the port of the Pallas `prioritized_sample_c`.
+"""ctypes bindings of the Hopper replay-draw kernels (csrc/replay_sample.cu):
+`prioritized_sample_c` and `shard_topk_c`, the ports of the Pallas kernels
+of the same names.
 
 A CUDA tensor launches the kernel (two passes, counted as one launch of
-the op) or raises; a CPU tensor takes the plain version (ref.py).
-`prioritized_sample_c.launches` counts launches, so a run can show that
-its main path went through the kernel. `size` stays on the device, as the
-Pallas kernel takes it as a (1, 1) array: reading it on the host would
-sync once per draw.
+the op) or raises; a CPU tensor takes the plain version (ref.py). Each
+function's `.launches` counts its launches, so a run can show that its
+main path went through the kernel. `size` and `nvalid` stay on the
+device, as the Pallas kernels take them as arrays: reading them on the
+host would sync once per draw.
 """
 import ctypes
 import functools
@@ -14,11 +15,13 @@ import functools
 import torch
 
 from repro_torch.kernels.common import check_launch, load_kernels
-from repro_torch.kernels.replay_sample.ref import prioritized_sample_ref
+from repro_torch.kernels.replay_sample.ref import (
+    prioritized_sample_ref, shard_gumbel_topk_stack_ref)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_N = 1024                # the kernel's kMaxN
 MAX_BLOCKS = 1024           # the kernel's kMaxBlocks
+MAX_SHARDS = 65535          # the grid's y limit
 
 
 @functools.cache
@@ -28,6 +31,9 @@ def _launcher():
     fn.argtypes = [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P,
                    _P]
     fn.restype = _I
+    shard = dll.shard_topk_c
+    shard.argtypes = [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P]
+    shard.restype = _I
     dll.replay_sample_tile.restype = _I
     return dll, fn, dll.replay_sample_tile()
 
@@ -87,3 +93,63 @@ def prioritized_sample_c(prio, gumbel, size, n, alpha=0.6, beta=0.4,
 
 
 prioritized_sample_c.launches = 0
+
+
+def shard_topk_c(prio, gumbel, nvalid, k, alpha=0.6, eps=1e-6):
+    """prio, gumbel (R, chunk) f32 contiguous; nvalid (R,) int32 on their
+    device, each shard's LOCAL filled count. Returns (scores (R, k) f32,
+    idx (R, k) int32): per shard the top k in (score desc, index asc)
+    order, (-inf, position) past the shard's count."""
+    if not prio.is_cuda:
+        return shard_gumbel_topk_stack_ref(prio, nvalid, gumbel, k, alpha,
+                                           eps)
+    dev = prio.device
+    for name, t, dtype in (("prio", prio, torch.float32),
+                           ("gumbel", gumbel, torch.float32),
+                           ("nvalid", nvalid, torch.int32)):
+        if t.dtype != dtype:
+            raise ValueError(f"shard_topk_c: {name} must be {dtype}, got "
+                             f"{t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"shard_topk_c: {name} on {t.device}, prio on "
+                             f"{dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"shard_topk_c: {name} is not contiguous")
+    if prio.ndim != 2 or gumbel.shape != prio.shape or \
+            tuple(nvalid.shape) != (prio.shape[0],):
+        raise ValueError(f"shard_topk_c: expected prio and gumbel (R, chunk) "
+                         f"and nvalid (R,), got {tuple(prio.shape)}, "
+                         f"{tuple(gumbel.shape)}, {tuple(nvalid.shape)}")
+    R, chunk = prio.shape
+    if not 1 <= R <= MAX_SHARDS:
+        raise ValueError(f"shard_topk_c: R={R} outside [1, {MAX_SHARDS}]")
+    if not 1 <= k <= min(chunk, MAX_N):
+        raise ValueError(f"shard_topk_c: k={k} outside [1, min(chunk={chunk}"
+                         f", {MAX_N})]")
+    dll, _, tile = _launcher()
+    nblocks = -(-chunk // tile)
+    if nblocks > MAX_BLOCKS:
+        raise ValueError(f"shard_topk_c: chunk={chunk} above "
+                         f"{tile * MAX_BLOCKS} slots")
+    # one allocation of 4-byte words: outputs scores, idx (R * k each),
+    # then the workspace, the per-tile candidates' scores and indices
+    # (R * nblocks * k each)
+    buf = torch.empty((2 * R * k * (nblocks + 1),), dtype=torch.int32,
+                      device=dev)
+    scores = buf[:R * k].view(torch.float32).view(R, k)
+    idx = buf[R * k:2 * R * k].view(R, k)
+    word = buf.element_size()
+    cand_s = buf.data_ptr() + word * 2 * R * k
+    cand_i = cand_s + word * R * nblocks * k
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = dll.shard_topk_c(prio.data_ptr(), gumbel.data_ptr(),
+                                nvalid.data_ptr(), R, chunk, k, float(alpha),
+                                float(eps), cand_s, cand_i,
+                                scores.data_ptr(), idx.data_ptr(), stream)
+    shard_topk_c.launches += 1
+    check_launch(dll, code, "shard_topk_c")
+    return scores, idx
+
+
+shard_topk_c.launches = 0

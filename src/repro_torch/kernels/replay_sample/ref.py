@@ -1,4 +1,5 @@
-"""Plain PyTorch fused prioritized sampling (Ape-X, survey §3.1); follows
+"""Plain PyTorch fused prioritized sampling (Ape-X, survey §3.1) and the
+sharded replay service's per-shard draw; follows
 src/repro/kernels/replay_sample/ref.py expression by expression.
 
     logits_i = α log(p_i + ε)            (masked to filled slots)
@@ -49,3 +50,32 @@ def prioritized_weights_ref(prio, size, idx, alpha=0.6, beta=0.4,
     p = torch.exp(logits[idx] - m) / Z
     w = (nvalid * p + 1e-12) ** (-beta)
     return w / torch.clamp(w.max(), min=1e-12)
+
+
+def shard_gumbel_topk_ref(prio, nvalid_local, gumbel, k, alpha=0.6,
+                          eps=1e-6):
+    """The per-shard half of the sharded draw: the top-k (score, local
+    index) pairs over one shard's (chunk,) priorities and Gumbel noise.
+    Returns (scores (k,) f32 descending, idx (k,) int32).
+
+    `nvalid_local` counts the filled slots IN THIS SHARD; the caller keeps
+    the global max(size, 1) guard, so there is no local guard and an empty
+    shard gives only -inf candidates (idx = position). The masking and
+    score expressions are prioritized_sample_ref's, so the shards' scores
+    side by side are the flat score vector bitwise."""
+    C = prio.shape[-1]
+    valid = torch.arange(C, device=prio.device) < nvalid_local
+    logits = torch.where(valid, alpha * torch.log(prio + eps), -torch.inf)
+    scores = torch.where(valid, logits + gumbel, -torch.inf)
+    s, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return s[..., :k], idx[..., :k].to(torch.int32)
+
+
+def shard_gumbel_topk_stack_ref(prio, nvalid, gumbel, k, alpha=0.6,
+                                eps=1e-6):
+    """`shard_gumbel_topk_ref` row by row over an (R, chunk) stack of
+    shards with their local counts `nvalid` (R,). Returns (scores (R, k),
+    idx (R, k) int32)."""
+    nvalid = torch.as_tensor(nvalid, device=prio.device)
+    return shard_gumbel_topk_ref(prio, nvalid[:, None], gumbel, k, alpha,
+                                 eps)

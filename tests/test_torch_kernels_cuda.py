@@ -14,7 +14,8 @@ where the rounding differences of 2048 chained steps add up. The replay
 draw's indices must equal the plain draw's exactly (its logits and scores
 round as the plain version's do) and its weights agree within
 rtol = atol = 1e-5 (the partition function is summed in another order),
-ties forced. The grouped matmul sums f32 products in another order than
+ties forced. The per-shard draw of the sharded replay service must
+equal its plain version bitwise, indices and scores. The grouped matmul sums f32 products in another order than
 the plain einsum: f32 is held to rtol = 1e-4 with atol = 1e-4 x max|ref|;
 bf16 outputs against the f32 product of the same bf16 inputs to rtol =
 2^-8 (the output's rounding to bf16) with the same atol. The MoE layer on
@@ -32,8 +33,10 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gmm.kernel import gmm_ecd
 from repro_torch.kernels.gmm.ref import gmm_ref
-from repro_torch.kernels.replay_sample.kernel import prioritized_sample_c
-from repro_torch.kernels.replay_sample.ref import prioritized_sample_ref
+from repro_torch.kernels.replay_sample.kernel import (prioritized_sample_c,
+                                                      shard_topk_c)
+from repro_torch.kernels.replay_sample.ref import (
+    prioritized_sample_ref, shard_gumbel_topk_stack_ref)
 from repro_torch.kernels.vtrace.kernel import vtrace_tb
 from repro_torch.kernels.vtrace.ref import vtrace_ref
 
@@ -300,6 +303,122 @@ def test_dqn_learner_step_kernel_matches_plain(cuda):
     for k in a.params:
         torch.testing.assert_close(a.params[k], b.params[k], atol=1e-6,
                                    rtol=1e-6)
+
+
+# (R, chunk, local nvalids, k): the replay=2 and replay=4 DQN paths
+# shapes (size 12800 of 20000), full and ragged 1M-slot shards with an
+# empty one, k above the filled count, and k above the last tile's slots
+SHARD_CASES = [(2, 10000, (10000, 2800), 64),
+               (4, 5000, (5000, 5000, 2800, 0), 64),
+               (4, 262144, (262144,) * 4, 256),
+               (4, 1048576, (1048576, 1048576, 300000, 0), 256),
+               (3, 100, (0, 5, 100), 64), (2, 5000, (5000, 4100), 1024),
+               (1, 64, (10,), 64)]
+
+
+def _shard_inputs(R, chunk, nvalid, ties, device, seed=0):
+    prio, gumbel, _ = _replay_inputs(R * chunk, 0, False, device, seed)
+    prio, gumbel = prio.view(R, chunk), gumbel.view(R, chunk)
+    if ties:
+        prio[:, 1::7] = prio[:, :1]
+        gumbel[:, 1::7] = gumbel[:, :1]
+    return prio, gumbel, torch.tensor(nvalid, dtype=torch.int32,
+                                      device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("R,chunk,nvalid,k", SHARD_CASES)
+def test_shard_topk_matches_plain(cuda, R, chunk, nvalid, k, ties):
+    """Indices equal and scores bitwise: the kernel's scores round as the
+    plain version's (__fmul_rn/__fadd_rn), and past each shard's count
+    both give (-inf, position)."""
+    prio, gumbel, nv = _shard_inputs(R, chunk, nvalid, ties, cuda)
+    shard_topk_c.launches = 0
+    s, idx = shard_topk_c(prio, gumbel, nv, k)
+    torch.cuda.synchronize()
+    assert shard_topk_c.launches == 1
+    rs, ridx = shard_gumbel_topk_stack_ref(prio, nv, gumbel, k)
+    assert idx.dtype == torch.int32 and s.shape == idx.shape == (R, k)
+    assert torch.equal(idx, ridx) and torch.equal(s, rs)
+    for r, n in enumerate(nvalid):
+        tail = torch.arange(min(n, k), k, device=cuda, dtype=torch.int32)
+        assert torch.equal(idx[r, min(n, k):], tail)
+        assert torch.isneginf(s[r, min(n, k):]).all()
+
+
+@pytest.mark.cuda
+def test_shard_topk_repeats_calls_bitwise(cuda):
+    prio, gumbel, nv = _shard_inputs(4, 300000, (300000, 250000, 7, 0),
+                                     True, cuda, seed=1)
+    a = shard_topk_c(prio, gumbel, nv, 128)
+    b = shard_topk_c(prio, gumbel, nv, 128)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["k_above_chunk", "float64", "strided",
+                                 "nvalid_int64", "nvalid_shape"])
+def test_shard_topk_refuses_what_it_does_not_take(cuda, bad):
+    prio, gumbel, nv = _shard_inputs(2, 256, (200, 10), False, cuda)
+    k = 16
+    if bad == "k_above_chunk":
+        k = 257
+    elif bad == "float64":
+        prio = prio.double()
+    elif bad == "strided":
+        prio = prio.t().contiguous().t()
+    elif bad == "nvalid_int64":
+        nv = nv.long()
+    else:
+        nv = nv[:1]
+    shard_topk_c.launches = 0
+    with pytest.raises(ValueError, match="shard_topk_c"):
+        shard_topk_c(prio, gumbel, nv, k)
+    assert shard_topk_c.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [2, 4])
+def test_sharded_dqn_learner_step_kernel_matches_plain(cuda, R):
+    """One DQN learner_step through the sharded replay service, the
+    per-shard kernel against its plain version, from one state,
+    trajectory and Gumbel vector: bitwise, and the kernel step syncs
+    nothing (sync debug mode "error")."""
+    import repro_torch.envs as envs
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.replay_service import ShardedPrioritizedReplay
+    from repro_torch.core.rollout import rollout_fresh
+    env = envs.make("cartpole")
+    kw = dict(total_iters=60, warmup=0, replay_capacity=4096)
+    kern = agent_api.make("dqn", env=env, **kw)
+    plain = agent_api.make("dqn", env=env, use_kernel=False, **kw)
+    kern.replay = ShardedPrioritizedReplay(4096, "replay", R)
+    plain.replay = ShardedPrioritizedReplay(4096, "replay", R,
+                                            use_kernel=False)
+    state = kern.init(torch.Generator().manual_seed(0))
+    state = agent_api.TrainState(
+        state.params, state.opt_state,
+        {"replay": kern.replay.shard_state(state.extra["replay"])},
+        state.ring, state.steps)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    traj, env_state = rollout_fresh(kern.policy, kern.actor_policy(state, 0),
+                                    env, gen, 32, 32)
+    boot = env.obs(env_state)
+    g = kern.replay.noise(gen, kern.batch_size)
+    shard_topk_c.launches = prioritized_sample_c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, _ = kern.learner_step_noise(state, traj, boot, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert shard_topk_c.launches == 1 and prioritized_sample_c.launches == 0
+    b, _ = plain.learner_step_noise(state, traj, boot, g)
+    assert shard_topk_c.launches == 1
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    assert torch.equal(a.extra["replay"]["prio"], b.extra["replay"]["prio"])
 
 
 # (E, C, d, f): the LM serving path's (deepseek-moe-16b, batch 4, prompt

@@ -33,6 +33,7 @@ from repro.core.rollout import rollout_fresh as jax_rollout_fresh
 from repro_torch.checkpoint.convert import (params_from_jax,
                                             train_state_from_jax)
 from repro_torch.core import agent as agent_api
+from repro_torch.core.distribution import DistPlan
 from repro_torch.core.rollout import rollout, rollout_fresh
 from repro_torch.core.trainer import Trainer, TrainerConfig
 from repro_torch.launch import rl_train
@@ -261,7 +262,7 @@ def test_fit_is_finite_and_learns(algo):
 
 def test_trainer_refuses_later_slices():
     env = envs.make("cartpole")
-    for kw, frag in (({"plan": "workers=2"}, "distribution"),
+    for kw, frag in (({"plan": DistPlan.flat(2)}, "distribution"),
                      ({"pipeline": True}, "pipeline")):
         with pytest.raises(ValueError, match=frag):
             Trainer(env, TrainerConfig(**kw), device="cpu")
@@ -299,7 +300,8 @@ def test_cli_prints_the_json_line(algo):
     (["--plan", "workers=2:allreduce:bsp"], "--plan"),
     (["--pipeline"], "pipeline"),
     (["--actors", "8,16"], "--actors"), (["--n-workers", "2"], "n-workers"),
-    (["--sync", "asp"], "sync"), (["--env", "pendulum-norm"], "registered")])
+    (["--sync", "asp", "--n-workers", "2"], "sync"),
+    (["--env", "pendulum-norm"], "registered")])
 def test_cli_refuses_what_later_slices_bring(flags, frag, capsys):
     with pytest.raises(SystemExit) as exc:
         rl_train.main(["--device", "cpu"] + flags)
