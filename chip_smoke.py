@@ -67,7 +67,25 @@ Phases, in order; the script exits non-zero at the first failure:
      kernel path against use_kernels=False on the same params
      (`lm_agreement`: f32 compute end to end, prefill and first decode
      logits within 1e-3 x max|logit|; bf16 layer by layer within 2^-6);
-     then smollm-360m at full width in bf16 (flash attention only).
+     then smollm-360m at full width in bf16 (flash attention only);
+ 10. wkv6 kernel: the chunked RWKV-6 WKV against its plain version (the
+     per-step scan), y and the final state, with a nonzero u and initial
+     state, at (B, T, H, N, chunk) = (4, 32, 32, 64, 64) (the rwkv6-1.6b
+     serve prefill), (4, 512, 32, 64, 64), (4, 1, 32, 64, 1) (decode),
+     (2, 100, 3, 16, 32) and (1, 37, 1, 8, 16) (ragged last chunks), within
+     the reference's atol 2e-4, rtol 1e-3; bitwise repeatable, the final
+     S written over the state it is given; it raises under grad;
+ 11. RWKV serve: `serve()` of the full-width rwkv6-1.6b in bf16 with
+     use_kernels on weights drawn on the card from seed 0, its constants
+     (u, w0, ln_scale, the lerps) redrawn from a numpy seed (2 prefills
+     and 17 decode steps: 456 wkv6_btHN launches, no gmm or flash), finite
+     logits, peak device memory, and the kernel path against
+     use_kernels=False on the same params in f32 compute at prompt 32 and
+     512, layer by layer on the same input (every block's prefill output
+     and state, and its first decode output and state from its own
+     prefill cache, within 1e-3 x max|plain|; end-to-end
+     logits reported: this random model amplifies f32 rounding ~2x per
+     layer).
 It then prints the kernels' JSON line and, last, the device line.
 """
 import contextlib
@@ -141,6 +159,14 @@ LM = dict(arch="deepseek-moe-16b", batch=4, prompt_len=32, gen_len=16)
 # bf16 layer by layer, x max|plain output| (2^-6: a few bf16 roundings)
 LM_F32_TOL = 1e-3
 LM_BF16_TOL = 2.0 ** -6
+# (B, T, H, N, chunk) of the chunked WKV: the rwkv6-1.6b serve prefill
+# (the path's row in the kernels line), a prompt of eight chunks, the
+# decode step, then the reference's sweep shapes (ragged last chunks)
+WKV_CASES = [(4, 32, 32, 64, 64), (4, 512, 32, 64, 64), (4, 1, 32, 64, 1),
+             (2, 100, 3, 16, 32), (1, 37, 1, 8, 16)]
+WKV_TOL = dict(atol=2e-4, rtol=1e-3)   # the reference's own
+RWKV = dict(arch="rwkv6-1.6b", batch=4, prompt_len=32, gen_len=16,
+            agree_prompts=(32, 512))
 
 
 def fail(msg):
@@ -1173,6 +1199,279 @@ def lm_agreement(model, params, prompts, capacity):
     return out
 
 
+def wkv_ops(B, T, H, N):
+    """f32 operations the WKV recurrence needs on these shapes, whatever
+    its blocking (an exp counts one), per step and (b, h): r_t·S (2N²),
+    S <- w ⊙ S + k vᵀ (3N²), w = exp(logw) (N), r·(u ⊙ k) (3N) and that
+    scalar times v added to y (2N). The chunked kernel does more (the
+    pairwise decays of each chunk); the bound counts only what the
+    function needs."""
+    return B * H * T * (5 * N * N + 6 * N)
+
+
+def phase_wkv6_kernel():
+    """The chunked WKV against its plain version (the per-step scan) on
+    the card, y and the final state, with a nonzero u and initial state;
+    returns {shape: row}."""
+    import torch
+    from repro_torch.kernels.wkv6.kernel import wkv6_btHN
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for B, T, H, N, L in WKV_CASES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        r, k, v = randn(B, T, H, N), randn(B, T, H, N), randn(B, T, H, N)
+        logw = -torch.exp(0.5 * randn(B, T, H, N))
+        u = 0.3 + 0.2 * randn(H, N)
+        s0 = 0.2 * randn(B, H, N, N)
+
+        def plain():
+            return wkv6_ref(r, k, v, logw, u, s0)
+
+        state = s0.clone()   # the kernel writes the final S over it
+        y, S = wkv6_btHN(r, k, v, logw, u, state, chunk=L)
+        torch.cuda.synchronize()
+        check(S is state, f"wkv6_btHN {(B, T, H, N, L)}: the final S was "
+                          f"not written over the given state")
+        ry, rS = plain()
+        err = 0.0
+        for name, a, b in (("y", y, ry), ("S", S, rS)):
+            check(torch.isfinite(a).all().item(),
+                  f"wkv6_btHN non-finite {name} at {(B, T, H, N, L)}")
+            ok = ((a - b).abs() <= WKV_TOL["atol"]
+                  + WKV_TOL["rtol"] * b.abs()).all()
+            err = max(err, (a - b).abs().max().item())
+            check(bool(ok), f"wkv6_btHN {(B, T, H, N, L)} {name} outside "
+                            f"atol {WKV_TOL['atol']}, rtol "
+                            f"{WKV_TOL['rtol']} (max_abs_err {err})")
+        y2, S2 = wkv6_btHN(r, k, v, logw, u, s0.clone(), chunk=L)
+        check(torch.equal(y2, y) and torch.equal(S2, S),
+              f"wkv6_btHN {(B, T, H, N, L)}: not bitwise repeatable")
+
+        def kernel():  # timed on one state that it carries, as decode does
+            return wkv6_btHN(r, k, v, logw, u, state, chunk=L)
+
+        ms = cuda_time_ms(kernel, 200 if T <= 64 else 50)
+        plain_ms = cuda_time_ms(plain, 20 if T <= 64 else 3, warmup=2)
+        nbytes = 4 * (5 * B * T * H * N + H * N + 2 * B * H * N * N)
+        ops = wkv_ops(B, T, H, N)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / PEAK_OPS["float32"]
+        row = {"name": "wkv6_btHN", "shape": [B, T, H, N], "chunk": L,
+               "max_abs_err": err, "tol": WKV_TOL, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops}
+        print("kernel_case " + json.dumps(row))
+        rows[(B, T, H, N, L)] = row
+    print("kernels_checked " + json.dumps({"kernels": ["wkv6_btHN"]}))
+    return rows
+
+
+def phase_wkv6_guard():
+    import torch
+    from repro_torch.kernels.wkv6.kernel import wkv6_btHN
+    x = torch.randn((1, 4, 2, 8), device="cuda", requires_grad=True)
+    u = torch.zeros((2, 8), device="cuda")
+    try:
+        wkv6_btHN(x, x, x, -x.abs(), u)
+    except RuntimeError as e:
+        print(f"wkv6 guard: raised under grad: {e}")
+    else:
+        fail("wkv6_btHN ran on an input that requires grad")
+
+
+def perturb_rwkv(params, seed=0):
+    """The RWKV constants the reference's init leaves at trivial values
+    (u = 0 hides the diagonal bonus, w0 = -6 makes every decay ~0.9975,
+    unit head-norm scales, lerps at 0.5), redrawn in place from a numpy
+    seed, so that the kernel's u-term and its decays are exercised."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    draws = {"u": lambda s: 0.5 * rng.standard_normal(s),
+             "w0": lambda s: rng.uniform(-5.0, 1.0, s),
+             "ln_scale": lambda s: 1.0 + 0.2 * rng.standard_normal(s),
+             "mu": lambda s: rng.uniform(0.0, 1.0, s),
+             "cm_mu": lambda s: rng.uniform(0.0, 1.0, s)}
+    for key, t in params.items():
+        draw = draws.get(key.rsplit("/", 1)[-1])
+        if draw is not None and "/mixer/" in key:
+            t.copy_(torch.from_numpy(draw(tuple(t.shape)).astype(
+                np.float32)))
+
+
+def rwkv_param_count(cfg):
+    """Exact leaf count of the port's (and the reference's) RWKV model:
+    `param_count` approximates each mixer (it leaves out the token-shift
+    lerps mu/cm_mu, w0, u and ln_scale, and counts the lerp and decay
+    LoRAs as 4·d·64 where they hold 2·5·32·d + 2·64·d) and leaves out
+    the layernorms' scales and biases."""
+    d, H, N, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    mixer = (5 * d + d * 160 + 5 * 32 * d + 5 * d * d + d + 2 * 64 * d
+             + 2 * H * N + 2 * d + 2 * d * f + d * d)
+    norms = 2 * 2 * d
+    return 2 * cfg.vocab * d + cfg.n_layers * (mixer + norms) + 2 * d
+
+
+def phase_rwkv_serve(card):
+    """Serve the full-width rwkv6-1.6b (bf16, use_kernels) through
+    `repro_torch.launch.serve.serve`, then hold the kernel path against
+    use_kernels=False in f32; returns the main path's launch counts."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_hsd
+    from repro_torch.kernels.gmm.kernel import gmm_ecd
+    from repro_torch.kernels.wkv6.kernel import wkv6_btHN
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import ModelOpts, build_model
+    arch, B, S, gen_len = (RWKV[k] for k in ("arch", "batch", "prompt_len",
+                                             "gen_len"))
+    model = build_model(arch, ModelOpts(dtype="bfloat16", use_kernels=True))
+    cfg = model.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
+           cfg.vocab) == (24, 2048, 32, 64, 7168, 65536),
+          f"{arch}: not the full-width config")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    perturb_rwkv(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    n_params = sum(v.numel() for v in params.values())
+    check(n_params == rwkv_param_count(cfg),
+          f"{arch}: {n_params} params, its template holds "
+          f"{rwkv_param_count(cfg)}")
+    prompts = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts at 0 just before, read just after
+    flash_attention_hsd.launches = gmm_ecd.launches = 0
+    wkv6_btHN.launches = 0
+    res = serve(arch, reduced=False, batch=B, prompt_len=S,
+                gen_len=gen_len, seed=0, dtype="bfloat16", device="cuda",
+                use_kernels=True, params=params, prompts=prompts)
+    launches = {"wkv6_btHN": wkv6_btHN.launches, "gmm_ecd": gmm_ecd.launches,
+                "flash_attention_hsd": flash_attention_hsd.launches}
+    want = {"wkv6_btHN": cfg.n_layers * (2 + gen_len + 1), "gmm_ecd": 0,
+            "flash_attention_hsd": 0}
+    check(want["wkv6_btHN"] == 456, f"expected launch counts {want}")
+    check(launches == want, f"{arch} serve: launches {launches}, expected "
+                            f"{want}")
+    check(res["generated_shape"] == [B, gen_len],
+          f"{arch} serve: generated_shape {res['generated_shape']}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # checks below launch the kernel again; they are not the main path
+    agree = rwkv_agreement(model, params, prompts)
+    print("lm_serve " + json.dumps(dict(
+        res, init_s=init_s, weight_bytes=weight_bytes, n_params=n_params,
+        param_count=cfg.param_count(), serve_peak_bytes=peak,
+        launches=launches, agreement=agree, card=card)))
+    del params, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rwkv_layer_agreement(cfg, params, toks, models):
+    """Each layer's block, kernel path against plain path on the same
+    input: the prefill on the plain path's activations (its output and
+    the S it leaves in its cache), then one decode step of each path from
+    its own prefill cache (the kernel writing S into it). Returns the
+    worst max_abs_err / max|plain| over the layers for each mode."""
+    import torch
+    from repro_torch.models.layers import apply_params, embed_tokens
+    kern, plain = models
+    kblocks = dict(kern.layers())
+    S = toks.shape[1]
+    x = embed_tokens({"tok": params["embed/tok"]}, toks, cfg, torch.float32)
+    xt = embed_tokens({"tok": params["embed/tok"]}, toks[:, -1:], cfg,
+                      torch.float32)
+    worst = {"prefill": 0.0, "prefill_S": 0.0, "decode": 0.0,
+             "decode_S": 0.0}
+    for name, blk in plain.layers():
+        sub = {k[len(name) + 1:]: v for k, v in params.items()
+               if k.startswith(name + "/")}
+        xk, ck, _ = apply_params(kblocks[name], sub, x, 0, S + 1)
+        x, cache, _ = apply_params(blk, sub, x, 0, S + 1)
+        pairs = [("prefill", xk, x), ("prefill_S", ck["S"].clone(),
+                                      cache["S"].clone())]
+        dk, _, _ = apply_params(kblocks[name], sub, xt, cache=ck, pos=S)
+        dp, _, _ = apply_params(blk, sub, xt, cache=cache, pos=S)
+        pairs += [("decode", dk, dp), ("decode_S", ck["S"], cache["S"])]
+        for mode, a, b in pairs:
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            worst[mode] = max(worst[mode], rel)
+            check(rel <= LM_F32_TOL,
+                  f"rwkv {name} {mode}: f32 kernel vs plain on the same "
+                  f"input max_abs_err / max|plain| = {rel} > {LM_F32_TOL}")
+        xt = dp
+    return worst
+
+
+def rwkv_agreement(model, params, prompts):
+    """The kernel path against use_kernels=False on the same (bf16,
+    perturbed) params, in f32 compute (each bf16 weight cast to f32 at
+    use), at each prompt length of RWKV["agree_prompts"] (512 crosses
+    eight chunk boundaries):
+      * gated, layer by layer on the same input (`rwkv_layer_agreement`):
+        every block's prefill output and state, its first decode step's
+        output and new state from its own prefill cache, within
+        LM_F32_TOL x max|plain|;
+      * reported, end to end: the prefill and first decode logits of the
+        f32 and bf16 paths against the f32 plain path. This random model
+        amplifies an f32 rounding difference ~2x per layer (24 layers:
+        experiments/rwkv_wkv_agreement.py), so end to end the two f32
+        paths land as far apart as two f32 summation orders of the plain
+        path do, not within LM_F32_TOL."""
+    import torch
+    from repro_torch.models.model import ModelOpts, build_model
+    cfg = model.cfg
+    out = {}
+    models = {(dt, k): build_model(cfg, ModelOpts(dtype=dt, use_kernels=k))
+              for dt in ("float32", "bfloat16") for k in (False, True)}
+    for S in RWKV["agree_prompts"]:
+        toks = prompts
+        if S > prompts.shape[1]:
+            toks = torch.randint(0, cfg.vocab, (prompts.shape[0], S),
+                                 device="cuda", generator=torch.Generator(
+                                     device="cuda").manual_seed(S))
+        logits, tok = {}, None
+        with torch.inference_mode():
+            out[f"prompt {S} f32 per-layer worst max_abs_err / max|plain|"] \
+                = rwkv_layer_agreement(cfg, params, toks, (
+                    models[("float32", True)], models[("float32", False)]))
+            for key, m in models.items():
+                lp, cache = m.prefill(params, toks, S + 1)
+                if tok is None:  # every path decodes the same token
+                    tok = torch.argmax(lp[:, -1].float(), -1)[:, None]
+                ld, _ = m.decode_step(params, tok, cache, S)
+                logits[key] = {"prefill": lp.float(), "decode": ld.float()}
+                del cache
+        for name in ("prefill", "decode"):
+            ref = logits[("float32", False)][name]
+            scale = ref.abs().max().item()
+            for key, got in logits.items():
+                check(torch.isfinite(got[name]).all().item(),
+                      f"rwkv prompt {S} {name} {key}: non-finite logits")
+                out[f"prompt {S} {name} {key[0]} kernels={key[1]} vs f32 "
+                    f"plain"] = {
+                    "max_abs_err": (got[name] - ref).abs().max().item(),
+                    "max_abs_logit": scale,
+                    "argmax_equal": int((got[name].argmax(-1)
+                                         == ref.argmax(-1)).sum()),
+                    "rows": ref.shape[0]}
+        del logits
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_gmm_guard():
     import torch
     from repro_torch.kernels.gmm.kernel import gmm_ecd
@@ -1207,6 +1506,9 @@ def main():
     gmm_rows = phase_gmm_kernel()
     phase_gmm_guard()
     lm_launches = phase_lm_serve(card)
+    wkv_rows = phase_wkv6_kernel()
+    phase_wkv6_guard()
+    rwkv_launches = phase_rwkv_serve(card)
     serve = cases[(SERVE_CASE, "float32")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1249,6 +1551,13 @@ def main():
         "replaces": "src/repro/kernels/gmm/kernel.py:42",
         "launches": lm_launches["gmm_ecd"]},
         **{k: gmm_row[k] for k in keys}))
+    wkv_row = wkv_rows[WKV_CASES[0]]
+    kernels.append(dict({
+        "name": "wkv6_btHN", "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:69",
+        "launches": rwkv_launches["wkv6_btHN"]},
+        **{k: wkv_row[k] for k in keys}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

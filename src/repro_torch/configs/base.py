@@ -11,8 +11,9 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-ATTN = "attn"  # full (global) softmax attention; other kinds wait for
-#                the LM zoo (ROADMAP queue 1, item 15)
+ATTN = "attn"  # full (global) softmax attention
+RWKV = "rwkv6"  # RWKV-6 time mix + channel mix; the other kinds wait for
+#                 the LM zoo (ROADMAP queue 1, item 15)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,13 +77,21 @@ class ModelConfig:
         return (i - m.first_dense) % m.every == 0
 
     def param_count(self) -> int:
-        """Parameters of the ATTN / MoE / dense-FFN stack (the reference's
-        count for those kinds)."""
+        """Parameters of the ATTN / RWKV / MoE / dense-FFN stack (the
+        reference's count for those kinds; for RWKV it is the reference's
+        approximation, which leaves out the low-rank mixers' true widths,
+        the decay and lerp constants and the head norms)."""
         d, hd = self.d_model, self.head_dim
         total = self.vocab * d  # embedding
         if not self.tie_embeddings:
             total += self.vocab * d
         for i, kind in enumerate(self.pattern()):
+            if kind == RWKV:
+                # r,k,v,g,o projections + decay/low-rank mixers (approx),
+                # then the built-in channel mix: k, v + receptance
+                total += 5 * d * d + 4 * d * 64
+                total += 2 * d * int(self.d_ff) + d * d
+                continue
             if kind != ATTN:
                 raise NotImplementedError(f"param_count of kind {kind!r}")
             total += 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd

@@ -90,17 +90,26 @@ class ParamStore:
         rollout: the live actor-param ring view of a Trainer state."""
         return self.publish(agent.actor_policy(state, delay))
 
-    def load_checkpoint(self, path, template, delay: int = 0) -> int:
-        """Publish the behaviour params of a reference Trainer archive
-        (its `.ring/...` slot `delay`), shaped like `template`."""
-        from repro_torch.checkpoint.ckpt import load_actor_policy
-        return self.publish(load_actor_policy(path, template, delay))
+    def load_checkpoint(self, path, agent, example_state=None,
+                        delay: int = 0) -> int:
+        """Restore a Trainer archive (either package's npz TrainState) and
+        publish its actor-policy view, `agent.actor_policy(state, delay)`
+        (for DQN that includes the annealed `eps`). The agent must be
+        built with the config (ring_size etc.) that produced the archive.
+        The state goes to `example_state`'s device when one is given,
+        else to the agent's policy device."""
+        from repro_torch.checkpoint.ckpt import load_train_state
+        device = (example_state.steps.device if example_state is not None
+                  else agent.policy.device)
+        state = load_train_state(path, device)
+        return self.publish_from_state(agent, state, delay)
 
     def get(self):
         """-> (version, params) snapshot of the latest publish."""
         if self._params is None:
             raise RuntimeError("ParamStore is empty: publish params "
-                               "(publish / load_checkpoint) before serving")
+                               "(publish / publish_from_state / "
+                               "load_checkpoint) before serving")
         return self._version, self._params
 
 

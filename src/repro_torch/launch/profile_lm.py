@@ -1,6 +1,7 @@
 """Where an LM decode step and a prefill spend their time, on the card.
 
     python -m repro_torch.launch.profile_lm [--arch deepseek-moe-16b] [--plain]
+    python -m repro_torch.launch.profile_lm --arch rwkv6-1.6b [--plain]
 
 Builds the full-width model in bf16 with `use_kernels` (or without, with
 `--plain`), draws its weights on the card from seed 0, and serves at the
@@ -12,7 +13,8 @@ the prefill and for a decode step:
   * `issue_ms`: host time to enqueue the call, without the sync;
   * a torch.profiler window (`launch/profiling.device_window`): the
     device's busy share, device time and device ops per call, the top
-    kernels by device time, and the grouped-matmul kernel's share.
+    kernels by device time, and the grouped-matmul and WKV kernels'
+    shares.
 Needs a card: there is no CPU mode.
 """
 from __future__ import annotations
@@ -79,7 +81,8 @@ def main(argv=None):
             wall_ms, issue_ms = _timed(fn, k)
             out[name] = dict(wall_ms=wall_ms, issue_ms=issue_ms,
                              profile=device_window(
-                                 fn, k, share_of={"gmm_ecd": "gmm_kernel"}))
+                                 fn, k, share_of={"gmm_ecd": "gmm_kernel",
+                                                  "wkv6_btHN": "wkv6"}))
     print(json.dumps(out))
 
 

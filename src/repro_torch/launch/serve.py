@@ -11,14 +11,19 @@ port of src/repro/launch/serve.py):
     repro_torch.launch.serve_policy.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --reduced --device cpu --use-kernels
   python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --dtype bfloat16 --use-kernels          # full width, on the card
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --dtype bfloat16 --use-kernels          # full width, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve policy --device cpu \\
       --quick
 
 `--use-kernels` (the reference's `ModelOpts.use_kernels`) runs the
-prefill's attention in the flash-attention kernel and the MoE expert
-matmuls in the grouped-matmul kernel on the card.
+prefill's attention in the flash-attention kernel, the MoE expert
+matmuls in the grouped-matmul kernel and RWKV-6's time mix (prefill and
+every decode step) in the chunked-WKV kernel on the card.
 """
 from __future__ import annotations
 
@@ -125,7 +130,8 @@ def main(argv=None):
         description="LM-stub serving benchmark; use the `policy` "
                     "subcommand for batched policy serving "
                     "(repro_torch.launch.serve_policy).")
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="smollm-360m, deepseek-moe-16b or rwkv6-1.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -133,7 +139,8 @@ def main(argv=None):
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
     ap.add_argument("--use-kernels", action="store_true",
-                    help="flash attention and grouped matmul on the card")
+                    help="flash attention, grouped matmul and chunked WKV "
+                         "kernels on the card")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card)")
     args = ap.parse_args(argv)

@@ -158,7 +158,6 @@ def main(argv=None):
                  f"iterations must be 0 or more")
 
     import repro_torch.envs as envs
-    from repro_torch.checkpoint.ckpt import load_train_state
     from repro_torch.core import agent as agent_api
     from repro_torch.core.serving import ParamStore, ServeEngine
     from repro_torch.core.trainer import Trainer, TrainerConfig
@@ -190,12 +189,12 @@ def main(argv=None):
                                device=device)
         policy = agent.policy
         if args.ckpt is not None:
-            state = load_train_state(args.ckpt, device)
+            store.load_checkpoint(args.ckpt, agent)
             source = "checkpoint"
         else:
-            state = agent.init(torch.Generator().manual_seed(args.seed))
+            store.publish_from_state(agent, agent.init(
+                torch.Generator().manual_seed(args.seed)))
             source = "fresh-init"
-        store.publish_from_state(agent, state)
     train_s = time.time() - t0 if source == "trained-in-process" else 0.0
     # the hot-swap payload: same shapes (template-validated), fresh
     # values — published mid-cell

@@ -27,9 +27,11 @@ def dense_init(generator, shape, scale=None, dtype=torch.float32):
     return t.mul_(scale).to(dtype)
 
 
-def dense(scale=None):
-    return lambda generator, shape, dtype: dense_init(generator, shape,
-                                                      scale, dtype)
+def dense(scale=None, dtype=None):
+    """A matrix leaf, stored in the model's dtype, or always in `dtype`
+    when given (a leaf the reference reads in f32 whatever the model's)."""
+    return lambda generator, shape, model_dtype: dense_init(
+        generator, shape, scale, dtype or model_dtype)
 
 
 def const(value):

@@ -1,5 +1,6 @@
 """LanguageModel: assembles blocks into the full architecture (the port
-of src/repro/models/model.py for the ATTN / MoE / dense-FFN stack).
+of src/repro/models/model.py for the ATTN / RWKV / MoE / dense-FFN
+stack).
 
 The reference factors the layer list into [prefix | R × super-block |
 tail] — the prefix is MoE's leading dense layers, the super-block the
@@ -7,12 +8,17 @@ smallest repeating (kind, is_moe) period — and runs the R repeats as one
 `lax.scan` over stacked params. The port keeps the factoring and the
 names, and runs the repeats as a loop over a `ModuleList` of
 super-blocks; its params are split per block ("stack/<r>/t<t>/...", see
-checkpoint/convert.py), and so is its KV cache ("stack/<r>/t<t>/k").
+checkpoint/convert.py), and so is its cache ("stack/<r>/t<t>/k" for an
+attention block's KV cache, "stack/<r>/t<t>/S", ".../shift_tm" and
+".../shift_cm" for an RWKV block's recurrent state).
 
 Execution modes: the block stack alone (`_run_seq`; the policy trunk
-calls `run_blocks`), `prefill` (emits the KV cache) and `decode_step`
-(one token against it, updating the cache in place). The encoder, frontends, train-mode `forward`/`loss`
-and the ZeRO-3 list form are not ported yet.
+calls `run_blocks`), `prefill` (emits the cache) and `decode_step` (one
+token against it, updating the cache in place: an attention block
+writes the token's k, v into its slot, an RWKV block overwrites its
+state, and under `use_kernels` the WKV kernel writes the new S straight
+into the cache's buffer). The encoder, frontends, train-mode
+`forward`/`loss` and the ZeRO-3 list form are not ported yet.
 """
 from __future__ import annotations
 
@@ -68,6 +74,11 @@ class LanguageModel(nn.Module):
         self.tail_len = rem - self.repeats * period
         self.stack_specs = self.specs[self.prefix_len:
                                       self.prefix_len + period]
+
+        # each block kind's cache keys, as init_cache makes them
+        self.cache_keys = {kind: tuple(init_cache(cfg, kind, 1, 1,
+                                                  opts.tdtype, "meta"))
+                           for kind in set(pat)}
 
         def block(spec):
             return init_block(cfg, spec[0], spec[1], self.attn_opts)
@@ -137,7 +148,8 @@ class LanguageModel(nn.Module):
             h = embed_tokens(self.embed, x, cfg, dt)
             for name, blk in self.layers():
                 h, _, _ = blk(h, cache={k: cache[f"{name}/{k}"]
-                                        for k in ("k", "v")}, pos=pos)
+                                        for k in self.cache_keys[blk.kind]},
+                              pos=pos)
             h = apply_norm(self.final_norm, h)
             return unembed(self.embed, h, cfg), cache
         raise ValueError(f"unknown mode {mode!r}")

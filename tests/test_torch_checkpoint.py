@@ -1,7 +1,9 @@
 """Weights carried between the JAX package and the port: the convert
 round trip, npz archives written by either package restoring into the
-other, and a JAX Trainer archive (its `.ring/...` actor-param history)
-served by the port with the JAX policy's logits and value.
+other, and a JAX Trainer archive served by the port through
+`ParamStore.load_checkpoint(path, agent)`: the same published tree as
+JAX's `ParamStore.load_checkpoint` (for dqn with its exploration rate
+`eps`), with the JAX policy's outputs.
 
 Round trips are bitwise; policy outputs are held to f32 atol = rtol =
 2e-5 (the same math summed in another order)."""
@@ -23,10 +25,12 @@ from repro.configs.base import ATTN as JAX_ATTN
 from repro.configs.base import ModelConfig as JaxConfig
 from repro.core import agent as jax_agents
 from repro.core.networks import TrunkPolicy as JaxTrunk
+from repro.core.serving import ParamStore as JaxParamStore
 from repro_torch.checkpoint import (load_actor_policy, load_checkpoint,
                                     params_from_jax, params_to_jax,
                                     save_checkpoint)
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.core import agent as tagents
 from repro_torch.core.networks import MLPPolicy, TrunkPolicy
 from repro_torch.core.serving import ParamStore
 from repro_torch.launch import serve_policy
@@ -101,7 +105,8 @@ def test_port_archive_loads_into_jax(tmp_path):
 
 def _trainer_archive(tmp_path, algo, fit):
     """A JAX Trainer TrainState archive: fitted for two iterations with a
-    two-slot actor ring, or (cheaper) freshly initialised."""
+    two-slot actor ring, or (cheaper) freshly initialised. Returns the
+    JAX agent, its state, the path and the agent's construction kwargs."""
     env = jenvs.make("cartpole")
     if fit:
         from repro.core.trainer import Trainer, TrainerConfig
@@ -110,41 +115,56 @@ def _trainer_archive(tmp_path, algo, fit):
         trainer = Trainer(env, cfg)
         state, _ = trainer.fit()
         agent = trainer.agent
+        kwargs = dict(ring_size=agent.ring_size, total_iters=cfg.iters)
     else:
-        agent = jax_agents.make(algo, env, ring_size=1, total_iters=1)
+        kwargs = dict(ring_size=1, total_iters=1)
+        agent = jax_agents.make(algo, env, **kwargs)
         state = agent.init(jax.random.PRNGKey(0))
     path = jax_save(str(tmp_path / f"{algo}.npz"), state)
-    return agent, state, path
+    return agent, state, path, kwargs
 
 
-def _serve_outputs(path, agent, state, delay):
-    spec = tenvs.make("cartpole").spec
-    policy = MLPPolicy.for_spec(spec, hidden=serve_policy.HIDDEN,
-                                device="cpu")
+def _serve_outputs(path, algo, agent, state, delay, kwargs):
+    """The port's `ParamStore.load_checkpoint(path, agent, delay=delay)`
+    against JAX's on the same archive: the published trees (flat, as the
+    port keys them) and the policy's outputs on them."""
+    tagent = tagents.make(algo, env=tenvs.make("cartpole"), device="cpu",
+                          **kwargs)
     store = ParamStore()
-    store.load_checkpoint(path, policy.init(torch.Generator()), delay)
+    assert store.load_checkpoint(path, tagent, delay=delay) == 1
     _, params = store.get()
+    jstore = JaxParamStore()
+    jstore.load_checkpoint(path, agent, delay=delay)
+    want_params = params_from_jax(_np_tree(jstore.get()[1]))
+    assert sorted(params) == sorted(want_params)
+    for k, w in want_params.items():
+        np.testing.assert_allclose(params[k].numpy(), w.numpy(), **TOL)
     obs = np.random.default_rng(0).standard_normal((5, 4)).astype(np.float32)
-    got = policy.apply(params, torch.tensor(obs))
+    got = tagent.policy.apply(params, torch.tensor(obs))
     want = agent.policy.apply(agent.actor_policy(state, delay),
                               jnp.asarray(obs))
-    return got, want
+    return got, want, params
 
 
-@pytest.mark.parametrize("algo", ["a3c", "impala", "ppo"])
+@pytest.mark.parametrize("algo", ["a3c", "impala", "ppo", "dqn"])
 def test_trainer_archive_serves_jax_policy(algo, tmp_path):
-    agent, state, path = _trainer_archive(tmp_path, algo, fit=False)
-    for got, want in zip(*_serve_outputs(path, agent, state, 0)):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    agent, state, path, kwargs = _trainer_archive(tmp_path, algo, fit=False)
+    got, want, params = _serve_outputs(path, algo, agent, state, 0, kwargs)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    if algo == "dqn":  # the exploration rate rides with the net
+        assert float(params["eps"]) == float(agent.actor_policy(
+            state, 0)["eps"])
 
 
 def test_fitted_trainer_archive_serves_each_ring_slot(tmp_path):
     """After two PPO updates with a two-slot ring, slot `delay` of the
     archive is what `agent.actor_policy(state, delay)` serves."""
-    agent, state, path = _trainer_archive(tmp_path, "ppo", fit=True)
+    agent, state, path, kwargs = _trainer_archive(tmp_path, "ppo", fit=True)
     outs = []
     for delay in (0, 1):
-        got, want = _serve_outputs(path, agent, state, delay)
+        got, want, _ = _serve_outputs(path, "ppo", agent, state, delay,
+                                      kwargs)
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
         outs.append(got[0])
@@ -152,7 +172,7 @@ def test_fitted_trainer_archive_serves_each_ring_slot(tmp_path):
 
 
 def test_cli_serves_a_trainer_archive(tmp_path):
-    _, _, path = _trainer_archive(tmp_path, "impala", fit=False)
+    _, _, path, _ = _trainer_archive(tmp_path, "impala", fit=False)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         serve_policy.main(["--device", "cpu", "--algo", "impala",

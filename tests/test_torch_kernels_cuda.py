@@ -20,7 +20,11 @@ the plain einsum: f32 is held to rtol = 1e-4 with atol = 1e-4 x max|ref|;
 bf16 outputs against the f32 product of the same bf16 inputs to rtol =
 2^-8 (the output's rounding to bf16) with the same atol. The MoE layer on
 the card, kernel against use_kernels=False, is held to the same bf16
-bounds on the layer output."""
+bounds on the layer output. The chunked WKV is held to its plain version
+(the per-step scan), y and the final state, within atol = 2e-4,
+rtol = 1e-3, the reference's own (tests/test_kernels.py: the same f32
+recurrence blocked in chunks); the RWKV time mix on the card, kernel
+against use_kernels=False, to the MoE layer's bf16 bounds."""
 import numpy as np
 import pytest
 import torch
@@ -504,5 +508,129 @@ def test_moe_layer_kernel_matches_plain(cuda):
         want, waux = tmoe.apply_moe(cfg, p, x, use_kernels=False)
     torch.cuda.synchronize()
     assert gmm_ecd.launches == 3 and torch.equal(aux, waux)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-2 * float(want.float().abs().max()))
+
+
+# (B, T, H, N, chunk): the rwkv6-1.6b serve prefill, a prompt of eight
+# chunks, the decode step, the reference's sweep (ragged last chunks)
+WKV_SHAPES = [(4, 32, 32, 64, 64), (4, 512, 32, 64, 64), (4, 1, 32, 64, 1),
+              (2, 100, 3, 16, 32), (1, 37, 1, 8, 16)]
+WKV_TOL = dict(atol=2e-4, rtol=1e-3)
+
+
+def _wkv_inputs(B, T, H, N, device, seed=13):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    logw = -torch.exp(0.5 * randn(B, T, H, N))
+    return (randn(B, T, H, N), randn(B, T, H, N), randn(B, T, H, N), logw,
+            0.3 + 0.2 * randn(H, N), 0.2 * randn(B, H, N, N))
+
+
+@pytest.fixture
+def wkv(cuda):
+    from repro_torch.kernels.wkv6.kernel import wkv6_btHN
+    wkv6_btHN.launches = 0
+    return wkv6_btHN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_state", [False, True])
+@pytest.mark.parametrize("B,T,H,N,chunk", WKV_SHAPES)
+def test_wkv6_matches_plain(wkv, B, T, H, N, chunk, zero_state):
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    r, k, v, logw, u, s0 = _wkv_inputs(B, T, H, N, "cuda")
+    if zero_state:  # the Pallas kernel's case: S starts at zero
+        s0 = None
+    # the kernel writes the final S over the state it is given
+    y, S = wkv(r, k, v, logw, u, None if s0 is None else s0.clone(),
+               chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv.launches == 1
+    ry, rS = wkv6_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y, ry, **WKV_TOL)
+    torch.testing.assert_close(S, rS, **WKV_TOL)
+
+
+@pytest.mark.cuda
+def test_wkv6_in_place_and_repeatable(wkv):
+    r, k, v, logw, u, s0 = _wkv_inputs(2, 100, 3, 16, "cuda")
+    state = s0.clone()
+    y, S = wkv(r, k, v, logw, u, state, chunk=32)
+    assert S is state  # the final S written over the given state
+    y2, S2 = wkv(r, k, v, logw, u, s0.clone(), chunk=32)
+    assert torch.equal(y, y2) and torch.equal(S, S2)
+
+
+@pytest.mark.cuda
+def test_wkv6_decode_chain_equals_one_chunked_pass(wkv):
+    """Token by token at chunk 1 (the decode step's blocking), carrying
+    the state in place, gives the one chunked pass."""
+    r, k, v, logw, u, s0 = _wkv_inputs(1, 12, 2, 64, "cuda")
+    y_all, S_all = wkv(r, k, v, logw, u, s0.clone(), chunk=4)
+    state = s0.clone()
+    ys = [wkv(r[:, t:t + 1].contiguous(), k[:, t:t + 1].contiguous(),
+              v[:, t:t + 1].contiguous(), logw[:, t:t + 1].contiguous(), u,
+              state, chunk=1)[0] for t in range(12)]
+    torch.testing.assert_close(torch.cat(ys, 1), y_all, **WKV_TOL)
+    torch.testing.assert_close(state, S_all, **WKV_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["grad", "head_dim", "chunk", "strided",
+                                 "float64", "bf16", "cpu_state", "shape"])
+def test_wkv6_refuses_what_it_does_not_take(wkv, bad):
+    N = 80 if bad == "head_dim" else 16
+    r, k, v, logw, u, s0 = _wkv_inputs(1, 8, 2, N, "cuda")
+    chunk = 65 if bad == "chunk" else 4
+    err = ValueError
+    if bad == "grad":
+        r.requires_grad_(True)
+        err = RuntimeError
+    elif bad == "strided":
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "float64":
+        v = v.double()
+    elif bad == "bf16":
+        r = r.to(torch.bfloat16)
+    elif bad == "cpu_state":
+        s0 = s0.cpu()
+    elif bad == "shape":
+        u = u[:1]
+    with pytest.raises(err):
+        wkv(r, k, v, logw, u, s0, chunk=chunk)
+    assert wkv.launches == 0
+
+
+@pytest.mark.cuda
+def test_rwkv_layer_kernel_matches_plain(cuda):
+    """One rwkv6-1.6b time mix at full width on the card, bf16 with
+    perturbed constants: use_kernels (one wkv6_btHN launch) against the
+    model's own chunked WKV, within the bf16 bounds of the MoE layer."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.wkv6.kernel import wkv6_btHN
+    from repro_torch.models import rwkv6
+    from repro_torch.models.layers import init_params
+    cfg = get_config("rwkv6-1.6b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = init_params(rwkv6.init_rwkv(cfg), gen, cuda, torch.bfloat16)
+    p["u"] = 0.5 * torch.randn(p["u"].shape, generator=gen, device=cuda)
+    p["w0"] = -5 + 6 * torch.rand(p["w0"].shape, generator=gen, device=cuda)
+    x = torch.randn((4, 96, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    st = {"S": 0.1 * torch.randn((4, 32, 64, 64), generator=gen,
+                                 device=cuda),
+          "shift": torch.zeros((4, cfg.d_model), dtype=torch.bfloat16,
+                               device=cuda)}
+    wkv6_btHN.launches = 0
+    with torch.inference_mode():
+        got, gs = rwkv6.rwkv_time_mix_seq(cfg, p, x, dict(
+            st, S=st["S"].clone()), use_kernels=True)  # S written over
+        want, ws = rwkv6.rwkv_time_mix_seq(cfg, p, x, st, use_kernels=False)
+    torch.cuda.synchronize()
+    assert wkv6_btHN.launches == 1
+    torch.testing.assert_close(gs["S"], ws["S"], **WKV_TOL)
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
                                atol=1e-2 * float(want.float().abs().max()))

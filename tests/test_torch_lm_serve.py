@@ -1,10 +1,12 @@
 """The port's LM serving path against the JAX package on the CPU, for
 deepseek-moe-16b.reduced() (a dense layer 0 in the prefix, then one MoE
-super-block) and smollm-360m.reduced() (dense, tied embeddings), in f32
-and in bf16, on weights carried across by
+super-block), smollm-360m.reduced() (dense, tied embeddings) and
+rwkv6-1.6b.reduced() (two RWKV-6 blocks, a recurrent cache), in f32 and
+in bf16, on weights carried across by
 checkpoint.convert.params_from_jax:
 
-  * prefill logits and the KV cache it emits;
+  * prefill logits and the cache it emits (each entry in the reference's
+    dtype for its key: an RWKV state S stays f32 under bf16);
   * five teacher-forced decode steps over a partly filled cache (the
     reference attends over all C slots, the zero slots not yet written
     included; the port keeps that quirk);
@@ -38,12 +40,13 @@ from repro.models.model import ModelOpts as JaxOpts
 from repro_torch.checkpoint.convert import params_from_jax
 from repro_torch.kernels.flash_attention.kernel import flash_attention_hsd
 from repro_torch.kernels.gmm.kernel import gmm_ecd
+from repro_torch.kernels.wkv6.kernel import wkv6_btHN
 from repro_torch.launch import serve as tserve
 from repro_torch.models import moe as tmoe
 from repro_torch.models.model import ModelOpts, build_model
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["deepseek-moe-16b", "smollm-360m"]
+ARCHS = ["deepseek-moe-16b", "smollm-360m", "rwkv6-1.6b"]
 B, S, GEN = 2, 6, 5
 # bf16 against the reference's bf16 model, x max|reference|: logits
 # 2^-5 (the two packages round and sum in different orders; measured up
@@ -92,6 +95,15 @@ def _jax_cache(cache):
         lambda a: np.asarray(a, np.float32), cache))
 
 
+def _assert_cache_dtypes(cache, jcache):
+    """Each cache entry has the dtype the reference gives its key (an
+    RWKV state S stays f32 under a bf16 model, as in the reference)."""
+    want = {path[-1].key: str(leaf.dtype) for path, leaf in
+            jax.tree_util.tree_flatten_with_path(jcache)[0]}
+    for key, t in cache.items():
+        assert str(t.dtype) == "torch." + want[key.rsplit("/", 1)[-1]], key
+
+
 @pytest.mark.parametrize("use_kernels", [True, False])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_jax(arch, use_kernels):
@@ -101,14 +113,14 @@ def test_prefill_and_decode_match_jax(arch, use_kernels):
     jlogits, jcache = jax.jit(lambda p, t: jm.prefill(
         p, t, cache_capacity=cap))(jparams, jnp.asarray(prompts))
     flash_attention_hsd.launches = gmm_ecd.launches = 0
+    wkv6_btHN.launches = 0
     with torch.inference_mode():
         logits, cache = tm.prefill(tparams, torch.tensor(prompts), cap)
     assert logits.shape == (B, 1, tm.cfg.vocab)
     _close(logits, jlogits)
     want = _jax_cache(jcache)
     assert sorted(cache) == sorted(want)
-    assert all(c.shape == (B, cap, tm.cfg.n_kv_heads, tm.cfg.head_dim)
-               for c in cache.values())
+    assert all(cache[k].shape == want[k].shape for k in want)
     for k in want:
         _close(cache[k], want[k])
 
@@ -127,7 +139,8 @@ def test_prefill_and_decode_match_jax(arch, use_kernels):
     want = _jax_cache(jcache)
     for k in want:
         _close(cache[k], want[k])
-    assert flash_attention_hsd.launches == gmm_ecd.launches == 0  # CPU
+    assert flash_attention_hsd.launches == gmm_ecd.launches == \
+        wkv6_btHN.launches == 0  # CPU
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -182,7 +195,7 @@ def test_bf16_prefill_and_decode_match_jax(arch, use_kernels):
     _bf16_close(logits, jlogits, BF16_LOGIT_TOL)
     _near_best(logits[:, -1].float().argmax(-1).numpy(), jlogits)
     want = _jax_cache(jcache)
-    assert all(c.dtype == torch.bfloat16 for c in cache.values())
+    _assert_cache_dtypes(cache, jcache)
     for k in want:
         _bf16_close(cache[k], want[k], BF16_CACHE_TOL)
     forced = np.random.default_rng(8).integers(
@@ -263,10 +276,8 @@ def test_make_cache_matches_jax_and_decodes_from_empty(arch, dtype):
                         reduced=True).make_cache(B, cap, "cpu")
     want = _jax_cache(jcache)
     assert sorted(cache) == sorted(want)
-    assert {str(a.dtype) for a in jax.tree_util.tree_leaves(jcache)} == \
-        {dtype}
+    _assert_cache_dtypes(cache, jcache)
     for k in want:
-        assert cache[k].dtype == getattr(torch, dtype)
         assert cache[k].shape == want[k].shape
         assert not cache[k].any() and not want[k].any()
     if dtype != "float32":
