@@ -22,7 +22,15 @@ Phases, in order; the script exits non-zero at the first failure:
      paths at size 12800), full 262144-slot shards with k = 256, ragged
      1M-slot shards with an empty one, and forced ties (indices and scores
      bitwise the plain version's; the yardstick is a batched torch.topk
-     over the masked (R, chunk) scores);
+     over the masked (R, chunk) scores); then the grouped matmul at the
+     LM serving path's shapes (deepseek-moe-16b experts, batch 4, prompt
+     32: decode C = 8, prefill C = 15) in bf16 and f32, ragged shapes and
+     a C below the smallest tile (f32 within rtol 1e-4, bf16 against the
+     f32 product within one bf16 rounding, 2^-8; the yardstick is
+     torch.bmm); the per-shard draw's and the grouped matmul's rows also
+     give the kernels' device time per call from torch.profiler
+     (`device_us`, and the library call's), beside the CUDA-event ms,
+     which counts the host's launch cost too;
   3. slice: the full-width `paper-drl-trunk` policy served through
      ServeEngine for cartpole and pendulum at 500 and 2000 offered
      requests/s, with a hot swap in every cell; the kernel's launch count
@@ -54,12 +62,7 @@ Phases, in order; the script exits non-zero at the first failure:
   6. the flash-attention kernel raises on an input that requires grad;
   7. CLI: `repro_torch.launch.serve_policy --quick` for ppo and dqn
      (trains 4 iterations in-process, then serves);
-  8. gmm kernel: the grouped matmul against its plain version at the LM
-     serving path's shapes (deepseek-moe-16b experts, batch 4, prompt 32:
-     decode C = 8, prefill C = 15) in bf16 and f32, ragged shapes and a C
-     below the smallest tile (f32 within rtol 1e-4, bf16 against the f32
-     product within one bf16 rounding, 2^-8), with times for the kernel,
-     the plain version and torch.bmm;
+  8. the gmm kernel raises on an input that requires grad;
   9. LM serve: `repro_torch.launch.serve.serve` of the full-width
      deepseek-moe-16b in bf16 with use_kernels on weights drawn on the card
      from seed 0 (2 prefills and 17 decode steps: 1539 gmm_ecd and 56
@@ -191,6 +194,31 @@ def cuda_time_ms(fn, iters, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(fn, iters=10):
+    """Device time of fn's CUDA kernels per call, in us, from
+    torch.profiler's key_averages, and each kernel's launches per call.
+    Beside cuda_time_ms (events around many calls, which counts the
+    host's launch cost where the host is slower than the card), it is the
+    kernels' own time; None where the profiler saw no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, kernels = 0.0, {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        total += t if t is not None else evt.self_cuda_time_total
+        kernels[evt.key[:60]] = evt.count / iters
+    return (total / iters if kernels else None), kernels
 
 
 def attended_pairs(S, causal, window):
@@ -488,6 +516,8 @@ def phase_shard_kernel():
         ms = cuda_time_ms(kernel, iters)
         plain_ms = cuda_time_ms(plain, iters)
         library_ms = cuda_time_ms(library, iters)
+        dev_us, dev_kernels = device_us(kernel)
+        library_dev_us, _ = device_us(library)
         # the draw reads p and g of the filled slots and the R counts, and
         # writes R*k (score, index) pairs; ~4 f32 operations per filled
         # slot (add, log, mul, add)
@@ -497,7 +527,9 @@ def phase_shard_kernel():
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / PEAK_OPS["float32"]
         row = {"name": "shard_topk_c", "shape": [R, chunk, list(counts), k],
                "ties": ties, "max_abs_err": err, "tol": 0.0, "ms": ms,
+               "device_us": dev_us, "device_kernels": dev_kernels,
                "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_us": library_dev_us,
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops}
@@ -1012,6 +1044,8 @@ def phase_gmm_kernel():
             ms = cuda_time_ms(kernel, 50 if big else 200)
             plain_ms = cuda_time_ms(plain, 10 if big else 50, warmup=2)
             library_ms = cuda_time_ms(library, 50 if big else 200)
+            dev_us, dev_kernels = device_us(kernel)
+            library_dev_us, _ = device_us(library)
             es = torch.finfo(dt).bits // 8
             nbytes = es * (E * C * d + E * d * f + E * C * f)
             ops = 2 * E * C * d * f
@@ -1019,8 +1053,10 @@ def phase_gmm_kernel():
                               ops / PEAK_OPS[dname])
             row = {"name": "gmm_ecd", "shape": [E, C, d, f], "dtype": dname,
                    "max_abs_err": err, "max_abs_ref": scale,
-                   "rtol": GMM_RTOL[dname], "ms": ms, "plain_ms": plain_ms,
+                   "rtol": GMM_RTOL[dname], "ms": ms, "device_us": dev_us,
+                   "device_kernels": dev_kernels, "plain_ms": plain_ms,
                    "library_ms": library_ms,
+                   "library_device_us": library_dev_us,
                    "bound_ms": max(t_bytes, t_ops) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": nbytes, "ops": ops,
@@ -1496,6 +1532,7 @@ def main():
     scan_rows = phase_scan_kernels()
     replay_row = phase_replay_kernel()
     shard_row = phase_shard_kernel()
+    gmm_rows = phase_gmm_kernel()
     launches = phase_slice(card)
     train_launches = phase_training(
         card, dict(scan_rows, prioritized_sample_c=replay_row))
@@ -1503,7 +1540,6 @@ def main():
     phase_path_agreement()
     phase_flash_guard()
     phase_cli()
-    gmm_rows = phase_gmm_kernel()
     phase_gmm_guard()
     lm_launches = phase_lm_serve(card)
     wkv_rows = phase_wkv6_kernel()

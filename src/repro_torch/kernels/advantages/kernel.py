@@ -12,8 +12,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import (check_launch, check_tb, load_kernels,
-                                         mat_args)
+from repro_torch.kernels.common import (check_launch, check_tb, launch_stream,
+                                        load_kernels, mat_args, on_device)
 from repro_torch.kernels.advantages.ref import (
     discounted_return_adjoint_ref, discounted_return_ref)
 
@@ -52,8 +52,8 @@ def discounted_return_tb(base, coef, init):
     check_tb("discounted_return_tb", T, B, (base, coef), (init,))
     out = torch.empty((T, B), dtype=torch.float32, device=base.device)
     dll, fwd, _ = _launchers()
-    with torch.cuda.device(base.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(base.device):
+        stream = launch_stream(base.device)
         code = fwd(*mat_args(base), *mat_args(coef), init.data_ptr(),
                    init.stride(0), out.data_ptr(), T, B, stream)
     discounted_return_tb.launches += 1
@@ -80,8 +80,8 @@ def discounted_return_adjoint_tb(g, coef, out, init, need=(True, True,
     dinit = torch.empty((B,), dtype=torch.float32, device=dev) \
         if need[2] else None
     dll, _, adj = _launchers()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(dev):
+        stream = launch_stream(dev)
         code = adj(*mat_args(g), *mat_args(coef), *mat_args(out),
                    init.data_ptr(), init.stride(0), _ptr(dbase),
                    _ptr(dcoef), _ptr(dinit), T, B, stream)

@@ -1,16 +1,18 @@
 """Shared kernel helpers: device resolution and the CUDA build-and-load.
 
 Every kernel source lives beside its Python wrapper as
-`kernels/<name>/csrc/*.cu` with a plain C interface. At first use,
-`load_kernels()` compiles all of them with `nvcc` for `sm_90a` (one
-`nvcc -c` per source, all started together, then one link) into
-`build/repro_torch/libkernels.so` at the repository root, and loads the
-library with ctypes. The library is rebuilt when the content hash of the
-sources or flags changes. Nothing is downloaded and nothing outside the
+`kernels/<name>/csrc/*.cu` with a plain C interface, and any header it
+includes as `csrc/*.cuh`. At first use, `load_kernels()` compiles the
+`.cu` files with `nvcc` for `sm_90a` (one `nvcc -c` per source, all
+started together, then one link) into `build/repro_torch/libkernels.so`
+at the repository root, and loads the library with ctypes. The library
+is rebuilt when the content hash of the sources, headers or flags
+changes. Nothing is downloaded and nothing outside the
 repository's sources is compiled.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -39,8 +41,26 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def launch_stream(device) -> int:
+    """The raw handle of `device`'s current CUDA stream, for a launch
+    (torch.cuda.current_stream(device).cuda_stream builds a Stream object
+    first: ~5 us more of host time per launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device):
+    """Make `device` current around a launch: a no-op context where it
+    already is (entering torch.cuda.device costs ~5 us of host time)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def kernel_sources():
-    return sorted(PACKAGE_DIR.glob("kernels/*/csrc/*.cu"))
+    """Every kernel source and header (`csrc/*.cu`, `csrc/*.cuh`): the
+    build compiles the sources, and the digest covers both."""
+    return sorted([*PACKAGE_DIR.glob("kernels/*/csrc/*.cu"),
+                   *PACKAGE_DIR.glob("kernels/*/csrc/*.cuh")])
 
 
 def _nvcc() -> str:
@@ -58,7 +78,7 @@ def _nvcc() -> str:
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
-        h.update(src.name.encode())
+        h.update(src.relative_to(PACKAGE_DIR).as_posix().encode())
         h.update(src.read_bytes())
     return h.hexdigest()
 
@@ -67,10 +87,11 @@ def build_kernels() -> tuple:
     """Compile the kernel sources unless an up-to-date library exists.
     Returns (library path, compiler log); the log holds ptxas's
     register and shared-memory report of a fresh build, else is empty."""
-    sources = kernel_sources()
+    files = kernel_sources()
+    sources = [src for src in files if src.suffix == ".cu"]
     lib = BUILD_DIR / "libkernels.so"
     stamp = BUILD_DIR / "libkernels.sha256"
-    digest = _digest(sources)
+    digest = _digest(files)
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

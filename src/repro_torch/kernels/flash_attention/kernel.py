@@ -10,7 +10,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import check_launch, load_kernels
+from repro_torch.kernels.common import (check_launch, launch_stream,
+                                        load_kernels, on_device)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -75,8 +76,8 @@ def flash_attention_hsd(q, k, v, *, causal=True, window=0, valid_len=None):
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     o = out.transpose(1, 2)
     dll, fn = _launcher()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(q.device):
+        stream = launch_stream(q.device)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   _DTYPES[q.dtype], B, H, KVH, S, D, int(causal),
                   int(window), kv_end, D ** -0.5,

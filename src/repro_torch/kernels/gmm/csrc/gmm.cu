@@ -3,32 +3,44 @@
 // Replaces the Pallas TPU kernel `gmm_ecd` in
 // src/repro/kernels/gmm/kernel.py:33 (pallas_call at :42): for every
 // expert e, out[e] = x[e] @ w[e] with x (E, C, d), w (E, d, f), out
-// (E, C, f); every product and sum in f32 (inputs converted exactly, no
-// TF32), the result rounded once to x's dtype (float32 or bfloat16).
+// (E, C, f); the products of the inputs summed in f32, the result rounded
+// once to x's dtype: float32 on the CUDA cores (no TF32), bfloat16 on the
+// tensor cores.
 //
 // What bounds it on this card: in the MoE FFN of the LM serving path C
 // is the expert capacity, 8 at decode and 15 at prefill (batch 4,
 // prompt 32), while w is a whole layer's experts (64 x 2048 x 1408 bf16,
 // 369 MB). Each weight element meets at most C rows, so the call is
 // bound by reading w once from device memory: ~0.11 ms at 3.35 TB/s,
-// against ~3 us of bf16 tensor-core math or ~44 us of f32 FMAs on the
-// CUDA cores at C = 8.
+// against ~3 us of bf16 tensor-core math. A kernel that converts w to f32
+// and runs C FMAs per element on the CUDA cores spends ~44 us on them at
+// C = 8 and, fed by plain loads, reaches a third of the memory rate.
 //
-// Design: read every weight element exactly once per C-tile, straight
-// from device memory into registers, and keep all C rows of the tile in
-// registers beside it. One block of 2 warps per (128-column f-tile,
-// C-tile, expert); a thread owns two adjacent columns of f (one 4-byte
-// bf16 pair or one 8-byte f32 pair per row of w, so a warp reads 128 or
-// 256 contiguous bytes of a w row) and all BC rows of the C-tile, with
-// BC = 8, 16 or 32, the smallest that covers C (larger C takes more
-// C-tiles of 32). The x tile (BC rows x 128 of d) is staged in shared
-// memory as f32 and read as float4 broadcasts; a thread issues the loads
-// of 32 rows of w before it uses them.
-// Ragged C, d and f are masked in the kernel: no pad copy. The d sum
-// runs in order, in one thread per output: the result is the same
-// bitwise from call to call.
-// Tensor cores (mma.sync/wgmma), TMA and a persistent grid are later
-// work.
+// bfloat16, on the tensor cores, w streamed through shared memory: per
+// expert the kernel computes out^T = w^T x^T with mma.sync.m16n8k16
+// (bf16 in, f32 accumulate): f is M, C is N in tiles of 8 (decode C = 8
+// is one tile, prefill C = 15 two, masked), d is K. One block of 4 warps
+// per (128-column f-tile, C-tile of 8, 16 or 32 rows, expert); a warp
+// owns 32 columns of f. A ring of kStages shared-memory stages, each
+// kBK rows of w (kBK x 128, rows padded to keep ldmatrix free of bank
+// conflicts) and the matching kBK columns of x, is filled by cp.async
+// (16 bytes a thread, bypassing L1) kStages - 1 stages ahead of the
+// tensor cores, which read w with ldmatrix.trans (the A fragments of
+// w^T from the (d, f) row-major tile) and x with ldmatrix. At decode
+// every SM holds 3 blocks, ~150 KB of w in flight. Ragged C, d and f are
+// zero-filled in the copies; where f or d is not a multiple of 8 or a
+// pointer is not 16-byte aligned the same kernel stages the tiles with
+// plain loads. Each output is one thread's sum over d in a fixed order
+// (the tensor core's sum within each k16 step, then the steps in order):
+// bitwise the same from call to call. No split-K, no atomics.
+//
+// float32 keeps the CUDA-core kernel below: every product and sum in f32
+// (inputs exact, no TF32, as the port's f32 reference requires); a block
+// of 2 warps per (128-column f-tile, C-tile, expert), a thread owns two
+// adjacent columns of f and all BC rows of the C-tile (BC = 8, 16 or 32),
+// the x tile staged in shared memory as f32, w read straight into
+// registers 32 rows ahead. The dtype switch in gmm_ecd() below is the
+// only dispatch between the two.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,13 +53,7 @@ constexpr int kChunk = 128;           // d-chunk of x staged in shared memory
 constexpr int kBatch = 32;            // rows of w loaded ahead of their FMAs
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ float zero_of(const float*) { return 0.f; }
-__device__ __forceinline__ __nv_bfloat16 zero_of(const __nv_bfloat16*) {
-  return __float2bfloat16(0.f);
-}
 
 // A thread's two adjacent elements of a w row as loaded.
 template <typename T>
@@ -59,23 +65,6 @@ struct Pair<float> {
   static __device__ __forceinline__ float2 zero() { return make_float2(0.f, 0.f); }
   static __device__ __forceinline__ float2 make(float a, float b) {
     return make_float2(a, b);
-  }
-};
-template <>
-struct Pair<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-  static __device__ __forceinline__ float2 f32(__nv_bfloat162 v) {
-    return __bfloat1622float2(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat162 zero() {
-    return __floats2bfloat162_rn(0.f, 0.f);
-  }
-  static __device__ __forceinline__ __nv_bfloat162 make(__nv_bfloat16 a,
-                                                        __nv_bfloat16 b) {
-    __nv_bfloat162 r;
-    r.x = a;
-    r.y = b;
-    return r;
   }
 };
 
@@ -101,16 +90,6 @@ __device__ __forceinline__ void store2<float>(float* p, float a, float b,
   }
   p[0] = a;
   if (in1) p[1] = b;
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(
-    __nv_bfloat16* p, float a, float b, bool in1, bool pair) {
-  if (pair) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-    return;
-  }
-  p[0] = __float2bfloat16(a);
-  if (in1) p[1] = __float2bfloat16(b);
 }
 
 // grid (ceil(f / kCols), ceil(C / BC), E); x, w, out contiguous.
@@ -205,6 +184,217 @@ cudaError_t dispatch_bc(const void* x, const void* w, void* out, int E, int C,
   return launch_bc<T, 32>(x, w, out, E, C, d, f, stream);
 }
 
+// ---- bfloat16: tensor cores fed by a cp.async ring ----
+
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kBM = 128;          // columns of f per block (M)
+constexpr int kBK = 64;           // rows of w per stage (K)
+constexpr int kStages = 4;        // 3 stages (48 KB of w) in flight
+constexpr int kMT = kBM / (kMmaThreads / 32) / 16;  // m16 tiles per warp
+constexpr int kWS = kBM + 8;      // padded row of a stage's w tile
+constexpr int kXS = kBK + 8;      // padded row of a stage's x tile
+
+template <int NT>  // n8 tiles of C per block
+__host__ __device__ constexpr int stage_elems() {
+  return kBK * kWS + 8 * NT * kXS;
+}
+template <int NT>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return kStages * stage_elems<NT>() * 2;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, zero-filled (src unread) if !ok;
+// L2 fetches the 256-byte run around them, a block's row of w
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// acc += a (16 x 16, row) * b (16 x 8, col): bf16 products, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&acc)[4],
+                                         const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// grid (ceil(f / kBM), ceil(C / (8 NT)), E), kMmaThreads threads,
+// mma_smem_bytes<NT>() of dynamic shared memory; x, w, out contiguous.
+// kVec: f and d are multiples of 8 and x, w are 16-byte aligned, so the
+// tiles are staged by 16-byte cp.async; else by plain loads.
+template <int NT, bool kVec>
+__global__ void __launch_bounds__(kMmaThreads) gmm_bf16_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    __nv_bfloat16* __restrict__ out, int C, int d, int f) {
+  extern __shared__ __align__(16) __nv_bfloat16 ring[];
+  constexpr int BN = 8 * NT, SE = stage_elems<NT>();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int f0 = blockIdx.x * kBM, c0 = blockIdx.y * BN, e = blockIdx.z;
+  const __nv_bfloat16* we = w + int64_t(e) * d * f;
+  const __nv_bfloat16* xe = x + int64_t(e) * C * d;
+  const int ktiles = (d + kBK - 1) / kBK;
+
+  // stage s: w rows [k0, k0 + kBK) x columns [f0, f0 + kBM) as
+  // [kBK][kWS], then x rows [c0, c0 + BN) x columns [k0, k0 + kBK) as
+  // [BN][kXS]; out-of-range elements are zero
+  auto load = [&](int s, int kt) {
+    __nv_bfloat16* sw = ring + s * SE;
+    __nv_bfloat16* sx = sw + kBK * kWS;
+    const int k0 = kt * kBK;
+    if (kVec) {
+#pragma unroll
+      for (int i = 0; i < kBK * kBM / 8 / kMmaThreads; ++i) {
+        const int c = tid + i * kMmaThreads;
+        const int r = c / (kBM / 8), q = c % (kBM / 8) * 8;
+        const bool ok = k0 + r < d && f0 + q < f;
+        cp_async16(sw + r * kWS + q,
+                   ok ? we + int64_t(k0 + r) * f + f0 + q : we, ok);
+      }
+      for (int c = tid; c < BN * kBK / 8; c += kMmaThreads) {
+        const int r = c / (kBK / 8), q = c % (kBK / 8) * 8;
+        const bool ok = c0 + r < C && k0 + q < d;
+        cp_async16(sx + r * kXS + q,
+                   ok ? xe + int64_t(c0 + r) * d + k0 + q : xe, ok);
+      }
+    } else {
+      const __nv_bfloat16 zero = __float2bfloat16(0.f);
+      for (int c = tid; c < kBK * kBM; c += kMmaThreads) {
+        const int r = c / kBM, q = c % kBM;
+        sw[r * kWS + q] = k0 + r < d && f0 + q < f
+                              ? we[int64_t(k0 + r) * f + f0 + q]
+                              : zero;
+      }
+      for (int c = tid; c < BN * kBK; c += kMmaThreads) {
+        const int r = c / kBK, q = c % kBK;
+        sx[r * kXS + q] = c0 + r < C && k0 + q < d
+                              ? xe[int64_t(c0 + r) * d + k0 + q]
+                              : zero;
+      }
+    }
+  };
+
+  float acc[kMT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();  // stage kt has landed (this thread's)
+    __syncthreads();               // ... every thread's; stage kt - 1 is free
+    if (kt + kStages - 1 < ktiles)
+      load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+    const __nv_bfloat16* sw = ring + kt % kStages * SE;
+    const __nv_bfloat16* sx = sw + kBK * kWS;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      // A = w^T: lane l addresses row kk + (l & 7) + (l >> 4) * 8 of the
+      // tile at column (l >> 3 & 1) * 8 of its warp's 16-column slice
+      unsigned a[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        ldmatrix_x4_trans(a[mt], sw + (kk + (lane & 7) + (lane >> 4) * 8) * kWS
+                                     + (warp * kMT + mt) * 16
+                                     + (lane >> 3 & 1) * 8);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        unsigned b[2];  // B = x^T: rows of x, k halves kk and kk + 8
+        ldmatrix_x2(b, sx + (nt * 8 + (lane & 7)) * kXS + kk
+                           + (lane >> 3 & 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator i of a lane: f row (lane >> 2) + 8 (i >> 1), C column
+  // 2 (lane & 3) + (i & 1) of its 16 x 8 tile
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = f0 + (warp * kMT + mt) * 16 + (lane >> 2) + (i >> 1) * 8;
+        const int n = c0 + nt * 8 + (lane & 3) * 2 + (i & 1);
+        if (m < f && n < C)
+          out[(int64_t(e) * C + n) * f + m] = __float2bfloat16(acc[mt][nt][i]);
+      }
+}
+
+template <int NT, bool kVec>
+cudaError_t launch_mma(const void* x, const void* w, void* out, int E, int C,
+                       int d, int f, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<NT>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_bf16_kernel<NT, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((f + kBM - 1) / kBM, (C + 8 * NT - 1) / (8 * NT), E);
+  gmm_bf16_kernel<NT, kVec><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
+      C, d, f);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_nt(const void* x, const void* w, void* out, int E, int C,
+                      int d, int f, cudaStream_t stream) {
+  const bool vec = f % 8 == 0 && d % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(w)) % 16 == 0;
+  return vec ? launch_mma<NT, true>(x, w, out, E, C, d, f, stream)
+             : launch_mma<NT, false>(x, w, out, E, C, d, f, stream);
+}
+
+cudaError_t dispatch_bf16(const void* x, const void* w, void* out, int E,
+                          int C, int d, int f, cudaStream_t stream) {
+  if (C <= 8) return launch_nt<1>(x, w, out, E, C, d, f, stream);
+  if (C <= 16) return launch_nt<2>(x, w, out, E, C, d, f, stream);
+  return launch_nt<4>(x, w, out, E, C, d, f, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -219,7 +409,7 @@ int gmm_ecd(const void* x, const void* w, void* out, int dtype, int E, int C,
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_bc<float>(x, w, out, E, C, d, f, s);
-  if (dtype == 1) return dispatch_bc<__nv_bfloat16>(x, w, out, E, C, d, f, s);
+  if (dtype == 1) return dispatch_bf16(x, w, out, E, C, d, f, s);
   return cudaErrorInvalidValue;
 }
 

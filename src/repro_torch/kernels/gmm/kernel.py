@@ -10,7 +10,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import check_launch, load_kernels
+from repro_torch.kernels.common import (check_launch, launch_stream,
+                                        load_kernels, on_device)
 from repro_torch.kernels.gmm.ref import gmm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,8 +59,8 @@ def gmm_ecd(x, w):
     if out.numel() == 0:
         return out
     dll, fn = _launcher()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(x.device):
+        stream = launch_stream(x.device)
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   _DTYPES[x.dtype], E, C, d, f, stream)
     gmm_ecd.launches += 1

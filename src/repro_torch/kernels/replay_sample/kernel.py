@@ -2,8 +2,10 @@
 `prioritized_sample_c` and `shard_topk_c`, the ports of the Pallas kernels
 of the same names.
 
-A CUDA tensor launches the kernel (two passes, counted as one launch of
-the op) or raises; a CPU tensor takes the plain version (ref.py). Each
+A CUDA tensor launches the kernel (`prioritized_sample_c`: two passes;
+`shard_topk_c`: one select level, more for shards above 16384 slots;
+each call counted as one launch of the op) or raises; a CPU tensor takes
+the plain version (ref.py). Each
 function's `.launches` counts its launches, so a run can show that its
 main path went through the kernel. `size` and `nvalid` stay on the
 device, as the Pallas kernels take them as arrays: reading them on the
@@ -14,7 +16,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import check_launch, load_kernels
+from repro_torch.kernels.common import (check_launch, launch_stream,
+                                        load_kernels, on_device)
 from repro_torch.kernels.replay_sample.ref import (
     prioritized_sample_ref, shard_gumbel_topk_stack_ref)
 
@@ -22,6 +25,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_N = 1024                # the kernel's kMaxN
 MAX_BLOCKS = 1024           # the kernel's kMaxBlocks
 MAX_SHARDS = 65535          # the grid's y limit
+MAX_CHUNK = 4096 * 1024     # the kernel's kMaxChunk
+SELECT_TILE = 16384         # the kernel's kSelTile: one launch up to it
 
 
 @functools.cache
@@ -32,8 +37,10 @@ def _launcher():
                    _P]
     fn.restype = _I
     shard = dll.shard_topk_c
-    shard.argtypes = [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P]
+    shard.argtypes = [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P]
     shard.restype = _I
+    dll.shard_topk_workspace.argtypes = [_I, _I, _I]
+    dll.shard_topk_workspace.restype = ctypes.c_longlong
     dll.replay_sample_tile.restype = _I
     return dll, fn, dll.replay_sample_tile()
 
@@ -81,8 +88,8 @@ def prioritized_sample_c(prio, gumbel, size, n, alpha=0.6, beta=0.4,
     cand_s = ptr + word * 2 * n
     cand_i = cand_s + word * nblocks * n
     part_m = cand_i + word * nblocks * n
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(dev):
+        stream = launch_stream(dev)
         code = fn(prio.data_ptr(), gumbel.data_ptr(), size.data_ptr(), C, n,
                   float(alpha), float(beta), float(eps), cand_s, cand_i,
                   part_m, part_m + word * nblocks, idx.data_ptr(),
@@ -126,26 +133,25 @@ def shard_topk_c(prio, gumbel, nvalid, k, alpha=0.6, eps=1e-6):
     if not 1 <= k <= min(chunk, MAX_N):
         raise ValueError(f"shard_topk_c: k={k} outside [1, min(chunk={chunk}"
                          f", {MAX_N})]")
-    dll, _, tile = _launcher()
-    nblocks = -(-chunk // tile)
-    if nblocks > MAX_BLOCKS:
-        raise ValueError(f"shard_topk_c: chunk={chunk} above "
-                         f"{tile * MAX_BLOCKS} slots")
-    # one allocation of 4-byte words: outputs scores, idx (R * k each),
-    # then the workspace, the per-tile candidates' scores and indices
-    # (R * nblocks * k each)
-    buf = torch.empty((2 * R * k * (nblocks + 1),), dtype=torch.int32,
-                      device=dev)
-    scores = buf[:R * k].view(torch.float32).view(R, k)
-    idx = buf[R * k:2 * R * k].view(R, k)
-    word = buf.element_size()
-    cand_s = buf.data_ptr() + word * 2 * R * k
-    cand_i = cand_s + word * R * nblocks * k
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"shard_topk_c: chunk={chunk} above {MAX_CHUNK} "
+                         f"slots")
+    dll, _, _ = _launcher()
+    # one allocation of 4-byte words for the outputs scores, idx; the
+    # select levels before the last (shards above SELECT_TILE slots) take
+    # a workspace for their candidates
+    buf = torch.empty((2, R, k), dtype=torch.int32, device=dev)
+    scores, idx = buf[0].view(torch.float32), buf[1]
+    ws = None
+    if chunk > SELECT_TILE:
+        ws = torch.empty((dll.shard_topk_workspace(R, chunk, k),),
+                         dtype=torch.int32, device=dev)
+    with on_device(dev):
+        stream = launch_stream(dev)
         code = dll.shard_topk_c(prio.data_ptr(), gumbel.data_ptr(),
                                 nvalid.data_ptr(), R, chunk, k, float(alpha),
-                                float(eps), cand_s, cand_i,
+                                float(eps),
+                                None if ws is None else ws.data_ptr(),
                                 scores.data_ptr(), idx.data_ptr(), stream)
     shard_topk_c.launches += 1
     check_launch(dll, code, "shard_topk_c")

@@ -10,8 +10,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import (check_launch, check_tb, load_kernels,
-                                         mat_args)
+from repro_torch.kernels.common import (check_launch, check_tb, launch_stream,
+                                        load_kernels, mat_args, on_device)
 from repro_torch.kernels.vtrace.ref import vtrace_ref
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
@@ -43,8 +43,8 @@ def vtrace_tb(log_rhos, discounts, rewards, values, bootstrap,
     vs = torch.empty((T, B), dtype=torch.float32, device=dev)
     adv = torch.empty((T, B), dtype=torch.float32, device=dev)
     dll, fn = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(dev):
+        stream = launch_stream(dev)
         code = fn(*mat_args(log_rhos), *mat_args(discounts),
                   *mat_args(rewards), *mat_args(values), bootstrap.data_ptr(),
                   bootstrap.stride(0), float(clip_rho), float(clip_c),

@@ -11,7 +11,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import check_launch, load_kernels
+from repro_torch.kernels.common import (check_launch, launch_stream,
+                                        load_kernels, on_device)
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 MAX_N = MAX_CHUNK = 64
@@ -81,8 +82,8 @@ def wkv6_btHN(r, k, v, logw, u, state=None, *, chunk=64):
     if S is None:
         S = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     dll, fn = _launcher()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(r.device):
+        stream = launch_stream(r.device)
         code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
                   u.data_ptr(), None if state is None else state.data_ptr(),
                   y.data_ptr(), S.data_ptr(), B, T, H, N, chunk, stream)

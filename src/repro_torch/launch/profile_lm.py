@@ -81,7 +81,7 @@ def main(argv=None):
             wall_ms, issue_ms = _timed(fn, k)
             out[name] = dict(wall_ms=wall_ms, issue_ms=issue_ms,
                              profile=device_window(
-                                 fn, k, share_of={"gmm_ecd": "gmm_kernel",
+                                 fn, k, share_of={"gmm_ecd": "gmm_bf16_kernel",
                                                   "wkv6_btHN": "wkv6"}))
     print(json.dumps(out))
 

@@ -351,6 +351,64 @@ def test_shard_topk_matches_plain(cuda, R, chunk, nvalid, k, ties):
         assert torch.isneginf(s[r, min(n, k):]).all()
 
 
+# (R, chunk, local counts, k, kind) for the radix select's edges: a tie
+# group straddling the k-th place, shards whose filled slots all score
+# the same, k = 1024 and k = chunk, chunks one slot past a 16384-slot tile
+# (the last tile below k slots), counts of 0, 1 and k - 1, R = 1 and 7;
+# chunks above 16384 slots take more than one select level
+SELECT_CASES = [
+    (2, 10000, (10000, 2800), 64, "straddle"),
+    (4, 40000, (40000, 40000, 17000, 300), 256, "straddle"),
+    (2, 10000, (10000, 2800), 64, "equal"),
+    (3, 40000, (40000, 20000, 5), 128, "equal"),
+    (2, 20000, (20000, 5000), 1024, "random"),
+    (2, 1024, (1024, 1000), 1024, "random"),
+    (3, 1000, (1000, 500, 0), 1000, "random"),
+    (2, 16385, (16385, 16385), 64, "random"),
+    (1, 16385, (16385,), 1024, "random"),
+    (1, 32769, (32769,), 256, "straddle"),
+    (3, 5000, (0, 1, 63), 64, "random"),
+    (3, 40000, (0, 1, 255), 256, "random"),
+    (1, 10000, (10000,), 64, "random"),
+    (7, 5000, (5000, 0, 1, 4999, 2500, 63, 5000), 64, "straddle"),
+]
+
+
+def _select_inputs(R, chunk, counts, k, kind, device):
+    prio, gumbel, nv = _shard_inputs(R, chunk, counts, False, device, seed=3)
+    if kind == "equal":
+        prio.fill_(0.5)
+        gumbel.fill_(0.25)
+    elif kind == "straddle":  # 8 equal scores at ranks k-1 .. k+6
+        order = shard_gumbel_topk_stack_ref(prio, nv, gumbel, chunk)[1].long()
+        for r, n in enumerate(counts):
+            if n >= k + 24:
+                pivot = order[r, k - 1]
+                group = order[r, k + 3 * torch.arange(1, 8, device=device)]
+                prio[r, group] = prio[r, pivot].item()
+                gumbel[r, group] = gumbel[r, pivot].item()
+    return prio, gumbel, nv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,chunk,counts,k,kind", SELECT_CASES)
+def test_shard_topk_select_edges_bitwise(cuda, R, chunk, counts, k, kind):
+    """The radix select at its edges: indices and score bits equal the
+    plain version's (a stable descending sort), one op launch a call."""
+    prio, gumbel, nv = _select_inputs(R, chunk, counts, k, kind, cuda)
+    shard_topk_c.launches = 0
+    s, idx = shard_topk_c(prio, gumbel, nv, k)
+    torch.cuda.synchronize()
+    assert shard_topk_c.launches == 1
+    rs, ridx = shard_gumbel_topk_stack_ref(prio, nv, gumbel, k)
+    assert torch.equal(idx, ridx)
+    assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    if kind == "straddle":  # the tie group crosses the k-th place
+        full = shard_gumbel_topk_stack_ref(prio, nv, gumbel, k + 1)[0]
+        big = torch.tensor([n >= k + 24 for n in counts], device=cuda)
+        assert torch.equal(full[big, k - 1], full[big, k])
+
+
 @pytest.mark.cuda
 def test_shard_topk_repeats_calls_bitwise(cuda):
     prio, gumbel, nv = _shard_inputs(4, 300000, (300000, 250000, 7, 0),
@@ -456,6 +514,40 @@ def test_gmm_matches_plain(cuda, E, C, d, f, dtype):
     if dtype == "bfloat16":  # and the plain version in the working type
         torch.testing.assert_close(out.float(), gmm_ref(x, w).float(),
                                    rtol=2.0 ** -7, atol=atol)
+
+
+# (E, C, d, f) for the bf16 tensor-core kernel: C across the n8 tiles
+# (1 and 8: one, 9 and 16: two, 17 and 33: four, the last in two C-tiles),
+# d and f not multiples of 8 (plain-load staging), one expert
+GMM_BF16_EDGES = [(4, C, 256, 384) for C in (1, 8, 9, 16, 17, 33)] + [
+    (3, 20, 100, 130), (2, 9, 77, 61), (1, 15, 2048, 1408), (1, 1, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", GMM_BF16_EDGES)
+def test_gmm_bf16_edges_within_rtol_and_repeatable(cuda, E, C, d, f):
+    x, w = _gmm_inputs(E, C, d, f, torch.bfloat16, cuda)
+    out = gmm_ecd(x, w)
+    torch.cuda.synchronize()
+    assert gmm_ecd.launches == 1 and out.shape == (E, C, f)
+    ref = gmm_ref(x.float(), w.float())
+    torch.testing.assert_close(out.float(), ref, rtol=2.0 ** -8,
+                               atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(gmm_ecd(x, w), out)
+
+
+@pytest.mark.cuda
+def test_gmm_bf16_unaligned_rows(cuda):
+    """x and w contiguous but 2 bytes off a 16-byte boundary: the same
+    kernel stages them with plain loads."""
+    x, w = _gmm_inputs(4, 8, 256, 384, torch.bfloat16, cuda)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    ws = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)
+    xu, wu = xs[1:].view(x.shape), ws[1:].view(w.shape)
+    xu.copy_(x)
+    wu.copy_(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    assert torch.equal(gmm_ecd(xu, wu), gmm_ecd(x, w))
 
 
 @pytest.mark.cuda
