@@ -10,12 +10,16 @@ Phases, in order; the script exits non-zero at the first failure:
      on the card at the paths' shapes, with times for the kernel, the
      plain version and the PyTorch library call computing the same
      function where there is one (a yardstick only; the port never calls
-     it): flash attention, then the discounted-return scan, its adjoint
+     it): flash attention (f32 and bf16 at the paths' shapes, f32 ragged,
+     windowed and D = 32, 256 cases, and bf16 2048-token causal prefills
+     at the deepseek-moe-16b and smollm-360m heads, where the tensor cores
+     set the time), then the discounted-return scan, its adjoint
      and V-trace at (T, B) = (32, 32) (the training path), (32, 4096) and
      (2048, 128), then the prioritized replay draw at (C, size, n) =
      (20000, 12800, 64) (the DQN path), a full 1M-slot buffer with n = 256,
      nearly empty and empty buffers, and forced ties (indices exact,
-     weights within 1e-5; the yardstick is torch.topk over the scores);
+     weights within 1e-5, bitwise repeatable; the yardstick is
+     torch.topk over the scores);
      then the sharded replay service's per-shard draw `shard_topk_c` at
      (R, chunk, local counts, k) = (2, 10000, (10000, 2800), 64) and
      (4, 5000, (5000, 5000, 2800, 0), 64) (the replay=2 and replay=4 DQN
@@ -27,10 +31,10 @@ Phases, in order; the script exits non-zero at the first failure:
      32: decode C = 8, prefill C = 15) in bf16 and f32, ragged shapes and
      a C below the smallest tile (f32 within rtol 1e-4, bf16 against the
      f32 product within one bf16 rounding, 2^-8; the yardstick is
-     torch.bmm); the per-shard draw's and the grouped matmul's rows also
-     give the kernels' device time per call from torch.profiler
-     (`device_us`, and the library call's), beside the CUDA-event ms,
-     which counts the host's launch cost too;
+     torch.bmm); every flash, replay-draw, per-shard-draw and grouped
+     matmul row also gives the kernel's device time per call from
+     torch.profiler (`device_us`, and the library call's), beside the
+     CUDA-event ms, which counts the host's launch cost too;
   3. slice: the full-width `paper-drl-trunk` policy served through
      ServeEngine for cartpole and pendulum at 500 and 2000 offered
      requests/s, with a hot swap in every cell; the kernel's launch count
@@ -116,6 +120,10 @@ KERNEL_CASES = [SERVE_CASE, *LM_FLASH_CASES,
                 (1, 4, 1, 256, 64, True, 64),
                 (2, 2, 2, 96, 32, False, 0),
                 (1, 2, 1, 512, 256, True, 0)]
+# bf16 only: the LM models' heads at a 2048-token causal prefill, where
+# the tensor cores, not the host, set the time
+LONG_FLASH_CASES = [(1, 16, 16, 2048, 128, True, 0),  # deepseek-moe-16b
+                    (1, 15, 5, 2048, 64, True, 0)]    # smollm-360m
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SM_CLOCK_HZ = 1.98e9          # H100 SXM boost clock
 FMA_CYCLES = 4                # latency of one dependent f32 FMA
@@ -267,7 +275,8 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     cases = [(c, "float32") for c in KERNEL_CASES] + [
-        (c, "bfloat16") for c in (SERVE_CASE, *LM_FLASH_CASES)]
+        (c, "bfloat16") for c in (SERVE_CASE, *LM_FLASH_CASES,
+                                  *LONG_FLASH_CASES)]
     for (B, H, KVH, S, D, causal, window), dname in cases:
         dt = getattr(torch, dname)
         G = H // KVH
@@ -310,14 +319,18 @@ def phase_kernels():
         ms = cuda_time_ms(kernel, iters)
         plain_ms = cuda_time_ms(plain, iters)
         library_ms = cuda_time_ms(library, iters)
+        dev_us, dev_kernels = device_us(kernel)
+        library_dev_us, _ = device_us(library)
         es = torch.finfo(dt).bits // 8
         nbytes = es * (2 * B * H * S * D + 2 * B * KVH * S * D)
         ops = 4 * D * B * H * attended_pairs(S, causal, window)
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / PEAK_OPS[dname]
         row = {"shape": [B, H, KVH, S, D], "causal": causal,
                "window": window, "dtype": dname, "max_abs_err": err,
-               "tol": TOL[dname], "ms": ms, "plain_ms": plain_ms,
+               "tol": TOL[dname], "ms": ms, "device_us": dev_us,
+               "device_kernels": dev_kernels, "plain_ms": plain_ms,
                "library_ms": library_ms,
+               "library_device_us": library_dev_us,
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops}
@@ -446,10 +459,15 @@ def phase_replay_kernel():
                     + REPLAY_TOL * rw.abs()).all()),
               f"prioritized_sample_c {(C, size, n, ties)}: weights outside "
               f"rtol = atol = {REPLAY_TOL} (max_abs_err {err})")
+        check(all(torch.equal(a, b) for a, b in zip(kernel(), (idx, w))),
+              f"prioritized_sample_c {(C, size, n, ties)}: not bitwise "
+              f"repeatable")
         iters = 20 if C > 100000 else 100
         ms = cuda_time_ms(kernel, iters)
         plain_ms = cuda_time_ms(plain, iters)
         library_ms = cuda_time_ms(library, iters)
+        dev_us, dev_kernels = device_us(kernel)
+        library_dev_us, _ = device_us(library)
         # the draw reads p and g of the filled slots (and size) and writes
         # idx and w; per filled slot ~6 f32 operations (log, mul, add,
         # exp, sub, add)
@@ -458,7 +476,9 @@ def phase_replay_kernel():
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / PEAK_OPS["float32"]
         row = {"name": "prioritized_sample_c", "shape": [C, size, n],
                "ties": ties, "max_abs_err": err, "tol": REPLAY_TOL,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "ms": ms, "device_us": dev_us, "device_kernels": dev_kernels,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_us": library_dev_us,
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops}

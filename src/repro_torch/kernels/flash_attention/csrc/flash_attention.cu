@@ -3,36 +3,66 @@
 // Replaces the Pallas TPU kernel `flash_attention_hsd` in
 // src/repro/kernels/flash_attention/kernel.py:77 (pallas_call at :96):
 // online-softmax grouped-query attention, query head h reads kv head
-// h / G, scale D^-0.5 applied to q, masks `causal` (kpos <= qpos),
-// `window` (kpos > qpos - window) and `valid_len` (kpos < valid_len),
-// f32 accumulation, output in q's dtype.
+// h / G, scale D^-0.5, masks `causal` (kpos <= qpos), `window` (kpos >
+// qpos - window) and `valid_len` (kpos < valid_len), f32 accumulation,
+// output in q's dtype. The kernel reads the model's (B, S, KVH, G, D)
+// layout through strides, masks the ragged edge itself and allocates
+// nothing: one launch, no padding copy, no transposes, no scratch. Each
+// row only visits keys in [window lower limit, causal upper limit), and a
+// block's tile loop runs over the union of its rows' ranges, so fully
+// masked tiles are never loaded.
 //
-// What bounds it on this card: at the serving shape of the policy trunk
-// (B = bucket <= 32, H = 4, S = 4, D = 64) one call reads and writes a few
-// tens of KB and does well under a MFLOP, so neither bytes nor operations
-// bound it: launch latency does. The design answers that by doing the
-// whole attention in ONE launch with no padding copy, no transposes and
-// no scratch: the kernel reads the model's (B, S, KVH, G, D) layout
-// through strides, masks the ragged edge itself (S = 4 sits far below a
-// tile), and allocates nothing. At long S it is bound by the CUDA-core
-// f32 FMA rate (no tensor cores yet); making it fast there is later work.
+// bfloat16, on the tensor cores (flash_fwd_tc): what bounds it on this
+// card is, at the LM prefill path's shapes (batch 4, prompt 32), neither
+// bytes (0.2-0.6 us at 3.35 TB/s) nor operations (~0.02 us at the bf16
+// peak) but the latency of one short block; at a 2048-token prefill, the
+// tensor cores (4 D S^2 H / 2 operations, 8-17 us at 989 TFLOP/s against
+// ~1 us of bytes). One block per (kv head, batch, query tile): its rows
+// are (query, head) pairs r = qpos * G + g of the G query heads that read
+// that kv head, so K/V are staged once per group and query tile, not G
+// times; a group of at most 128 rows (S = 32 at G <= 3) is one block of
+// 8 warps. Warp w owns rows 16w..16w+15 and computes S = Q K^T and O +=
+// P V as mma.sync.m16n8k16 (bf16 in, f32 sums). Q is staged once; K and V
+// tiles of BN keys come in by 16-byte cp.async into shared-memory rows
+// padded by 16 bytes (ldmatrix reads 8 rows in 8 distinct bank groups),
+// double-buffered: tile i + 1 loads while tile i is computed. K's
+// fragments come by ldmatrix, V's by ldmatrix.trans, Q's once into
+// registers or per tile from shared memory (QR). The online softmax (FA2)
+// runs on the S accumulators in f32 registers: each lane holds two rows,
+// the row max and sum reduce over the 4 lanes of a quad, exponentials are
+// ex2.approx of scores in log2 units, O is rescaled only when a row max
+// moved. P is rounded to bf16 for the P V product, as in any tensor-core
+// flash kernel (the row sum l is of the f32 p); the scale is applied to
+// the f32 scores (the reference scales q before the product: the two
+// round apart). A warp skips a tile outside all its rows' ranges; masks
+// are applied only to tiles that cross a row's range edge. The blocks
+// start from the last query tile down, the heaviest under a causal mask
+// first. Longer groups take per-head-dim tiles (dispatch_tc_d): 4 warps
+// and 128 keys at D = 32, 8 warps and 128 keys at D = 64, 4 warps and 64
+// keys at D = 128 (Q from shared memory, 3 blocks an SM) and D = 256.
+// Inputs whose base or strides are not 16-byte multiples (cp.async needs
+// them), or more than 65535 query tiles per group, take the CUDA-core
+// kernel below in bf16.
 //
-// Design: one thread block of 4 warps per (query tile of 16 rows, head,
-// batch). Warp w owns rows w, w+4, w+8, w+12 of the tile, so a tiny S
-// still spreads over the warps. K/V tiles of 32 keys are staged in
-// dynamic shared memory as f32 (D = 256 needs ~80 KB, above the 48 KB
+// float32 keeps the CUDA-core kernel (flash_fwd), unchanged: every
+// product and sum f32 on the CUDA cores (no TF32, as the port's f32
+// reference requires). At the policy trunk's serving shape (B = bucket <=
+// 32, H = 4, S = 4, D = 64) one call moves a few tens of KB and launch
+// latency bounds it. One thread block of 4 warps per (query tile of 16
+// rows, head, batch); warp w owns rows w, w+4, w+8, w+12 of the tile, so
+// a tiny S still spreads over the warps. K/V tiles of 32 keys are staged
+// in dynamic shared memory as f32 (D = 256 needs ~80 KB, above the 48 KB
 // static limit). For the scores, lane j owns key j of the tile and dots
 // it with each of the warp's rows (K rows padded to D+1 floats so the 32
 // lanes hit 32 banks); the row max and row sum are warp reductions with
 // __shfl_xor_sync. For P.V, lane i owns D/32 output columns and takes
 // each p_j from lane j with __shfl_sync. The running (m, l, acc) live in
-// f32 registers. Every product and sum is f32 on the CUDA cores (no
-// TF32). Each row only visits keys in [window lower limit, causal upper
-// limit), and the tile loop of a block runs over the union of its rows'
-// ranges, so masked blocks are never loaded.
+// f32 registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../shared/csrc/sm90.cuh"
 
 namespace {
 
@@ -226,28 +256,339 @@ cudaError_t dispatch_d(const Args& a, int B, int D, cudaStream_t stream) {
   }
 }
 
+// ---- bfloat16: tensor cores, K/V staged once per kv-head group ----
+
+// 2^x on the special-function unit (x = -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A block of W warps, each owning 16 rows, takes keys in tiles of BN,
+// double-buffered; Q's fragments stay in registers when QR; MB blocks
+// share an SM.
+template <int D, int W, int BN, bool QR, int MB>
+struct Tc {
+  static constexpr int kThreads = W * 32;
+  static constexpr int BM = W * 16;  // (query, head) rows per block
+  static constexpr int RS = D + 8;   // padded smem row, elements
+  // Q [BM][RS], then 2 stages of K [BN][RS] and V [BN][RS]
+  static constexpr int kSmem = (BM + 4 * BN) * RS * 2;
+};
+
+template <int D, int W, int BN, bool QR, int MB>
+__global__ void __launch_bounds__(W * 32, MB) flash_fwd_tc(Args a) {
+  using T = Tc<D, W, BN, QR, MB>;
+  constexpr int BM = T::BM, RS = T::RS, NT = T::kThreads;
+  constexpr int KD = D / 16;  // k16 steps over D (S = Q K^T)
+  constexpr int NK = BN / 8;  // n8 tiles of keys
+  constexpr int ND = D / 8;   // n8 tiles of D (O)
+  constexpr int CH = D / 8;   // 16-byte chunks per row
+  extern __shared__ __align__(16) __nv_bfloat16 tc_smem[];
+  __nv_bfloat16* sQ = tc_smem;
+  __nv_bfloat16* sKV = sQ + BM * RS;  // stage s: K at s * 2 BN RS, V after
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.H / a.KVH;
+  const int M = a.S * G;  // rows of the group, r = qpos * G + g
+  // grid (KVH, B, query tiles): the blocks start in order of their linear
+  // index, so the last query tiles, the heaviest under a causal mask, go
+  // first and the light ones fill in behind them
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * BM;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) +
+                           b * a.q_b + int64_t(kvh) * G * a.q_h;
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(a.k) + b * a.k_b + kvh * a.k_h;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(a.v) + b * a.v_b + kvh * a.v_h;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_b +
+                     int64_t(kvh) * G * a.o_h;
+
+  // key range [lo, hi) of a query position; both grow with qpos
+  auto lo_of = [&](int qpos) {
+    return a.window > 0 ? max(0, qpos - a.window + 1) : 0;
+  };
+  auto hi_of = [&](int qpos) {
+    return a.causal ? min(qpos + 1, a.kv_end) : a.kv_end;
+  };
+  const int blk_lo = lo_of(r0 / G);
+  const int blk_hi = hi_of((min(r0 + BM, M) - 1) / G);
+  const int ntiles = blk_hi > blk_lo ? (blk_hi - blk_lo + BN - 1) / BN : 0;
+
+  // Q rows r0 .. r0 + BM (zero past M)
+  for (int c = tid; c < BM * CH; c += NT) {
+    const int r = c / CH, d = c % CH * 8, row = r0 + r;
+    const bool ok = row < M;
+    const int qpos = row / G;
+    sm90::cp_async16<false>(
+        sQ + r * RS + d,
+        ok ? q + (row - qpos * G) * a.q_h + qpos * a.q_s + d : q, ok);
+  }
+  // K/V tiles: thread tid copies chunk d0 of rows j0 + i * kStep, i < kPer
+  // (its row and column fixed, so a tile's copies cost an add each)
+  constexpr int kStep = NT / CH, kPer = BN / kStep;
+  static_assert(NT % CH == 0 && BN % kStep == 0, "tile copy split");
+  const int j0 = tid / CH, d0 = tid % CH * 8;
+  const __nv_bfloat16* kt = k + j0 * a.k_s + d0;
+  const __nv_bfloat16* vt = v + j0 * a.v_s + d0;
+  const int64_t k_step = kStep * a.k_s, v_step = kStep * a.v_s;
+  __nv_bfloat16* const sKt = sKV + j0 * RS + d0;
+  auto load_kv = [&](int stage, int t0) {
+    __nv_bfloat16* sK = sKt + stage * 2 * BN * RS;
+    const __nv_bfloat16* kp = kt + t0 * a.k_s;
+    const __nv_bfloat16* vp = vt + t0 * a.v_s;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const bool ok = t0 + j0 + i * kStep < blk_hi;
+      sm90::cp_async16<false>(sK + i * kStep * RS, ok ? kp + i * k_step : k,
+                              ok);
+      sm90::cp_async16<false>(sK + (BN + i * kStep) * RS,
+                              ok ? vp + i * v_step : v, ok);
+    }
+  };
+  if (ntiles > 0) load_kv(0, blk_lo);  // one group with Q
+  sm90::cp_async_commit();
+
+  // this warp's rows wr0 .. w_last and their key ranges
+  const int wr0 = r0 + warp * 16;
+  const bool warp_on = wr0 < M;
+  const int w_last = min(wr0 + 16, M) - 1;
+  const int w_lo = lo_of(wr0 / G), w_hi = hi_of(w_last / G);
+  const int w_maxlo = lo_of(w_last / G), w_minhi = hi_of(wr0 / G);
+  // this lane's two rows, lane / 4 and lane / 4 + 8 of the warp's 16
+  int lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr0 + (lane >> 2) + 8 * i;
+    lo[i] = row < M ? lo_of(row / G) : 0;
+    hi[i] = row < M ? hi_of(row / G) : 0;
+  }
+  const float sl2 = a.scale * 1.4426950408889634f;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  unsigned qf[QR ? KD : 1][4];
+  const __nv_bfloat16* sQw =
+      sQ + (warp * 16 + (lane & 7) + (lane >> 3 & 1) * 8) * RS + (lane >> 4) * 8;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = blk_lo + it * BN;
+    if (it + 1 < ntiles) load_kv((it + 1) & 1, t0 + BN);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();  // Q and tile it have landed (this thread's)
+    __syncthreads();           // ... every thread's
+    if (QR && it == 0) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+        sm90::ldmatrix_x4(qf[QR ? kd : 0], sQw + kd * 16);
+    }
+    if (warp_on && t0 < w_hi && t0 + BN > w_lo) {  // warp-uniform
+      const __nv_bfloat16* sK = sKV + (it & 1) * 2 * BN * RS;
+      const __nv_bfloat16* sV = sK + BN * RS;
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        unsigned qa[4];
+        if (QR) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[QR ? kd : 0][e];
+        } else {
+          sm90::ldmatrix_x4(qa, sQw + kd * 16);
+        }
+#pragma unroll
+        for (int n = 0; n < NK; n += 2) {
+          // lanes 0-15: keys 8n.. at d halves 16kd, 16kd + 8; 16-31: 8n + 8..
+          unsigned kb[4];
+          sm90::ldmatrix_x4(kb, sK + (n * 8 + (lane & 7) + (lane >> 4) * 8) * RS
+                                    + kd * 16 + (lane >> 3 & 1) * 8);
+          const unsigned b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+          sm90::mma_bf16(s[n], qa, b0);
+          sm90::mma_bf16(s[n + 1], qa, b1);
+        }
+      }
+      // mask where the tile crosses a row's range edge; online softmax
+      const bool masked = t0 < w_maxlo || t0 + BN > w_minhi;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, key = t0 + n * 8 + (lane & 3) * 2 + (e & 1);
+          if (masked && (key < lo[i] || key >= hi[i])) s[n][e] = -INFINITY;
+          mx[i] = fmaxf(mx[i], s[n][e]);
+        }
+      float ref[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        // scaled row max; a row with no key yet subtracts 0
+        ref[i] = m_new == -INFINITY ? 0.f : m_new * sl2;
+        alpha[i] = ex2(m[i] * sl2 - ref[i]);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+      // rescale O only where a row max moved (warp-uniform vote)
+      if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      }
+      // P in bf16: the S accumulators of key tiles 2j, 2j + 1 are the A
+      // fragment of key step j of O += P V
+      unsigned pa[BN / 16][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float p0 = ex2(fmaf(s[n][2 * i], sl2, -ref[i]));
+          const float p1 = ex2(fmaf(s[n][2 * i + 1], sl2, -ref[i]));
+          l[i] += p0 + p1;
+          pa[n >> 1][(n & 1) * 2 + i] = sm90::pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          // lanes 0-7 keys 16j.., 8-15 keys 16j + 8..; 16-31 the next 8 d
+          unsigned vb[4];
+          sm90::ldmatrix_x4_trans(
+              vb, sV + (j * 16 + (lane & 7) + (lane >> 3 & 1) * 8) * RS
+                      + n * 8 + (lane >> 4) * 8);
+          const unsigned b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
+          sm90::mma_bf16(acc[n], pa[j], b0);
+          sm90::mma_bf16(acc[n + 1], pa[j], b1);
+        }
+      }
+    }
+    __syncthreads();  // stage it & 1 is free for tile it + 2
+  }
+  sm90::cp_async_wait<0>();
+  if (!warp_on) return;
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr0 + (lane >> 2) + 8 * i;
+    if (row >= M) continue;
+    const int qpos = row / G;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    __nv_bfloat16* orow =
+        o + (row - qpos * G) * a.o_h + qpos * a.o_s + (lane & 3) * 2;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<unsigned*>(orow + n * 8) =
+          sm90::pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+template <int D, int W, int BN, bool QR, int MB>
+cudaError_t launch_tc(const Args& a, int B, cudaStream_t stream) {
+  using T = Tc<D, W, BN, QR, MB>;
+  static bool configured = false;  // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(flash_fwd_tc<D, W, BN, QR, MB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::kSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int64_t tiles = (int64_t(a.S) * (a.H / a.KVH) + T::BM - 1) / T::BM;
+  if (tiles > 65535) return launch<__nv_bfloat16, D>(a, B, stream);  // grid z
+  const dim3 grid(a.KVH, B, unsigned(tiles));
+  flash_fwd_tc<D, W, BN, QR, MB><<<grid, T::kThreads, T::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Tiles (W, BN, QR, MB) by head dim, from a sweep at 2048-token causal
+// prefills (launch/profile_flash_tiles.py): a group whose rows fit 128
+// (the LM prefill path: S = 32, G <= 3) is one block of 8 warps; a longer
+// one takes its head dim's tiles below. A block of 8 warps (128 rows)
+// halves the K/V copies of 4 but was no faster at D = 128; nor were more
+// stages or 32 rows a warp.
+template <int D>
+cudaError_t dispatch_tc_d(const Args& a, int B, cudaStream_t stream) {
+  if (int64_t(a.S) * (a.H / a.KVH) <= 128)
+    return launch_tc<D, 8, D <= 128 ? 64 : 32, D <= 128, 1>(a, B, stream);
+  if constexpr (D == 32) return launch_tc<D, 4, 128, true, 2>(a, B, stream);
+  if constexpr (D == 64) return launch_tc<D, 8, 128, true, 1>(a, B, stream);
+  if constexpr (D == 128) return launch_tc<D, 4, 64, false, 3>(a, B, stream);
+  if constexpr (D == 256) return launch_tc<D, 4, 64, false, 1>(a, B, stream);
+  return cudaErrorInvalidValue;
+}
+
+// cp.async moves 16-byte pieces: every base and stride a multiple of 16
+// bytes (8 elements); the output's rows are written as bf16 pairs
+bool tc_aligned(const Args& a) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(a.q) |
+                      reinterpret_cast<uintptr_t>(a.k) |
+                      reinterpret_cast<uintptr_t>(a.v) |
+                      reinterpret_cast<uintptr_t>(a.o);
+  const int64_t st = a.q_b | a.q_h | a.q_s | a.k_b | a.k_h | a.k_s | a.v_b |
+                     a.v_h | a.v_s | a.o_b | a.o_h | a.o_s;
+  return p % 16 == 0 && st % 8 == 0;
+}
+
+cudaError_t dispatch_tc(const Args& a, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 32: return dispatch_tc_d<32>(a, B, stream);
+    case 64: return dispatch_tc_d<64>(a, B, stream);
+    case 128: return dispatch_tc_d<128>(a, B, stream);
+    case 256: return dispatch_tc_d<256>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// The launch arguments, packed by the caller (kernel.py's PARAMS: little
+// endian, no padding; the layout below has none on x86-64).
+struct FlashParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int dtype, B, H, KVH, S, D, causal, window, kv_end;
+  float scale;
+  int64_t q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
+};
+static_assert(sizeof(FlashParams) == 168, "FlashParams is packed");
+
 // dtype: 0 = float32, 1 = bfloat16; scale is D^-0.5 as the caller
-// rounds it to f32 (the reference multiplies q by it). Launches on `stream`, allocates
-// nothing, and returns cudaGetLastError() after the launch (or
-// cudaErrorInvalidValue for a head dim or dtype it does not take).
-int flash_attention_hsd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int H, int KVH, int S, int D,
-                        int causal, int window, int kv_end, float scale,
-                        int64_t q_b,
-                        int64_t q_h, int64_t q_s, int64_t k_b, int64_t k_h,
-                        int64_t k_s, int64_t v_b, int64_t v_h, int64_t v_s,
-                        int64_t o_b, int64_t o_h, int64_t o_s, void* stream) {
-  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || S <= 0)
+// rounds it to f32; element strides of the batch, head and sequence dims
+// (the head dim is contiguous). Launches on `stream`, allocates nothing,
+// and returns cudaGetLastError() after the launch (or
+// cudaErrorInvalidValue for a head dim, dtype or shape it does not take).
+int flash_attention_hsd(const FlashParams* p, void* stream) {
+  if (p->B <= 0 || p->H <= 0 || p->KVH <= 0 || p->H % p->KVH != 0 ||
+      p->S <= 0)
     return cudaErrorInvalidValue;
-  Args a{q, k, v, o, H, KVH, S, kv_end, causal, window, scale,
-         q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s};
+  Args a{p->q,   p->k,   p->v,   p->o,   p->H,   p->KVH, p->S,
+         p->kv_end, p->causal, p->window, p->scale, p->q_b, p->q_h,
+         p->q_s, p->k_b, p->k_h, p->k_s, p->v_b, p->v_h, p->v_s,
+         p->o_b, p->o_h, p->o_s};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(a, B, D, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, B, D, s);
+  if (p->dtype == 0) return dispatch_d<float>(a, p->B, p->D, s);
+  if (p->dtype == 1)
+    return tc_aligned(a) ? dispatch_tc(a, p->B, p->D, s)
+                         : dispatch_d<__nv_bfloat16>(a, p->B, p->D, s);
   return cudaErrorInvalidValue;
 }
 

@@ -3,10 +3,17 @@
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the
 plain version (ref.py). `flash_attention_hsd.launches` counts kernel
-launches, so a run can show that its main path went through the kernel.
+launches (both entries below), so a run can show that its main path went
+through the kernel.
+
+The launch arguments go to the C side as one packed struct (the layout
+of `FlashParams` in the source): one ctypes argument instead of 27 cuts
+the host time per call, which at the LM prefill shapes is what the
+call's time is made of (launch/profile_host_cost.py).
 """
 import ctypes
 import functools
+import struct
 
 import torch
 
@@ -16,17 +23,83 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# FlashParams: q, k, v, o; dtype, B, H, KVH, S, D, causal, window, kv_end;
+# scale; the (b, h, s) element strides of q, k, v, o
+PARAMS = struct.Struct("<4Q9if12q")
 
 
 @functools.cache
 def _launcher():
     dll = load_kernels()
     fn = dll.flash_attention_hsd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] + [ctypes.c_int64] * 12
-                   + [ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return dll, fn
+
+
+def _no_grad(q, k, v):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        # the kernel writes through ctypes: its output has no grad_fn, so
+        # running it here would train without an attention gradient
+        raise RuntimeError(
+            "flash_attention_hsd: q, k or v requires grad, but the "
+            "flash-attention backward kernel is not ported yet (it comes "
+            "with --policy trunk training, ROADMAP queue 1 item 9); run "
+            "under torch.no_grad() / inference_mode, or use "
+            "use_kernels=False to train")
+
+
+def _check_common(q, k, v, B, H, KVH, D, last_strides):
+    """The checks both entries share; returns the kernel's dtype code."""
+    if H % KVH:
+        raise ValueError(f"flash_attention_hsd: {H} query heads do not "
+                         f"group over {KVH} kv heads")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_hsd: head dim {D} not in "
+                         f"{HEAD_DIMS}")
+    dt = _DTYPES.get(q.dtype)
+    if dt is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_hsd: dtypes {q.dtype}, {k.dtype},"
+                         f" {v.dtype}; expected all float32 or all bfloat16")
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("flash_attention_hsd: q, k, v on different devices")
+    if last_strides != (1, 1, 1):
+        raise ValueError("flash_attention_hsd: the head dim must be "
+                         "contiguous")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention_hsd: grid dims B={B}, H={H} "
+                         f"exceed 65535")
+    return dt
+
+
+def _check(q, k, v, valid_len):
+    """Raise on what the kernel does not take for (B,H,S,D) q and
+    (B,KVH,S,D) k, v; returns (dtype code, kv_end), kv_end the end of the
+    keys any row may attend."""
+    _no_grad(q, k, v)
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    if k.shape != (B, KVH, S, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention_hsd: q {tuple(q.shape)} needs "
+                         f"k, v of shape (B,KVH,S,D); got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    dt = _check_common(q, k, v, B, H, KVH, D,
+                       (q.stride(-1), k.stride(-1), v.stride(-1)))
+    kv_end = S if valid_len is None else min(int(valid_len), S)
+    if kv_end < 1:
+        raise ValueError(f"flash_attention_hsd: valid_len {valid_len} "
+                         f"leaves no key to attend")
+    return dt, kv_end
+
+
+def _launch(params, device):
+    dll, fn = _launcher()
+    with on_device(device):
+        code = fn(params, launch_stream(device))
+    flash_attention_hsd.launches += 1
+    check_launch(dll, code, "flash_attention_hsd")
 
 
 def flash_attention_hsd(q, k, v, *, causal=True, window=0, valid_len=None):
@@ -37,55 +110,57 @@ def flash_attention_hsd(q, k, v, *, causal=True, window=0, valid_len=None):
     if not q.is_cuda:
         return attention_ref(q, k, v, causal=causal, window=window,
                              valid_len=valid_len)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        # the kernel writes through ctypes: its output has no grad_fn, so
-        # running it here would train without an attention gradient
-        raise RuntimeError(
-            "flash_attention_hsd: q, k or v requires grad, but the "
-            "flash-attention backward kernel is not ported yet (it comes "
-            "with --policy trunk training, ROADMAP queue 1 item 9); run "
-            "under torch.no_grad() / inference_mode, or use "
-            "use_kernels=False to train")
+    dt, kv_end = _check(q, k, v, valid_len)
     B, H, S, D = q.shape
-    KVH = k.shape[1]
-    if k.shape != (B, KVH, S, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_hsd: q {tuple(q.shape)} needs "
-                         f"k, v of shape (B,KVH,S,D); got {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if H % KVH:
-        raise ValueError(f"flash_attention_hsd: {H} query heads do not "
-                         f"group over {KVH} kv heads")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_hsd: head dim {D} not in "
-                         f"{HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention_hsd: dtypes {q.dtype}, {k.dtype},"
-                         f" {v.dtype}; expected all float32 or all bfloat16")
-    if not (k.device == q.device == v.device):
-        raise ValueError("flash_attention_hsd: q, k, v on different devices")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention_hsd: the head dim must be "
-                         "contiguous")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"flash_attention_hsd: grid dims B={B}, H={H} "
-                         f"exceed 65535")
-    kv_end = S if valid_len is None else min(int(valid_len), S)
-    if kv_end < 1:
-        raise ValueError(f"flash_attention_hsd: valid_len {valid_len} "
-                         f"leaves no key to attend")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    o = out.transpose(1, 2)
-    dll, fn = _launcher()
-    with on_device(q.device):
-        stream = launch_stream(q.device)
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  _DTYPES[q.dtype], B, H, KVH, S, D, int(causal),
-                  int(window), kv_end, D ** -0.5,
-                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  *o.stride()[:3], stream)
-    flash_attention_hsd.launches += 1
-    check_launch(dll, code, "flash_attention_hsd")
-    return o
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    _launch(PARAMS.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dt, B, H,
+        k.shape[1], S, D, int(causal), int(window), kv_end, D ** -0.5,
+        qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        S * H * D, D, H * D), q.device)
+    return out.transpose(1, 2)
 
 
 flash_attention_hsd.launches = 0
+
+
+def grouped_params(qg, k, v, out, causal, window):
+    """Check the model layout, qg (B,S,KVH,G,D) and k, v, out
+    (B,S,KVH,D), (B,S,KVH,G,D) with out contiguous, and pack the launch
+    arguments: query head h = kvh * G + g reads kv head kvh, and the
+    strides index the tensors as they lie (no view, no copy). Returns
+    None where q's (KVH, G) dims do not fold into one head stride."""
+    _no_grad(qg, k, v)
+    B, S, KVH, G, D = qg.shape
+    if k.shape != (B, S, KVH, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: qg {tuple(qg.shape)} needs k, v "
+                         f"of shape (B,S,KVH,D); got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    H = KVH * G
+    qs, ks, vs = qg.stride(), k.stride(), v.stride()
+    dt = _check_common(qg, k, v, B, H, KVH, D, (qs[4], ks[3], vs[3]))
+    if G == 1:
+        q_h = qs[2]
+    elif KVH == 1 or qs[2] == G * qs[3]:
+        q_h = qs[3]
+    else:
+        return None
+    return PARAMS.pack(
+        qg.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dt, B, H,
+        KVH, S, D, int(causal), int(window), S, D ** -0.5,
+        qs[0], q_h, qs[1], ks[0], ks[2], ks[1], vs[0], vs[2], vs[1],
+        S * H * D, D, H * D)
+
+
+def flash_attention_grouped(qg, k, v, *, causal=True, window=0):
+    """The kernel on the model layout: qg (B,S,KVH,G,D), k, v (B,S,KVH,D)
+    CUDA tensors with a contiguous head dim. Returns (B,S,KVH,G,D) in
+    qg's dtype."""
+    out = torch.empty_like(qg, memory_format=torch.contiguous_format)
+    params = grouped_params(qg, k, v, out, causal, window)
+    if params is None:  # (KVH, G) do not fold: a copy that does
+        qg = qg.contiguous()
+        params = grouped_params(qg, k, v, out, causal, window)
+    _launch(params, qg.device)
+    return out

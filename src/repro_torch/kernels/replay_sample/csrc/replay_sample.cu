@@ -1,7 +1,8 @@
-// Fused prioritized replay draw (Gumbel-top-k) for Hopper (sm_90a), plain
-// CUDA C++.
+// Fused prioritized replay draws (Gumbel-top-k) for Hopper (sm_90a), plain
+// CUDA C++: the flat buffer's draw and the sharded replay service's
+// per-shard draw, both a radix select.
 //
-// Replaces the Pallas TPU kernel `prioritized_sample_c` in
+// `prioritized_sample_c` replaces the Pallas TPU kernel of that name in
 // src/repro/kernels/replay_sample/kernel.py:128 (pallas_call at :137): from
 // raw priorities p and standard Gumbel noise g (C,) f32 and the filled
 // count `size` (an int32 in device memory),
@@ -14,36 +15,6 @@
 //     w_j      = (nvalid * exp(l_idx_j - m) / Z + 1e-12)^(-beta), over
 //                max_j w_j,  m = max l,  Z = sum_i exp(l_i - m)
 //
-// What bounds it on this card: bytes. It must read 8 bytes per filled slot
-// (p and g) and write 8n; at C = 1M that is 8 MB, 2.5 us at 3.35 TB/s.
-// The Pallas kernel keeps the whole (1, C) vector resident in VMEM and runs
-// n rounds of argmax over it; 4 MB does not fit one SM's shared memory, so
-// this kernel runs two passes:
-//
-//   Pass 1, one block per tile of kTile slots: the block reads its tile
-//     once (slots past nvalid are never read), keeps logits and scores in
-//     shared memory, writes its partial (m_b, s_b = sum exp(l - m_b)) and
-//     its top n (score, global index) candidates in (score desc, index
-//     asc) order. The selection is n rounds of a block-wide argmax; each
-//     thread caches the best of its own slots and only the round's winner
-//     rescans, so a round costs one block reduction. A tile with fewer
-//     than n filled slots lists its -inf slots in index order, as a stable
-//     sort would.
-//   Pass 2, one block: a k-way merge of the per-tile lists, one list per
-//     thread, n rounds of a block-wide argmax over the list heads under the
-//     same (score desc, index asc) order. Comparing on the global index
-//     makes the merge exact whatever order the blocks ran in. Then the
-//     surplus rule, Z = sum_b s_b exp(m_b - m) in fixed block order (no
-//     float atomics: the result is deterministic), the chosen logits
-//     recomputed from p and the normalized weights.
-//
-// Numerics: logits and scores use __fmul_rn / __fadd_rn, which nvcc never
-// contracts into an FMA, so they round exactly as the plain PyTorch version
-// (two roundings, logf) does and the indices agree bitwise. Z is summed in
-// another order than the plain version, so weights agree to rounding.
-// Limits (checked by the launcher): n <= kMaxN, C <= kTile * kMaxBlocks
-// (4M slots; the reference's capacities reach 1M).
-//
 // `shard_topk_c` (replacing the Pallas `shard_topk_c`, kernel.py:104,
 // pallas_call at :113) is the sharded replay service's per-shard draw: per
 // shard, from its LOCAL filled count (no max(., 1) guard), the top k of
@@ -52,11 +23,12 @@
 // stand-in is a TPU workaround that its ops.py turns back into -inf). No
 // weights, no surplus rule. One call covers all R shards.
 //
-// What bounds it on this card: bytes, 8 per filled slot read plus 8 per
-// candidate written (31 ns at the replay=2 path shape, 5.7 us at four 1M
-// slot shards). The draw above picks its n by n rounds of block argmax;
-// at k = 64 to 256 those serial rounds, not the bytes, set the time, so
-// the per-shard draw is a radix select instead, with no per-pick rounds:
+// What bounds both on this card: bytes, 8 per filled slot read (p and g)
+// plus 8 per pick written (31 ns at the DQN path shapes, 2.5 us for a 1M
+// slot buffer, 5.7 us at four 1M-slot shards). The Pallas kernels keep the
+// whole vector resident in VMEM and run n rounds of argmax over it; n
+// serial rounds of a block-wide argmax would set the time here, so both
+// draws are one radix select with no per-pick rounds:
 //
 //   Each slot gets a unique 64-bit order key: the score mapped to an
 //   order-preserving uint32 (sign flip; -0.0 as +0.0; NaN above +inf, as
@@ -74,12 +46,37 @@
 //   k keys at or above the k-th are gathered (a shared counter gives each
 //   its slot); the last level ranks each by counting the larger keys
 //   among the k and writes it at its rank.
-//   A shard of at most kSelTile slots (both DQN path shapes) is one block:
-//   one launch, no workspace. A larger shard runs one block per tile that
-//   writes its k candidates (score, index) unsorted to a workspace,
-//   padded with index -1 where a tile holds fewer than k slots, then the
-//   same select over the candidates, kSelTile per block, until one block
-//   holds them all: two launches at 1M slots, three at 4M with k = 1024.
+//   A shard of at most kSelTile slots (both replay-plan path shapes) is
+//   one block: one launch, no workspace. A larger shard runs one block
+//   per tile that writes its k candidates (score, index) unsorted to a
+//   workspace, padded with index -1 where a tile holds fewer than k slots,
+//   then the same select over the candidates, kSelTile per block, until
+//   one block holds them all: two launches at 1M slots, three at 4M with
+//   k = 1024.
+//
+//   The flat draw is the select's R = 1 case over the C slots, its count
+//   max(size, 1) read on the device (the host never reads size: a draw
+//   syncs nothing). Its first level also writes each tile's partial
+//   (m_b, s_b = sum exp(l - m_b)) over its filled slots: each thread keeps
+//   an online (max, sum) over its slots, then two block reductions in a
+//   fixed tree (no float atomics: bitwise repeatable). Its last level
+//   ends in a fused epilogue: m = max m_b and Z = sum s_b exp(m_b - m)
+//   over the partials in tile order (one warp, a fixed tree), the chosen
+//   logits recomputed from p, idx in key order with positions >= nvalid
+//   repeating idx[0], and the weights over their max. One launch at
+//   C <= kSelTile. A larger C launches the further levels, but the device
+//   decides how many run: when the filled slots fit one tile (the DQN
+//   path: C = 20000, size <= 12800), the first level's block 0 holds the
+//   whole draw and finishes it, and every other block of that and the
+//   later launch returns at once; only a buffer filled past kSelTile
+//   slots merges candidates across levels.
+//
+// Numerics: logits and scores use __fmul_rn / __fadd_rn, which nvcc never
+// contracts into an FMA, so they round exactly as the plain PyTorch version
+// (two roundings, logf) does and the indices agree bitwise. Z is summed in
+// another order than the plain version, so weights agree to rounding.
+// Limits (checked by the launchers): n, k <= kMaxN, C, chunk <= kMaxChunk
+// (4M slots; the reference's capacities reach 1M).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -87,59 +84,8 @@
 
 namespace {
 
-constexpr int kTile = 4096;       // slots per pass-1 block
-constexpr int kThreads = 256;     // pass-1 threads
-constexpr int kMaxBlocks = 1024;  // pass 2 gives each pass-1 block a thread
 constexpr int kMaxN = 1024;
-
-struct Best {
-  float s;
-  int i;
-};
-
-// The draw order: score descending, then index ascending. NaN marks a taken
-// or absent entry and ranks after everything (-inf included).
-__device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
-  const bool an = as != as, bn = bs != bs;
-  if (an != bn) return bn;
-  if (!an && as != bs) return as > bs;
-  return ai < bi;
-}
-
-__device__ __forceinline__ void warp_best(float& s, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float os = __shfl_down_sync(0xffffffffu, s, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(os, oi, s, i)) {
-      s = os;
-      i = oi;
-    }
-  }
-}
-
-// The block's best (s, i), returned to every thread. blockDim.x is a
-// multiple of 32. `red_*` hold one entry per warp, `win` the result; the
-// two barriers keep one call's reads apart from the next call's writes.
-__device__ __forceinline__ Best block_best(float s, int i, float* red_s,
-                                           int* red_i, Best* win) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  warp_best(s, i);
-  if (lane == 0) {
-    red_s[warp] = s;
-    red_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const bool has = lane < int(blockDim.x >> 5);
-    s = has ? red_s[lane] : NAN;
-    i = has ? red_i[lane] : INT_MAX;
-    warp_best(s, i);
-    if (lane == 0) *win = Best{s, i};
-  }
-  __syncthreads();
-  return *win;
-}
+constexpr int kMaxChunk = 4096 * 1024;  // slots of one draw or shard
 
 // Block-wide max or sum (fixed order, so deterministic); red holds 33 floats.
 template <bool kMax>
@@ -173,151 +119,7 @@ __device__ __forceinline__ float logit(const float* prio, int i, float alpha,
   return logit(__ldg(prio + i), alpha, eps);
 }
 
-// The best untaken slot among this thread's own (j = threadIdx.x + t*kThreads).
-__device__ __forceinline__ void own_best(const float* score, int len,
-                                         int start, float& bs, int& bi) {
-  bs = NAN;
-  bi = INT_MAX;
-  for (int j = threadIdx.x; j < len; j += kThreads)
-    if (better(score[j], start + j, bs, bi)) {
-      bs = score[j];
-      bi = start + j;
-    }
-}
-
-// Pass 1: one row of C slots, nvalid = max(size, 1), each block's top n
-// candidates and its partial (m_b, s_b) for the weights.
-__global__ void __launch_bounds__(kThreads)
-    tile_topk_kernel(const float* __restrict__ prio,
-                     const float* __restrict__ gumbel,
-                     const int* __restrict__ size_p, int C, int n, float alpha,
-                     float eps, float* __restrict__ cand_s,
-                     int* __restrict__ cand_i, float* __restrict__ part_m,
-                     float* __restrict__ part_s) {
-  __shared__ float score[kTile];
-  __shared__ float lg[kTile];
-  __shared__ float red_s[33];
-  __shared__ int red_i[32];
-  __shared__ Best win;
-  const int start = blockIdx.x * kTile;
-  const int len = min(kTile, C - start);
-  const int nvalid = max(__ldg(size_p), 1);
-  const int nv = min(max(nvalid - start, 0), len);  // filled: a prefix
-  const int64_t list = blockIdx.x;
-  float* out_s = cand_s + list * n;
-  int* out_i = cand_i + list * n;
-
-  float m = -INFINITY;
-  for (int j = threadIdx.x; j < len; j += kThreads) {
-    float l = -INFINITY, s = -INFINITY;
-    if (j < nv) {
-      l = logit(prio, start + j, alpha, eps);
-      s = __fadd_rn(l, __ldg(gumbel + start + j));
-    }
-    lg[j] = l;
-    score[j] = s;
-    m = fmaxf(m, l);
-  }
-  m = block_reduce<true>(m, red_s);
-  float z = 0.f;
-  for (int j = threadIdx.x; j < nv; j += kThreads) z += expf(lg[j] - m);
-  z = block_reduce<false>(z, red_s);
-  if (threadIdx.x == 0) {
-    part_m[blockIdx.x] = m;
-    part_s[blockIdx.x] = z;
-  }
-
-  // the first nv picks are the filled slots; pick r >= nv is the -inf slot
-  // start + r (index order), and picks past the tile are absent
-  const int rounds = min(n, nv);
-  float bs;
-  int bi;
-  own_best(score, len, start, bs, bi);
-  for (int r = 0; r < rounds; ++r) {
-    const Best w = block_best(bs, bi, red_s, red_i, &win);
-    if (threadIdx.x == 0) {
-      out_s[r] = w.s;
-      out_i[r] = w.i;
-    }
-    if (w.i == bi) {  // this thread owns the winner
-      score[w.i - start] = NAN;
-      own_best(score, len, start, bs, bi);
-    }
-  }
-  for (int r = rounds + threadIdx.x; r < n; r += kThreads) {
-    out_s[r] = r < len ? -INFINITY : NAN;
-    out_i[r] = r < len ? start + r : INT_MAX;
-  }
-}
-
-__global__ void merge_kernel(const float* __restrict__ prio,
-                             const int* __restrict__ size_p, int nblocks,
-                             int n, float alpha, float beta, float eps,
-                             const float* __restrict__ cand_s,
-                             const int* __restrict__ cand_i,
-                             const float* __restrict__ part_m,
-                             const float* __restrict__ part_s,
-                             int* __restrict__ idx_out,
-                             float* __restrict__ w_out) {
-  __shared__ int sel[kMaxN];
-  __shared__ float red_s[33];
-  __shared__ int red_i[32];
-  __shared__ Best win;
-  __shared__ float mz[2];
-  const int t = threadIdx.x;
-  const float* my_s = cand_s + int64_t(t) * n;
-  const int* my_i = cand_i + int64_t(t) * n;
-  // the list's head (bs, bi) and the entry after it, loaded one win
-  // ahead so a win rarely waits on a load
-  float bs = NAN, ns = NAN;
-  int bi = INT_MAX, ni = INT_MAX, next = 1;
-  if (t < nblocks) {
-    bs = my_s[0];
-    bi = my_i[0];
-    if (n > 1) {
-      ns = my_s[1];
-      ni = my_i[1];
-    }
-  }
-  for (int r = 0; r < n; ++r) {
-    const Best w = block_best(bs, bi, red_s, red_i, &win);
-    if (t == 0) sel[r] = w.i;
-    if (t < nblocks && w.i == bi) {  // this thread's list head won
-      bs = ns;
-      bi = ni;
-      ++next;
-      ns = next < n ? my_s[next] : NAN;
-      ni = next < n ? my_i[next] : INT_MAX;
-    }
-  }
-  if (t == 0) {
-    float m = -INFINITY;
-    for (int b = 0; b < nblocks; ++b) m = fmaxf(m, part_m[b]);
-    float z = 0.f;
-    for (int b = 0; b < nblocks; ++b)
-      if (part_s[b] > 0.f) z += part_s[b] * expf(part_m[b] - m);
-    mz[0] = m;
-    mz[1] = z;
-  }
-  __syncthreads();
-  const int nvalid = max(__ldg(size_p), 1);
-  const float m = mz[0], z = mz[1];
-  float wmax = 0.f;
-  for (int j = t; j < n; j += blockDim.x) {
-    const int id = j < nvalid ? sel[j] : sel[0];  // surplus repeats the top
-    const float p = __fdiv_rn(expf(logit(prio, id, alpha, eps) - m), z);
-    const float w = powf(__fadd_rn(__fmul_rn(float(nvalid), p), 1e-12f),
-                         -beta);
-    idx_out[j] = id;
-    w_out[j] = w;
-    wmax = fmaxf(wmax, w);
-  }
-  wmax = block_reduce<true>(wmax, red_s);
-  for (int j = t; j < n; j += blockDim.x)
-    w_out[j] = __fdiv_rn(w_out[j], fmaxf(wmax, 1e-12f));
-}
-
-// ---- shard_topk_c: the per-shard draw as a radix select ----
+// ---- the radix select: the per-shard draw, and the flat draw as R = 1 ----
 
 constexpr int kSelThreads = 1024;
 constexpr int kSelTile = 16384;              // entries per select block
@@ -326,7 +128,6 @@ constexpr int kSelBatch = 8;                 // slots a thread loads at once
 constexpr int kBins = 256;                   // 8-bit digits
 constexpr int kReps = 8;                     // copies of the histogram
 constexpr int kRepStride = kBins + 1;        // a copy per bank offset
-constexpr int kMaxChunk = kTile * kMaxBlocks;  // as the flat draw's C
 // dynamic shared memory: the last level's k keys, scores and indices, the
 // tile's scores, and (levels after the first) the tile's indices
 constexpr int kSelSmemFirst = kMaxN * 16 + kSelTile * 4;
@@ -348,21 +149,38 @@ __device__ __forceinline__ uint64_t entry_key(float s, int id, int pos) {
                  : uint64_t(uint32_t(~pos));
 }
 
+// The flat draw's part of a select level (kFlat): its filled count is
+// max(*size, 1), read on the device; the first level writes each tile's
+// partial (m_b, s_b) to part, the last level the weights to w and the
+// indices to idx.
+struct Flat {
+  const int* size;
+  float beta;
+  float* part;  // 2 floats per first-level tile
+  int nparts;   // first-level tiles
+  int* idx;
+  float* w;
+};
+
 // One level of the select; grid (tiles, R), kSelThreads threads. kFirst:
 // the entries are shard row blockIdx.y of prio/gumbel (L = chunk slots,
-// the LOCAL count in nvalid[blockIdx.y]); else row blockIdx.y of the
-// (R, L) candidate lists in_s/in_i of the level before. The block takes
-// entries [blockIdx.x * kSelTile, + kSelTile) and selects the top
-// kt = min(k, its length) by key. `last` (one tile): writes the shard's k
-// in key order to out_s/out_i (R, k). Else: writes them unsorted to list
+// the LOCAL count in nvalid[blockIdx.y], or the flat draw's count); else
+// row blockIdx.y of the (R, L) candidate lists in_s/in_i of the level
+// before. The block takes entries [blockIdx.x * kSelTile, + kSelTile) and
+// selects the top kt = min(k, its length) by key. `last` (one tile):
+// writes the shard's k in key order to out_s/out_i (R, k), or the flat
+// draw's indices and weights. Else: writes them unsorted to list
 // (blockIdx.y, blockIdx.x) of out_s/out_i (R, tiles, k), padded to k with
-// (-inf, -1).
-template <bool kFirst>
+// (-inf, -1). The flat draw whose filled slots fit one tile is done by
+// the first level's block 0; every other block of every level then
+// returns at once.
+template <bool kFirst, bool kFlat>
 __global__ void __launch_bounds__(kSelThreads) shard_select_kernel(
     const float* __restrict__ prio, const float* __restrict__ gumbel,
     const int* __restrict__ nvalid, const float* __restrict__ in_s,
     const int* __restrict__ in_i, int L, int k, float alpha, float eps,
-    bool last, float* __restrict__ out_s, int* __restrict__ out_i) {
+    bool last, float* __restrict__ out_s, int* __restrict__ out_i,
+    Flat flat) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* ckey = reinterpret_cast<uint64_t*>(smem);
   float* cs = reinterpret_cast<float*>(ckey + kMaxN);
@@ -373,17 +191,25 @@ __global__ void __launch_bounds__(kSelThreads) shard_select_kernel(
   __shared__ unsigned tot[kBins];
   __shared__ uint64_t s_prefix;
   __shared__ int s_kr, s_done, s_count;
+  __shared__ float red[33], s_mz[2];
   const int tid = threadIdx.x, lane = tid & 31;
   const int shard = blockIdx.y;
   const int start = blockIdx.x * kSelTile;
   const int len = min(kSelTile, L - start);
   const int kt = min(k, len);
+  const int count = kFlat ? max(__ldg(flat.size), 1)
+                          : (kFirst ? __ldg(nvalid + shard) : 0);
+  const bool one_tile = kFlat && count <= kSelTile;
+  if (one_tile && (!kFirst || blockIdx.x > 0)) return;
+  last = last || one_tile;
   // filled slots of the tile (first level): a prefix
-  const int nv = kFirst ? min(max(__ldg(nvalid + shard) - start, 0), len) : 0;
+  const int nv = kFirst ? min(max(count - start, 0), len) : 0;
 
-  if (kFirst) {  // scores as the flat draw computes them; loads first
+  if (kFirst) {  // scores as the plain draw computes them; loads first
     prio += int64_t(shard) * L + start;
     gumbel += int64_t(shard) * L + start;
+    // the flat draw's partial over this thread's filled slots, online
+    float m_t = -INFINITY, s_t = 0.f;
     for (int r0 = 0; r0 < kSelItems; r0 += kSelBatch) {
       float p[kSelBatch], g[kSelBatch];
 #pragma unroll
@@ -395,9 +221,32 @@ __global__ void __launch_bounds__(kSelThreads) shard_select_kernel(
 #pragma unroll
       for (int r = 0; r < kSelBatch; ++r) {
         const int j = (r0 + r) * kSelThreads + tid;
-        if (j < len)
-          sc[j] = j < nv ? __fadd_rn(logit(p[r], alpha, eps), g[r])
-                         : -INFINITY;
+        if (j >= len) continue;
+        float s = -INFINITY;
+        if (j < nv) {
+          const float l = logit(p[r], alpha, eps);
+          s = __fadd_rn(l, g[r]);
+          if (kFlat) {
+            if (l > m_t) {
+              s_t = s_t * expf(m_t - l) + 1.f;
+              m_t = l;
+            } else if (l != -INFINITY) {
+              s_t += expf(l - m_t);
+            }
+          }
+        }
+        sc[j] = s;
+      }
+    }
+    if (kFlat) {  // m_b = max l, s_b = sum exp(l - m_b): fixed trees
+      const float m_b = block_reduce<true>(m_t, red);
+      const float s_b = block_reduce<false>(
+          m_t == -INFINITY ? 0.f : s_t * expf(m_t - m_b), red);
+      if (tid == 0) {
+        flat.part[2 * blockIdx.x] = m_b;
+        flat.part[2 * blockIdx.x + 1] = s_b;
+        s_mz[0] = m_b;
+        s_mz[1] = s_b;
       }
     }
   } else {
@@ -541,43 +390,100 @@ __global__ void __launch_bounds__(kSelThreads) shard_select_kernel(
   }
   for (int off = g / 2; off > 0; off >>= 1)
     rank += __shfl_xor_sync(0xffffffffu, rank, off);
-  if (c < k && part == 0) {
-    os[rank] = cs[c];
-    oi[rank] = ci[c];
+  if (!kFlat) {
+    if (c < k && part == 0) {
+      os[rank] = cs[c];
+      oi[rank] = ci[c];
+    }
+    return;
+  }
+
+  // The flat draw's epilogue: the indices in key order (cs, unread from
+  // here, holds them), m and Z from the first level's partials in tile
+  // order, the chosen logits recomputed from p, the weights normalized
+  // by their max. Positions at or past the filled count repeat the top.
+  int* sel = reinterpret_cast<int*>(cs);
+  if (c < k && part == 0) sel[rank] = ci[c];
+  if (!one_tile && tid < 32) {  // one warp, a fixed tree: deterministic
+    float m = -INFINITY, z = 0.f;
+    for (int b = tid; b < flat.nparts; b += 32) m = fmaxf(m, flat.part[2 * b]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    for (int b = tid; b < flat.nparts; b += 32) {
+      const float s_b = flat.part[2 * b + 1];
+      if (s_b > 0.f) z += s_b * expf(flat.part[2 * b] - m);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      z += __shfl_xor_sync(0xffffffffu, z, off);
+    if (tid == 0) {
+      s_mz[0] = m;
+      s_mz[1] = z;
+    }
+  }
+  __syncthreads();
+  const float m = s_mz[0], z = s_mz[1];
+  float w = 0.f;
+  if (tid < k) {  // k <= kMaxN = kSelThreads: one position a thread
+    const int id = tid < count ? sel[tid] : sel[0];
+    const float p = __fdiv_rn(expf(logit(prio, id, alpha, eps) - m), z);
+    w = powf(__fadd_rn(__fmul_rn(float(count), p), 1e-12f), -flat.beta);
+    flat.idx[tid] = id;
+  }
+  const float wmax = block_reduce<true>(w, red);
+  if (tid < k) flat.w[tid] = __fdiv_rn(w, fmaxf(wmax, 1e-12f));
+}
+
+// The select levels of one call: R rows of L entries, the top k of each;
+// each level's candidates go to the workspace `ws` (the flat draw's
+// partials after them), the last level's to scores/idx (the flat draw:
+// its Flat outputs).
+template <bool kFlat>
+cudaError_t select_levels(const float* prio, const float* gumbel,
+                          const int* nvalid, int R, int L, int k, float alpha,
+                          float eps, float* ws, float* scores, int* idx,
+                          Flat flat, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      shard_select_kernel<true, kFlat>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSelSmemFirst);
+  if (err != cudaSuccess) return err;
+  const float* in_s = nullptr;
+  const int* in_i = nullptr;
+  for (int first = 1;; first = 0) {
+    const int tiles = (L + kSelTile - 1) / kSelTile;
+    const bool last = tiles == 1;
+    const int64_t n = int64_t(R) * tiles * k;
+    float* os = last ? scores : ws;
+    int* oi = last ? idx : reinterpret_cast<int*>(ws + n);
+    const dim3 grid(tiles, R);
+    if (first) {
+      shard_select_kernel<true, kFlat><<<grid, kSelThreads, kSelSmemFirst,
+                                         s>>>(
+          prio, gumbel, nvalid, nullptr, nullptr, L, k, alpha, eps, last, os,
+          oi, flat);
+    } else {
+      err = cudaFuncSetAttribute(shard_select_kernel<false, kFlat>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSelSmemCand);
+      if (err != cudaSuccess) return err;
+      shard_select_kernel<false, kFlat><<<grid, kSelThreads, kSelSmemCand,
+                                          s>>>(
+          kFlat ? prio : nullptr, nullptr, nullptr, in_s, in_i, L, k, alpha,
+          eps, last, os, oi, flat);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess || last) return err;
+    in_s = os;
+    in_i = oi;
+    ws += 2 * n;
+    L = tiles * k;
   }
 }
 
 }  // namespace
 
 extern "C" {
-
-// Slots per pass-1 block: the wrapper sizes the workspace with it.
-int replay_sample_tile() { return kTile; }
-
-// prio, gumbel: (C,) contiguous f32; size: one int32 in device memory;
-// workspace from the caller: cand_s, cand_i (ceil(C / kTile) * n) and
-// part_m, part_s (ceil(C / kTile)); outputs idx (n,) int32 and w (n,) f32.
-// Launches both passes on `stream`, allocates nothing, and returns
-// cudaGetLastError() (cudaErrorInvalidValue for n < 1, n > C, n > kMaxN or
-// C > kTile * kMaxBlocks).
-int prioritized_sample_c(const float* prio, const float* gumbel,
-                         const int* size, int C, int n, float alpha,
-                         float beta, float eps, float* cand_s, int* cand_i,
-                         float* part_m, float* part_s, int* idx, float* w,
-                         void* stream) {
-  if (n < 1 || n > C || n > kMaxN) return cudaErrorInvalidValue;
-  const int nblocks = (C + kTile - 1) / kTile;
-  if (nblocks > kMaxBlocks) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  tile_topk_kernel<<<nblocks, kThreads, 0, s>>>(
-      prio, gumbel, size, C, n, alpha, eps, cand_s, cand_i, part_m, part_s);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int threads = min(kMaxBlocks, (nblocks + 31) / 32 * 32);
-  merge_kernel<<<1, threads, 0, s>>>(prio, size, nblocks, n, alpha, beta, eps,
-                                     cand_s, cand_i, part_m, part_s, idx, w);
-  return cudaGetLastError();
-}
 
 // The workspace shard_topk_c needs, in 4-byte words: per select level
 // before the last, an (R, tiles, k) list of scores and one of indices; 0
@@ -588,6 +494,35 @@ long long shard_topk_workspace(int R, int chunk, int k) {
        L = tiles * k)
     words += 2LL * R * tiles * k;
   return words;
+}
+
+// The workspace prioritized_sample_c needs, in 4-byte words: the select
+// levels' candidate lists (as shard_topk_c's for one shard), then a
+// partial (m_b, s_b) per first-level tile.
+long long prioritized_sample_workspace(int C, int n) {
+  return shard_topk_workspace(1, C, n) + 2LL * ((C + kSelTile - 1) / kSelTile);
+}
+
+// prio, gumbel: (C,) contiguous f32; size: one int32 in device memory;
+// workspace `ws` of prioritized_sample_workspace(C, n) words; outputs idx
+// (n,) int32 and w (n,) f32. The select levels over the C slots with
+// count max(size, 1), on `stream`: one launch when C <= kSelTile, a
+// further one while a level leaves more than kSelTile candidates; when
+// max(size, 1) <= kSelTile the first launch's block 0 finishes the draw
+// and every other block returns at once. Allocates nothing; returns
+// cudaGetLastError() (cudaErrorInvalidValue for n < 1, n > C, n > kMaxN
+// or C > kMaxChunk).
+int prioritized_sample_c(const float* prio, const float* gumbel,
+                         const int* size, int C, int n, float alpha,
+                         float beta, float eps, float* ws, int* idx, float* w,
+                         void* stream) {
+  if (n < 1 || n > C || n > kMaxN || C > kMaxChunk)
+    return cudaErrorInvalidValue;
+  const int tiles = (C + kSelTile - 1) / kSelTile;
+  const Flat flat{size, beta, ws + shard_topk_workspace(1, C, n), tiles, idx,
+                  w};
+  return select_levels<true>(prio, gumbel, nullptr, 1, C, n, alpha, eps, ws,
+                             w, idx, flat, static_cast<cudaStream_t>(stream));
 }
 
 // The per-shard candidate draw of the sharded replay service (the port of
@@ -610,41 +545,9 @@ int shard_topk_c(const float* prio, const float* gumbel, const int* nvalid,
   if (R < 1 || R > 65535 || k < 1 || k > chunk || k > kMaxN ||
       chunk > kMaxChunk)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      shard_select_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSelSmemFirst);
-  if (err != cudaSuccess) return err;
-  const float* in_s = nullptr;
-  const int* in_i = nullptr;
-  float* next = static_cast<float*>(ws);
-  for (int L = chunk, first = 1;; first = 0) {
-    const int tiles = (L + kSelTile - 1) / kSelTile;
-    const bool last = tiles == 1;
-    const int64_t n = int64_t(R) * tiles * k;
-    float* os = last ? scores : next;
-    int* oi = last ? idx : reinterpret_cast<int*>(next + n);
-    const dim3 grid(tiles, R);
-    if (first) {
-      shard_select_kernel<true><<<grid, kSelThreads, kSelSmemFirst, s>>>(
-          prio, gumbel, nvalid, nullptr, nullptr, L, k, alpha, eps, last, os,
-          oi);
-    } else {
-      err = cudaFuncSetAttribute(shard_select_kernel<false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSelSmemCand);
-      if (err != cudaSuccess) return err;
-      shard_select_kernel<false><<<grid, kSelThreads, kSelSmemCand, s>>>(
-          nullptr, nullptr, nullptr, in_s, in_i, L, k, alpha, eps, last, os,
-          oi);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess || last) return err;
-    in_s = os;
-    in_i = oi;
-    next += 2 * n;
-    L = tiles * k;
-  }
+  return select_levels<false>(prio, gumbel, nvalid, R, chunk, k, alpha, eps,
+                              static_cast<float*>(ws), scores, idx, Flat{},
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

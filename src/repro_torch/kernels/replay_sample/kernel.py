@@ -1,15 +1,14 @@
 """ctypes bindings of the Hopper replay-draw kernels (csrc/replay_sample.cu):
 `prioritized_sample_c` and `shard_topk_c`, the ports of the Pallas kernels
-of the same names.
+of the same names, both a radix select.
 
-A CUDA tensor launches the kernel (`prioritized_sample_c`: two passes;
-`shard_topk_c`: one select level, more for shards above 16384 slots;
-each call counted as one launch of the op) or raises; a CPU tensor takes
-the plain version (ref.py). Each
-function's `.launches` counts its launches, so a run can show that its
-main path went through the kernel. `size` and `nvalid` stay on the
-device, as the Pallas kernels take them as arrays: reading them on the
-host would sync once per draw.
+A CUDA tensor launches the kernel (one select level, more for a buffer or
+shard above 16384 slots; each call counted as one launch of the op) or
+raises; a CPU tensor takes the plain version (ref.py). Each function's
+`.launches` counts its launches, so a run can show that its main path
+went through the kernel. `size` and `nvalid` stay on the device, as the
+Pallas kernels take them as arrays: reading them on the host would sync
+once per draw.
 """
 import ctypes
 import functools
@@ -23,9 +22,8 @@ from repro_torch.kernels.replay_sample.ref import (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_N = 1024                # the kernel's kMaxN
-MAX_BLOCKS = 1024           # the kernel's kMaxBlocks
 MAX_SHARDS = 65535          # the grid's y limit
-MAX_CHUNK = 4096 * 1024     # the kernel's kMaxChunk
+MAX_CHUNK = 4096 * 1024     # the kernel's kMaxChunk: slots of a draw or shard
 SELECT_TILE = 16384         # the kernel's kSelTile: one launch up to it
 
 
@@ -33,25 +31,20 @@ SELECT_TILE = 16384         # the kernel's kSelTile: one launch up to it
 def _launcher():
     dll = load_kernels()
     fn = dll.prioritized_sample_c
-    fn.argtypes = [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P,
-                   _P]
+    fn.argtypes = [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P]
     fn.restype = _I
     shard = dll.shard_topk_c
     shard.argtypes = [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P]
     shard.restype = _I
-    dll.shard_topk_workspace.argtypes = [_I, _I, _I]
-    dll.shard_topk_workspace.restype = ctypes.c_longlong
-    dll.replay_sample_tile.restype = _I
-    return dll, fn, dll.replay_sample_tile()
+    for name, args in (("shard_topk_workspace", [_I, _I, _I]),
+                       ("prioritized_sample_workspace", [_I, _I])):
+        getattr(dll, name).argtypes = args
+        getattr(dll, name).restype = ctypes.c_longlong
+    return dll, fn
 
 
-def prioritized_sample_c(prio, gumbel, size, n, alpha=0.6, beta=0.4,
-                         eps=1e-6):
-    """prio, gumbel (C,) f32 contiguous; size an int32 tensor of one
-    element on their device. Returns (idx (n,) int32, w (n,) f32)."""
-    if not prio.is_cuda:
-        return prioritized_sample_ref(prio, size, gumbel, n, alpha, beta,
-                                      eps)
+def _check(prio, gumbel, size, n):
+    """Raise on what `prioritized_sample_c` does not take."""
     C = prio.shape[0]
     dev = prio.device
     for name, t, dtype in (("prio", prio, torch.float32),
@@ -73,30 +66,47 @@ def prioritized_sample_c(prio, gumbel, size, n, alpha=0.6, beta=0.4,
     if not 1 <= n <= min(C, MAX_N):
         raise ValueError(f"prioritized_sample_c: n={n} outside [1, "
                          f"min(C={C}, {MAX_N})]")
-    dll, fn, tile = _launcher()
-    nblocks = -(-C // tile)
-    if nblocks > MAX_BLOCKS:
-        raise ValueError(f"prioritized_sample_c: C={C} above "
-                         f"{tile * MAX_BLOCKS} slots")
-    # one allocation: outputs idx, w (n each), then the workspace: the
-    # candidates' scores and indices (nblocks * n each) and the partials
-    # m_b, s_b (nblocks each), all 4-byte words
-    buf = torch.empty((2 * n * (nblocks + 1) + 2 * nblocks,),
-                      dtype=torch.int32, device=dev)
-    idx, w = buf[:n], buf[n:2 * n].view(torch.float32)
-    ptr, word = buf.data_ptr(), buf.element_size()
-    cand_s = ptr + word * 2 * n
-    cand_i = cand_s + word * nblocks * n
-    part_m = cand_i + word * nblocks * n
-    with on_device(dev):
-        stream = launch_stream(dev)
-        code = fn(prio.data_ptr(), gumbel.data_ptr(), size.data_ptr(), C, n,
-                  float(alpha), float(beta), float(eps), cand_s, cand_i,
-                  part_m, part_m + word * nblocks, idx.data_ptr(),
-                  w.data_ptr(), stream)
+
+
+@functools.lru_cache(maxsize=64)
+def buffer_words(C, n):
+    """The 4-byte words of `prioritized_sample_c`'s one allocation: the
+    outputs idx, w (n each), then the workspace the kernel asks for (the
+    select levels' candidates and the first level's partials)."""
+    if C > MAX_CHUNK:
+        raise ValueError(f"prioritized_sample_c: C={C} above {MAX_CHUNK} "
+                         f"slots")
+    dll, _ = _launcher()
+    return 2 * n + dll.prioritized_sample_workspace(C, n)
+
+
+def _args(prio, gumbel, size, n, alpha, beta, eps, buf):
+    """The C launcher's arguments but the stream, over `buf` of
+    buffer_words(C, n) words."""
+    ptr = buf.data_ptr()
+    return (prio.data_ptr(), gumbel.data_ptr(), size.data_ptr(),
+            prio.shape[0], n, float(alpha), float(beta), float(eps),
+            ptr + 8 * n, ptr, ptr + 4 * n)
+
+
+def prioritized_sample_c(prio, gumbel, size, n, alpha=0.6, beta=0.4,
+                         eps=1e-6):
+    """prio, gumbel (C,) f32 contiguous; size an int32 tensor of one
+    element on their device. Returns (idx (n,) int32, w (n,) f32)."""
+    if not prio.is_cuda:
+        return prioritized_sample_ref(prio, size, gumbel, n, alpha, beta,
+                                      eps)
+    _check(prio, gumbel, size, n)
+    dll, fn = _launcher()
+    # one allocation: the outputs idx, w and the workspace
+    buf = torch.empty((buffer_words(prio.shape[0], n),), dtype=torch.int32,
+                      device=prio.device)
+    with on_device(prio.device):
+        code = fn(*_args(prio, gumbel, size, n, alpha, beta, eps, buf),
+                  launch_stream(prio.device))
     prioritized_sample_c.launches += 1
     check_launch(dll, code, "prioritized_sample_c")
-    return idx, w
+    return buf[:n], buf[n:2 * n].view(torch.float32)
 
 
 prioritized_sample_c.launches = 0
@@ -136,7 +146,7 @@ def shard_topk_c(prio, gumbel, nvalid, k, alpha=0.6, eps=1e-6):
     if chunk > MAX_CHUNK:
         raise ValueError(f"shard_topk_c: chunk={chunk} above {MAX_CHUNK} "
                          f"slots")
-    dll, _, _ = _launcher()
+    dll, _ = _launcher()
     # one allocation of 4-byte words for the outputs scores, idx; the
     # select levels before the last (shards above SELECT_TILE slots) take
     # a workspace for their candidates

@@ -5,22 +5,41 @@ card, sets it.
     PYTHONPATH=src python -m repro_torch.launch.profile_host_cost
 
 Times, in us per call over 2000 calls without a sync (the host's enqueue
-only), `shard_topk_c` at the replay=2 DQN path shape (R = 2 shards of
-10000 slots, counts 10000 and 2800, k = 64), batched `torch.topk` over
-the same scores, and the wrapper's pieces: an output allocation, the
-argument checks, entering the device (`on_device`, and
-`torch.cuda.device` for comparison) and reading the current stream
-(`launch_stream`, and `torch.cuda.current_stream().cuda_stream`). Prints
-one JSON line beside the card's name and power limit. Needs a card.
+only):
+- `shard_topk_c` at the replay=2 DQN path shape (R = 2 shards of 10000
+  slots, counts 10000 and 2800, k = 64), batched `torch.topk` over the
+  same scores, and the wrapper's pieces: an output allocation, the
+  argument checks, entering the device (`on_device`, and
+  `torch.cuda.device` for comparison) and reading the current stream
+  (`launch_stream`, and `torch.cuda.current_stream().cuda_stream`);
+- `flash_attention` (ops.py, the model's entry) at the two LM prefill
+  shapes (deepseek-moe-16b (B, H, KVH, S, D) = (4, 16, 16, 32, 128) and
+  smollm-360m (4, 15, 5, 32, 64), bf16, causal), the kernel wrapper
+  `flash_attention_hsd` on (B, H, S, D) views, SDPA on the same inputs,
+  and the pieces: the checks with the packing of the arguments, the
+  packing alone, the output allocation and the ctypes call itself;
+- `prioritized_sample_c` at the flat DQN path shape (C, size, n) =
+  (20000, 12800, 64), `torch.topk` over the scores, and its pieces: the
+  checks, the one allocation and the ctypes call itself.
+Prints one JSON line beside the card's name and power limit. Needs a
+card.
 """
 import json
 import time
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.common import launch_stream, on_device
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.replay_sample import kernel as replay_kernel
 from repro_torch.kernels.replay_sample.kernel import shard_topk_c
 from repro_torch.launch.profiling import card
+
+LM_FLASH = {"deepseek-moe-16b": (4, 16, 16, 32, 128),
+            "smollm-360m": (4, 15, 5, 32, 64)}
+REPLAY = (20000, 12800, 64)
 
 
 def per_call_us(fn, n=2000):
@@ -35,8 +54,7 @@ def per_call_us(fn, n=2000):
     return elapsed / n * 1e6
 
 
-def main():
-    dev = torch.device("cuda", torch.cuda.current_device())
+def shard_costs(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     prio = torch.rand((2, 10000), generator=gen, device=dev) + 0.01
     gumbel = torch.rand((2, 10000), generator=gen, device=dev)
@@ -46,7 +64,7 @@ def main():
         with ctx:
             pass
 
-    out = {
+    return {
         "shard_topk_c": per_call_us(
             lambda: shard_topk_c(prio, gumbel, nvalid, 64)),
         "torch.topk": per_call_us(lambda: torch.topk(prio, 64, dim=-1)),
@@ -61,7 +79,75 @@ def main():
         "launch_stream": per_call_us(lambda: launch_stream(dev)),
         "torch.cuda.current_stream": per_call_us(
             lambda: torch.cuda.current_stream().cuda_stream)}
-    print(json.dumps({"card": card(), "host_us_per_call": out}))
+
+
+def flash_costs(dev, shape):
+    B, H, KVH, S, D = shape
+    G = H // KVH
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qg = torch.randn((B, S, KVH, G, D), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KVH, D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn_like(k)
+    q_hsd = qg.reshape(B, S, H, D).transpose(1, 2)
+    k_hsd, v_hsd = k.transpose(1, 2), v.transpose(1, 2)
+    qc, kc, vc = (t.contiguous() for t in (q_hsd, k_hsd, v_hsd))
+    out = torch.empty_like(qg)
+    _, fn = flash_kernel._launcher()
+    params = flash_kernel.grouped_params(qg, k, v, out, True, 0)
+    fields = flash_kernel.PARAMS.unpack(params)
+
+    with torch.no_grad():
+        return {
+            "flash_attention": per_call_us(
+                lambda: flash_attention(qg, k, v, causal=True)),
+            "flash_attention_hsd": per_call_us(
+                lambda: flash_kernel.flash_attention_hsd(q_hsd, k_hsd,
+                                                         v_hsd)),
+            "sdpa": per_call_us(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True)),
+            "checks and packed arguments": per_call_us(
+                lambda: flash_kernel.grouped_params(qg, k, v, out, True, 0)),
+            "pack alone": per_call_us(
+                lambda: flash_kernel.PARAMS.pack(*fields)),
+            "torch.empty": per_call_us(lambda: torch.empty(
+                qg.shape, dtype=qg.dtype, device=dev)),
+            "ctypes call (2 args)": per_call_us(
+                lambda: fn(params, launch_stream(dev)))}
+
+
+def replay_costs(dev):
+    C, size, n = REPLAY
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prio = torch.rand((C,), generator=gen, device=dev) + 0.01
+    gumbel = torch.rand((C,), generator=gen, device=dev)
+    s = torch.tensor([size], dtype=torch.int32, device=dev)
+    scores = torch.where(torch.arange(C, device=dev) < size,
+                         0.6 * torch.log(prio + 1e-6) + gumbel, -torch.inf)
+    words = replay_kernel.buffer_words(C, n)
+    buf = torch.empty((words,), dtype=torch.int32, device=dev)
+    _, fn = replay_kernel._launcher()
+    args = replay_kernel._args(prio, gumbel, s, n, 0.6, 0.4, 1e-6, buf)
+    return {
+        "prioritized_sample_c": per_call_us(
+            lambda: replay_kernel.prioritized_sample_c(prio, gumbel, s, n)),
+        "torch.topk": per_call_us(lambda: torch.topk(scores, n)),
+        "checks": per_call_us(
+            lambda: replay_kernel._check(prio, gumbel, s, n)),
+        "torch.empty": per_call_us(lambda: torch.empty(
+            (words,), dtype=torch.int32, device=dev)),
+        f"ctypes call ({len(args) + 1} args)": per_call_us(
+            lambda: fn(*args, launch_stream(dev)))}
+
+
+def main():
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"card": card(), "host_us_per_call": shard_costs(dev)}
+    out["flash_attention_bf16"] = {f"{name} {shape}": flash_costs(dev, shape)
+                                   for name, shape in LM_FLASH.items()}
+    out["prioritized_sample_c"] = replay_costs(dev)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -4,9 +4,11 @@ rebuilds the library. A stand-in `nvcc` (a Python script that records its
 arguments and writes the file after `-o`) takes the compiler's place, so
 this runs without the CUDA toolkit."""
 import json
+import shutil
 import sys
 
 import pytest
+import torch
 
 from repro_torch.kernels import common
 
@@ -77,3 +79,98 @@ def test_build_reruns_exactly_when_a_source_or_header_changes(tree, edit):
         (pkg / edit).write_text("// edited\n")
     common.build_kernels()
     assert bool(_calls(log)) == (edit is not None)
+
+
+def test_shared_header_is_a_source_and_every_include_resolves():
+    """The repository's own kernels: the shared tensor-core header is in
+    the build's sources, and every quoted include of a `.cu` names a
+    header that is one of them (nvcc resolves it beside the source)."""
+    sources = common.kernel_sources()
+    names = [p.relative_to(common.PACKAGE_DIR).as_posix() for p in sources]
+    assert "kernels/shared/csrc/sm90.cuh" in names
+    included = set()
+    for src in sources:
+        for line in src.read_text().splitlines():
+            if line.startswith('#include "'):
+                header = (src.parent / line.split('"')[1]).resolve()
+                assert header in sources, f"{src.name}: {line}"
+                included.add(header.name)
+    assert included == {"sm90.cuh"}
+
+
+@pytest.mark.parametrize("edit", ["kernels/shared/csrc/sm90.cuh",
+                                  "kernels/flash_attention/csrc/"
+                                  "flash_attention.cu", None])
+def test_editing_the_shared_header_changes_the_digest(tmp_path, monkeypatch,
+                                                      edit):
+    """A copy of the repository's kernel sources: editing the shared
+    header (or a source) changes the build's digest, so the library is
+    rebuilt; the untouched tree keeps its digest."""
+    pkg = tmp_path / "pkg"
+    shutil.copytree(common.PACKAGE_DIR / "kernels", pkg / "kernels",
+                    ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+    monkeypatch.setattr(common, "PACKAGE_DIR", pkg)
+    before = common._digest(common.kernel_sources())
+    if edit is not None:
+        path = pkg / edit
+        path.write_text(path.read_text() + "\n// edited\n")
+    after = common._digest(common.kernel_sources())
+    assert (after != before) == (edit is not None)
+
+
+def test_replay_draw_sizing_and_limits_need_no_library(monkeypatch):
+    """`prioritized_sample_c`'s pure-Python side: its limits raise with
+    their messages before the library is asked for anything (here it
+    cannot be built), and the buffer sizing of a draw the kernel takes
+    does ask it."""
+    from repro_torch.kernels.replay_sample import kernel as rk
+
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(rk, "_launcher", no_library)
+    rk.buffer_words.cache_clear()
+    with pytest.raises(ValueError, match=r"C=4194305 above 4194304 slots"):
+        rk.buffer_words(4096 * 1024 + 1, 64)
+    with pytest.raises(AssertionError, match="library"):
+        rk.buffer_words(20000, 64)
+    prio = torch.ones(2000)
+    size = torch.tensor([5], dtype=torch.int32)
+    for n, msg in ((1025, r"n=1025 outside \[1, min\(C=2000, 1024\)\]"),
+                   (0, r"n=0 outside"), (2001, r"n=2001 outside")):
+        with pytest.raises(ValueError, match=msg):
+            rk._check(prio, prio, size, n)
+    with pytest.raises(ValueError, match="size must be torch.int32"):
+        rk._check(prio, prio, size.long(), 8)
+    rk._check(prio, prio, size, 1024)
+
+
+@pytest.mark.parametrize("KVH,G", [(2, 3), (1, 4), (3, 1)])
+def test_flash_packed_arguments_index_the_model_layout(KVH, G):
+    """The flash kernel's packed arguments (`FlashParams`, 168 bytes) for
+    the model layout qg (B,S,KVH,G,D), k, v (B,S,KVH,D): pointers, dims,
+    and (b, h, s) strides such that head h = kvh * G + g of q lies at
+    h * q_h, the kv heads at kvh * k_h, out contiguous (B,S,H,D)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    assert fk.PARAMS.size == 168
+    B, S, D = 2, 5, 32
+    qg = torch.zeros((B, S, KVH, G, D), dtype=torch.bfloat16)
+    k = torch.zeros((B, S, KVH + 1, D), dtype=torch.bfloat16)[:, :, 1:]
+    v = torch.zeros((B, S, KVH, D), dtype=torch.bfloat16)
+    out = torch.empty_like(qg)
+    f = fk.PARAMS.unpack(fk.grouped_params(qg, k, v, out, True, 7))
+    H = KVH * G
+    assert f[:4] == (qg.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr())
+    assert f[4:13] == (1, B, H, KVH, S, D, 1, 7, S)
+    assert f[13] == pytest.approx(D ** -0.5)
+    q_h = qg.stride(2) if G == 1 else qg.stride(3)
+    assert f[14:] == (qg.stride(0), q_h, qg.stride(1),
+                      k.stride(0), k.stride(2), k.stride(1),
+                      v.stride(0), v.stride(2), v.stride(1),
+                      S * H * D, D, H * D)
+    # (KVH, G) that do not fold into one head stride are refused
+    if KVH > 1 and G > 1:
+        odd = torch.zeros((B, S, G, KVH, D),
+                          dtype=torch.bfloat16).transpose(2, 3)
+        assert fk.grouped_params(odd, k, v, out, True, 0) is None

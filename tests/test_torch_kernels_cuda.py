@@ -130,6 +130,77 @@ def test_flash_attention_refuses_to_cut_the_gradient(cuda):
     assert flash_attention_hsd.launches == 1
 
 
+def _bf16_qkv(shape_q, shape_kv, device, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device=device).to(torch.bfloat16)
+            for shape in (shape_q, shape_kv, shape_kv))
+
+
+# bf16 on the tensor cores at every head dim, G = 1, 3 and 8 query heads
+# per kv head (the rows of a block are (query, head) pairs), ragged S: one
+# row, one past a 16-row warp tile, one past 32, one past two 64-key tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 17, 33, 130])
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_attention_bf16_matches_plain(cuda, D, G, S):
+    B, KVH = 2, 2
+    qg, k, v = _bf16_qkv((B, S, KVH, G, D), (B, S, KVH, D), cuda, D + S + G)
+    out = flash_attention(qg, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_hsd.launches == 1
+    q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)
+    ref = attention_ref(q, k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    ref = ref.transpose(1, 2).reshape(B, S, KVH, G, D)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
+                               rtol=3e-2)
+    assert torch.equal(flash_attention(qg, k, v, causal=True), out)
+
+
+# windows below, across and above the 64-key tile, non-causal, and
+# valid_len cutting the keys, each in bf16 (B, H, S, D) views
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal,window,valid_len", [
+    (True, 5, None), (True, 70, None), (True, 300, None),
+    (False, 0, None), (False, 0, 77), (True, 0, 100), (True, 40, 140)])
+def test_flash_attention_bf16_masks(cuda, D, causal, window, valid_len):
+    B, KVH, G, S = 2, 2, 3, 150
+    q, k, v = _bf16_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda, D + S)
+    out = flash_attention_hsd(q, k, v, causal=causal, window=window,
+                              valid_len=valid_len)
+    ref = attention_ref(q, k, v, causal=causal, window=window,
+                        valid_len=valid_len)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+# strided views: 16-byte strides take the tensor cores, odd element
+# strides the CUDA-core kernel; both read the operands where they lie
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("offset", [0, 8, 3])
+def test_flash_attention_bf16_strided(cuda, D, offset):
+    B, KVH, G, S = 2, 2, 3, 70
+    rng = np.random.default_rng(D + offset)
+    base = torch.tensor(rng.standard_normal(
+        (B, S, KVH, G + 2, D + 16)).astype(np.float32),
+        device=cuda).to(torch.bfloat16)
+    qg = base[:, :, :, 1:G + 1, offset:offset + D]      # (B,S,KVH,G,D)
+    kv = base[:, :, :, 0, offset:offset + D]            # (B,S,KVH,D)
+    vv = base[:, :, :, G + 1, offset:offset + D]
+    assert not qg.is_contiguous()
+    out = flash_attention(qg, kv, vv, causal=True)
+    q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)
+    ref = attention_ref(q, kv.transpose(1, 2), vv.transpose(1, 2),
+                        causal=True)
+    ref = ref.transpose(1, 2).reshape(B, S, KVH, G, D)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
 def _scan_tol(T):
     return 1e-5 if T <= 128 else 1e-4
 
@@ -250,6 +321,56 @@ def test_replay_sample_matches_plain(cuda, C, size, n, ties):
     assert idx.dtype == torch.int32 and torch.equal(idx, ridx)
     torch.testing.assert_close(w, rw, atol=1e-5, rtol=1e-5)
     assert int(idx.max()) < max(size, 1)
+
+
+# (C, size, n, kind) for the flat draw on the radix select: a tie group
+# straddling the n-th place, all-equal priorities, sizes 0, 1, n - 1 and n,
+# C = 16384 (one launch) and 16385 (two levels), a buffer filled past one
+# 16384-slot tile (the candidates merge across levels), n = 1024
+FLAT_SELECT_CASES = [
+    (20000, 12800, 64, "straddle"), (40000, 40000, 256, "straddle"),
+    (20000, 12800, 64, "equal"), (40000, 30000, 128, "equal"),
+    (20000, 0, 64, "random"), (20000, 1, 64, "random"),
+    (20000, 63, 64, "random"), (20000, 64, 64, "random"),
+    (16384, 16384, 64, "random"), (16385, 16385, 64, "random"),
+    (16385, 16384, 1024, "random"), (20000, 20000, 1024, "straddle"),
+    (50000, 1024, 1024, "random"), (1024, 1024, 1024, "random"),
+]
+
+
+def _flat_select_inputs(C, size, n, kind, device):
+    prio, gumbel, s = _replay_inputs(C, size, False, device, seed=3)
+    if kind == "equal":
+        prio.fill_(0.5)
+        gumbel.fill_(0.25)
+    elif kind == "straddle" and size >= n + 24:  # 8 equal at n-1 .. n+20
+        order = prioritized_sample_ref(prio, s[0], gumbel, size)[0].long()
+        group = order[n + 3 * torch.arange(1, 8, device=device)]
+        prio[group] = prio[order[n - 1]].item()
+        gumbel[group] = gumbel[order[n - 1]].item()
+    return prio, gumbel, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,size,n,kind", FLAT_SELECT_CASES)
+def test_replay_sample_select_edges(cuda, C, size, n, kind):
+    """The flat draw's select at its edges: indices equal the plain
+    draw's (a stable descending sort), weights within rtol = atol = 1e-5,
+    one op launch a call, bitwise repeatable."""
+    prio, gumbel, s = _flat_select_inputs(C, size, n, kind, cuda)
+    prioritized_sample_c.launches = 0
+    idx, w = prioritized_sample_c(prio, gumbel, s, n)
+    torch.cuda.synchronize()
+    assert prioritized_sample_c.launches == 1
+    ridx, rw = prioritized_sample_ref(prio, s[0], gumbel, n)
+    assert torch.equal(idx, ridx)
+    torch.testing.assert_close(w, rw, atol=1e-5, rtol=1e-5)
+    again = prioritized_sample_c(prio, gumbel, s, n)
+    assert torch.equal(again[0], idx) and torch.equal(again[1], w)
+    if kind == "straddle" and size >= n + 24:  # ties cross the n-th place
+        full = prioritized_sample_ref(prio, s[0], gumbel, n + 1)[0].long()
+        scores = 0.6 * torch.log(prio + 1e-6) + gumbel
+        assert scores[full[n - 1]] == scores[full[n]]
 
 
 @pytest.mark.cuda
