@@ -15,7 +15,8 @@ Phases, in order; the script exits non-zero at the first failure:
      at the deepseek-moe-16b and smollm-360m heads, where the tensor cores
      set the time), then the discounted-return scan, its adjoint
      and V-trace at (T, B) = (32, 32) (the training path), (32, 4096) and
-     (2048, 128), then the prioritized replay draw at (C, size, n) =
+     (2048, 128) (each with its device time, `device_us`), then the
+     prioritized replay draw at (C, size, n) =
      (20000, 12800, 64) (the DQN path), a full 1M-slot buffer with n = 256,
      nearly empty and empty buffers, and forced ties (indices exact,
      weights within 1e-5, bitwise repeatable; the yardstick is
@@ -33,8 +34,9 @@ Phases, in order; the script exits non-zero at the first failure:
      f32 product within one bf16 rounding, 2^-8; the yardstick is
      torch.bmm); every flash, replay-draw, per-shard-draw and grouped
      matmul row also gives the kernel's device time per call from
-     torch.profiler (`device_us`, and the library call's), beside the
-     CUDA-event ms, which counts the host's launch cost too;
+     torch.profiler (`device_us`, and the library call's; None where
+     five windows each lost kernel records), beside the CUDA-event ms,
+     which counts the host's launch cost too;
   3. slice: the full-width `paper-drl-trunk` policy served through
      ServeEngine for cartpole and pendulum at 500 and 2000 offered
      requests/s, with a hot swap in every cell; the kernel's launch count
@@ -79,9 +81,12 @@ Phases, in order; the script exits non-zero at the first failure:
      per-step scan), y and the final state, with a nonzero u and initial
      state, at (B, T, H, N, chunk) = (4, 32, 32, 64, 64) (the rwkv6-1.6b
      serve prefill), (4, 512, 32, 64, 64), (4, 1, 32, 64, 1) (decode),
-     (2, 100, 3, 16, 32) and (1, 37, 1, 8, 16) (ragged last chunks), within
-     the reference's atol 2e-4, rtol 1e-3; bitwise repeatable, the final
-     S written over the state it is given; it raises under grad;
+     (2, 100, 3, 16, 32) and (1, 37, 1, 8, 16) (ragged last chunks), and
+     with bf16 r, k, v, u (the serve path's dtypes; the plain version on
+     their f32 values) at the prefill and decode shapes, within the
+     reference's atol 2e-4, rtol 1e-3; bitwise repeatable, the final S
+     written over the state it is given, each row with its device time
+     (`device_us`); it raises under grad;
  11. RWKV serve: `serve()` of the full-width rwkv6-1.6b in bf16 with
      use_kernels on weights drawn on the card from seed 0, its constants
      (u, w0, ln_scale, the lerps) redrawn from a numpy seed (2 prefills
@@ -170,12 +175,16 @@ LM = dict(arch="deepseek-moe-16b", batch=4, prompt_len=32, gen_len=16)
 # bf16 layer by layer, x max|plain output| (2^-6: a few bf16 roundings)
 LM_F32_TOL = 1e-3
 LM_BF16_TOL = 2.0 ** -6
-# (B, T, H, N, chunk) of the chunked WKV: the rwkv6-1.6b serve prefill
-# (the path's row in the kernels line), a prompt of eight chunks, the
-# decode step, then the reference's sweep shapes (ragged last chunks)
+# (B, T, H, N, chunk) of the chunked WKV: the rwkv6-1.6b serve prefill,
+# a prompt of eight chunks, the decode step, then the reference's sweep
+# shapes (ragged last chunks)
 WKV_CASES = [(4, 32, 32, 64, 64), (4, 512, 32, 64, 64), (4, 1, 32, 64, 1),
              (2, 100, 3, 16, 32), (1, 37, 1, 8, 16)]
 WKV_TOL = dict(atol=2e-4, rtol=1e-3)   # the reference's own
+# bf16 r, k, v, u (the serve path's dtypes) at the prefill and decode
+# shapes, held against the plain version on their f32 values (the first
+# is the path's row in the kernels line)
+WKV_BF16_CASES = [(4, 32, 32, 64, 64), (4, 1, 32, 64, 1)]
 RWKV = dict(arch="rwkv6-1.6b", batch=4, prompt_len=32, gen_len=16,
             agree_prompts=(32, 512))
 
@@ -204,29 +213,45 @@ def cuda_time_ms(fn, iters, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, iters=10):
+def device_us(fn, iters=10, tries=5):
     """Device time of fn's CUDA kernels per call, in us, from
     torch.profiler's key_averages, and each kernel's launches per call.
     Beside cuda_time_ms (events around many calls, which counts the
     host's launch cost where the host is slower than the card), it is the
-    kernels' own time; None where the profiler saw no kernel."""
+    kernels' own time. Late in a long process the profiler loses some
+    kernels' records, not their launch calls': a window with fewer kernel
+    records than launch calls, or a kernel seen other than a whole number
+    of times a call, is run again, up to `tries` windows (acc_events
+    windows lost fewer on the card). The time is None where no window was
+    whole or the profiler saw no kernel; the launches are the last
+    window's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, kernels = 0.0, {}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        total += t if t is not None else evt.self_cuda_time_total
-        kernels[evt.key[:60]] = evt.count / iters
-    return (total / iters if kernels else None), kernels
+    kernels = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, kernels, whole, seen, launched = 0.0, {}, True, 0, 0
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                if "Launch" in evt.key and "Kernel" in evt.key:
+                    launched += evt.count
+                continue
+            t = getattr(evt, "self_device_time_total", None)
+            total += t if t is not None else evt.self_cuda_time_total
+            kernels[evt.key[:60]] = evt.count / iters
+            whole = whole and evt.count % iters == 0
+            if not evt.key.startswith(("Memset", "Memcpy")):
+                seen += evt.count
+        if kernels and whole and seen >= launched:
+            return total / iters, kernels
+    return None, kernels
 
 
 def attended_pairs(S, causal, window):
@@ -395,13 +420,15 @@ def phase_scan_kernels():
                 err = max(err, (a - b).abs().max().item())
             ms = cuda_time_ms(kernel, 200)
             plain_ms = cuda_time_ms(plain, 5 if T > 128 else 50, warmup=2)
+            dev_us, dev_kernels = device_us(kernel)
             t_bytes = nbytes / H100_BYTES_PER_S
             # operations: the larger of their count over the f32 peak and
             # the serial chain of T dependent FMAs each column must run
             t_chain = T * FMA_CYCLES / SM_CLOCK_HZ
             t_ops = max(ops_per * T * B / PEAK_OPS["float32"], t_chain)
             row = {"name": name, "shape": [T, B], "max_abs_err": err,
-                   "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                   "tol": tol, "ms": ms, "device_us": dev_us,
+                   "device_kernels": dev_kernels, "plain_ms": plain_ms,
                    "library_ms": None,
                    "bound_ms": max(t_bytes, t_ops) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops
@@ -1267,60 +1294,73 @@ def wkv_ops(B, T, H, N):
 
 def phase_wkv6_kernel():
     """The chunked WKV against its plain version (the per-step scan) on
-    the card, y and the final state, with a nonzero u and initial state;
-    returns {shape: row}."""
+    the card, y and the final state, with a nonzero u and initial state,
+    f32 at every WKV_CASES shape and bf16 r, k, v, u at WKV_BF16_CASES
+    (the plain version on their f32 values); returns {shape: row} for
+    f32 and {(shape, "bfloat16"): row} for bf16."""
     import torch
     from repro_torch.kernels.wkv6.kernel import wkv6_btHN
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for B, T, H, N, L in WKV_CASES:
+    cases = [(c, "float32") for c in WKV_CASES] + [
+        (c, "bfloat16") for c in WKV_BF16_CASES]
+    for (B, T, H, N, L), dname in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
         r, k, v = randn(B, T, H, N), randn(B, T, H, N), randn(B, T, H, N)
         logw = -torch.exp(0.5 * randn(B, T, H, N))
         u = 0.3 + 0.2 * randn(H, N)
         s0 = 0.2 * randn(B, H, N, N)
+        dt = getattr(torch, dname)
+        r, k, v, u = (a.to(dt) for a in (r, k, v, u))
+        rf, kf, vf, uf = (a.float() for a in (r, k, v, u))
 
         def plain():
-            return wkv6_ref(r, k, v, logw, u, s0)
+            return wkv6_ref(rf, kf, vf, logw, uf, s0)
 
         state = s0.clone()   # the kernel writes the final S over it
         y, S = wkv6_btHN(r, k, v, logw, u, state, chunk=L)
         torch.cuda.synchronize()
-        check(S is state, f"wkv6_btHN {(B, T, H, N, L)}: the final S was "
-                          f"not written over the given state")
+        case = f"wkv6_btHN {dname} {(B, T, H, N, L)}"
+        check(S is state, f"{case}: the final S was not written over the "
+                          f"given state")
         ry, rS = plain()
         err = 0.0
         for name, a, b in (("y", y, ry), ("S", S, rS)):
             check(torch.isfinite(a).all().item(),
-                  f"wkv6_btHN non-finite {name} at {(B, T, H, N, L)}")
+                  f"{case}: non-finite {name}")
             ok = ((a - b).abs() <= WKV_TOL["atol"]
                   + WKV_TOL["rtol"] * b.abs()).all()
             err = max(err, (a - b).abs().max().item())
-            check(bool(ok), f"wkv6_btHN {(B, T, H, N, L)} {name} outside "
-                            f"atol {WKV_TOL['atol']}, rtol "
+            check(bool(ok), f"{case} {name} outside atol"
+                            f" {WKV_TOL['atol']}, rtol "
                             f"{WKV_TOL['rtol']} (max_abs_err {err})")
         y2, S2 = wkv6_btHN(r, k, v, logw, u, s0.clone(), chunk=L)
         check(torch.equal(y2, y) and torch.equal(S2, S),
-              f"wkv6_btHN {(B, T, H, N, L)}: not bitwise repeatable")
+              f"{case}: not bitwise repeatable")
 
         def kernel():  # timed on one state that it carries, as decode does
             return wkv6_btHN(r, k, v, logw, u, state, chunk=L)
 
         ms = cuda_time_ms(kernel, 200 if T <= 64 else 50)
         plain_ms = cuda_time_ms(plain, 20 if T <= 64 else 3, warmup=2)
-        nbytes = 4 * (5 * B * T * H * N + H * N + 2 * B * H * N * N)
+        dev_us, dev_kernels = device_us(kernel)
+        es = torch.finfo(dt).bits // 8  # r, k, v, u; logw, y, S in f32
+        nbytes = (es * (3 * B * T * H * N + H * N)
+                  + 4 * (2 * B * T * H * N + 2 * B * H * N * N))
         ops = wkv_ops(B, T, H, N)
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / PEAK_OPS["float32"]
         row = {"name": "wkv6_btHN", "shape": [B, T, H, N], "chunk": L,
-               "max_abs_err": err, "tol": WKV_TOL, "ms": ms,
+               "dtype": dname, "max_abs_err": err, "tol": WKV_TOL, "ms": ms,
+               "device_us": dev_us, "device_kernels": dev_kernels,
                "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops}
         print("kernel_case " + json.dumps(row))
-        rows[(B, T, H, N, L)] = row
+        rows[(B, T, H, N, L) if dname == "float32"
+             else ((B, T, H, N, L), dname)] = row
     print("kernels_checked " + json.dumps({"kernels": ["wkv6_btHN"]}))
     return rows
 
@@ -1607,12 +1647,13 @@ def main():
         "replaces": "src/repro/kernels/gmm/kernel.py:42",
         "launches": lm_launches["gmm_ecd"]},
         **{k: gmm_row[k] for k in keys}))
-    wkv_row = wkv_rows[WKV_CASES[0]]
+    # the serve path hands the kernel bf16 r, k, v, u: its prefill row
+    wkv_row = wkv_rows[(WKV_BF16_CASES[0], "bfloat16")]
     kernels.append(dict({
         "name": "wkv6_btHN", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/kernel.py:69",
-        "launches": rwkv_launches["wkv6_btHN"]},
+        "launches": rwkv_launches["wkv6_btHN"], "dtype": wkv_row["dtype"]},
         **{k: wkv_row[k] for k in keys}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

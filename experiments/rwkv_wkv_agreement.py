@@ -17,7 +17,9 @@ f32 orders of the plain path. For
 each layer's time mix, the WKV of the plain path's input runs in the
 kernel (`wkv6_btHN`), in the model's chunked WKV (`wkv_chunked`) and in
 the per-step scan in f32 (`wkv6_ref`), each held against the per-step
-scan in float64: max |y - y64| / max |y64| and the same for S. Prints
+scan in float64: max |y - y64| / max |y64| and the same for S, and the
+kernel's error over `wkv_chunked`'s (`kernel_over_chunked_y`, `_S`; the
+summary's `worst_y_rel` holds their largest over the layers). Prints
 one JSON line per layer and a summary line; needs a card.
 `--no-perturb` keeps the reference's init constants.
 """
@@ -120,6 +122,12 @@ def main(argv=None):
                 row[f"{key}_y_rel"] = rel(y, y64)
                 row[f"{key}_S_rel"] = rel(S, S64)
                 worst[key] = max(worst.get(key, 0.0), row[f"{key}_y_rel"])
+            for part in ("y", "S"):  # the kernel's error over the model's
+                ratio = (row[f"kernel_{part}_rel"]
+                         / max(row[f"wkv_chunked_{part}_rel"], 1e-300))
+                row[f"kernel_over_chunked_{part}"] = ratio
+                worst[f"kernel_over_chunked_{part}"] = max(
+                    worst.get(f"kernel_over_chunked_{part}", 0.0), ratio)
             print(json.dumps(row))
     print(json.dumps({"prompt_len": args.prompt_len,
                       "perturbed": not args.no_perturb,

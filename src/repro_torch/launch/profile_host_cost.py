@@ -20,7 +20,16 @@ only):
   packing alone, the output allocation and the ctypes call itself;
 - `prioritized_sample_c` at the flat DQN path shape (C, size, n) =
   (20000, 12800, 64), `torch.topk` over the scores, and its pieces: the
-  checks, the one allocation and the ctypes call itself.
+  checks, the one allocation and the ctypes call itself;
+- the chunked WKV at the rwkv6-1.6b serve shapes (B, T, H, N) =
+  (4, 1, 32, 64) (a decode step, chunk 1) and (4, 32, 32, 64) (the
+  prefill, chunk 64), each with a carried f32 state: `ops.wkv6` (the
+  model's entry) on bf16 r, k, v and u as the serve path hands them over,
+  the kernel wrapper `wkv6_btHN` on f32 inputs, and its pieces: the
+  checks, the allocation of y, the casts of r, k, v and u from bf16 to
+  f32 (what an entry that takes f32 only must add), and the ctypes call
+  itself (one packed argument where kernel.py has `PARAMS`, else one
+  argument a field).
 Prints one JSON line beside the card's name and power limit. Needs a
 card.
 """
@@ -35,11 +44,15 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.replay_sample import kernel as replay_kernel
 from repro_torch.kernels.replay_sample.kernel import shard_topk_c
+from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.launch.profiling import card
 
 LM_FLASH = {"deepseek-moe-16b": (4, 16, 16, 32, 128),
             "smollm-360m": (4, 15, 5, 32, 64)}
 REPLAY = (20000, 12800, 64)
+# (B, T, H, N, chunk) of the rwkv6-1.6b serve path
+WKV = {"decode": (4, 1, 32, 64, 1), "prefill": (4, 32, 32, 64, 64)}
 
 
 def per_call_us(fn, n=2000):
@@ -141,12 +154,54 @@ def replay_costs(dev):
             lambda: fn(*args, launch_stream(dev)))}
 
 
+def wkv_costs(dev, shape):
+    B, T, H, N, L = shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r, k, v = (torch.randn((B, T, H, N), generator=gen, device=dev)
+               for _ in range(3))
+    logw = -torch.exp(0.5 * torch.randn((B, T, H, N), generator=gen,
+                                        device=dev))
+    u = 0.3 + 0.2 * torch.randn((H, N), generator=gen, device=dev)
+    state = 0.2 * torch.randn((B, H, N, N), generator=gen, device=dev)
+    rb, kb, vb, ub = (a.to(torch.bfloat16) for a in (r, k, v, u))
+    y = torch.empty_like(r)
+    _, fn = wkv_kernel._launcher()
+    stream = launch_stream(dev)
+    if hasattr(wkv_kernel, "PARAMS"):
+        params = wkv_kernel.PARAMS.pack(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), state.data_ptr(), y.data_ptr(), state.data_ptr(),
+            B, T, H, N, L, 0)
+        args = (params, stream)
+    else:
+        args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                u.data_ptr(), state.data_ptr(), y.data_ptr(),
+                state.data_ptr(), B, T, H, N, L, stream)
+    with torch.no_grad():
+        return {
+            "ops.wkv6 (bf16 r, k, v, u)": per_call_us(
+                lambda: wkv_ops.wkv6(rb, kb, vb, logw, ub, L, state)),
+            "wkv6_btHN (f32)": per_call_us(
+                lambda: wkv_kernel.wkv6_btHN(r, k, v, logw, u, state,
+                                             chunk=L)),
+            "checks": per_call_us(
+                lambda: wkv_kernel._check(r, k, v, logw, u, state, L)),
+            "torch.empty": per_call_us(lambda: torch.empty(
+                (B, T, H, N), dtype=torch.float32, device=dev)),
+            "casts to f32 (r, k, v, u)": per_call_us(lambda: [
+                a.float().contiguous() for a in (rb, kb, vb, ub)]),
+            f"ctypes call ({len(args)} args)": per_call_us(
+                lambda: fn(*args))}
+
+
 def main():
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {"card": card(), "host_us_per_call": shard_costs(dev)}
     out["flash_attention_bf16"] = {f"{name} {shape}": flash_costs(dev, shape)
                                    for name, shape in LM_FLASH.items()}
     out["prioritized_sample_c"] = replay_costs(dev)
+    out["wkv6"] = {f"{name} {shape}": wkv_costs(dev, shape)
+                   for name, shape in WKV.items()}
     print(json.dumps(out))
 
 

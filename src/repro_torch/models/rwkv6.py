@@ -152,11 +152,11 @@ def rwkv_time_mix_seq(cfg, p, x, state, chunk=64, use_kernels=False):
     B, T, d = x.shape
     prev, new_shift = _token_shift(x, state["shift"])
     r, k, v, g, logw = _rkvwg(cfg, p, x, prev)
-    r, k, v, u, S = (a.float() for a in (r, k, v, p["u"], state["S"]))
-    if use_kernels:
+    if use_kernels:  # the kernel reads bf16 or f32 r, k, v, u as they are
         from repro_torch.kernels.wkv6 import ops as wkv6_ops
-        y, S = wkv6_ops.wkv6(r, k, v, logw, u, chunk, S)
+        y, S = wkv6_ops.wkv6(r, k, v, logw, p["u"], chunk, state["S"])
     else:
+        r, k, v, u, S = (a.float() for a in (r, k, v, p["u"], state["S"]))
         y, S = wkv_chunked(r, k, v, logw, u, S, chunk=chunk)
     y = _headnorm(p, y).reshape(B, T, d).to(x.dtype) * \
         g.reshape(B, T, d)

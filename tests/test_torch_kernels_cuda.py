@@ -23,7 +23,8 @@ the card, kernel against use_kernels=False, is held to the same bf16
 bounds on the layer output. The chunked WKV is held to its plain version
 (the per-step scan), y and the final state, within atol = 2e-4,
 rtol = 1e-3, the reference's own (tests/test_kernels.py: the same f32
-recurrence blocked in chunks); the RWKV time mix on the card, kernel
+recurrence blocked in chunks), with bf16 r, k, v, u held against the
+plain version on their f32 values; the RWKV time mix on the card, kernel
 against use_kernels=False, to the MoE layer's bf16 bounds."""
 import numpy as np
 import pytest
@@ -806,8 +807,8 @@ def test_wkv6_refuses_what_it_does_not_take(wkv, bad):
         k = k.transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "float64":
         v = v.double()
-    elif bad == "bf16":
-        r = r.to(torch.bfloat16)
+    elif bad == "bf16":  # r, k, v and u may be bf16; logw may not
+        logw = logw.to(torch.bfloat16)
     elif bad == "cpu_state":
         s0 = s0.cpu()
     elif bad == "shape":
@@ -815,6 +816,93 @@ def test_wkv6_refuses_what_it_does_not_take(wkv, bad):
     with pytest.raises(err):
         wkv(r, k, v, logw, u, s0, chunk=chunk)
     assert wkv.launches == 0
+
+
+# the kernel's paths and edges: T below, at and past one sub-chunk (16)
+# and one chunk, ragged tails, 512 steps; chunk 1 (the streaming path)
+# and 16, 32, 64; N below, at and not a multiple of a column slice
+WKV_SWEEP_T = [1, 2, 15, 16, 17, 31, 32, 33, 64, 65, 100, 512]
+WKV_SWEEP_CHUNK = [1, 16, 32, 64]
+
+
+def _wkv_call_checked(wkv, r, k, v, logw, u, s0, chunk):
+    """The kernel twice on the same inputs, each writing the final S over
+    its own copy of s0 (or from zero): one launch a call, bitwise equal
+    results. Returns (y, S)."""
+    outs = []
+    for _ in range(2):
+        state = None if s0 is None else s0.clone()
+        before = wkv.launches
+        y, S = wkv(r, k, v, logw, u, state, chunk=chunk)
+        torch.cuda.synchronize()
+        assert wkv.launches == before + 1
+        assert state is None or S is state  # written over the given state
+        outs.append((y, S))
+    (y, S), (y2, S2) = outs
+    assert torch.equal(y, y2) and torch.equal(S, S2)
+    return y, S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 16, 64])
+@pytest.mark.parametrize("chunk", WKV_SWEEP_CHUNK)
+@pytest.mark.parametrize("T", WKV_SWEEP_T)
+def test_wkv6_sweep(wkv, T, chunk, N):
+    """Kernel against plain, from a nonzero state and from zero."""
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    r, k, v, logw, u, s0 = _wkv_inputs(2, T, 3, N, "cuda", seed=T + N)
+    for state in (s0, None):
+        y, S = _wkv_call_checked(wkv, r, k, v, logw, u, state, chunk)
+        ry, rS = wkv6_ref(r, k, v, logw, u, state)
+        torch.testing.assert_close(y, ry, **WKV_TOL)
+        torch.testing.assert_close(S, rS, **WKV_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", ["zero", "strong"])
+@pytest.mark.parametrize("T,chunk", [(1, 1), (17, 16), (33, 32), (100, 64),
+                                     (512, 64), (65, 1)])
+def test_wkv6_decay_and_dtypes(wkv, T, chunk, decay, dtype):
+    """logw = 0 (no decay: the state only grows) and logw down to -30 a
+    step (e^c underflows within a chunk), on f32 or bf16 r, k, v, u; the
+    plain version runs on the f32 values of the same inputs."""
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    r, k, v, logw, u, s0 = _wkv_inputs(2, T, 3, 64, "cuda", seed=T)
+    if decay == "zero":
+        logw = torch.zeros_like(logw)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(T + 1)
+        logw = -30.0 * torch.rand(logw.shape, generator=gen, device="cuda")
+    dt = getattr(torch, dtype)
+    r, k, v, u = (a.to(dt) for a in (r, k, v, u))
+    y, S = _wkv_call_checked(wkv, r, k, v, logw, u, s0, chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    ry, rS = wkv6_ref(r.float(), k.float(), v.float(), logw, u.float(), s0)
+    torch.testing.assert_close(y, ry, **WKV_TOL)
+    torch.testing.assert_close(S, rS, **WKV_TOL)
+
+
+# the heads that make the kernel pick each column-slice width at B = 2
+# (wkv6.cu `choose_cw`: 64 columns from B·H = 64 up, 32 from 32, else 16)
+WKV_WIDTH_HEADS = {64: 32, 32: 16, 16: 3, 1: 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cw", [16, 32, 64, 1])
+@pytest.mark.parametrize("T,chunk", [(32, 64), (100, 32), (512, 64)])
+def test_wkv6_every_slice_width(wkv, T, chunk, cw):
+    """The chunked path at each column-slice width it takes, reached by
+    B·H, and (cw 1) the streaming path at the same T, reached by chunk 1
+    (launch/profile_wkv.py times them all)."""
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    H = WKV_WIDTH_HEADS[cw]
+    r, k, v, logw, u, s0 = _wkv_inputs(2, T, H, 64, "cuda", seed=cw)
+    y, S = _wkv_call_checked(wkv, r, k, v, logw, u, s0,
+                             1 if cw == 1 else chunk)
+    ry, rS = wkv6_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y, ry, **WKV_TOL)
+    torch.testing.assert_close(S, rS, **WKV_TOL)
 
 
 @pytest.mark.cuda
