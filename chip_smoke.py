@@ -15,7 +15,10 @@ Phases, in order; the script exits non-zero at the first failure:
      at the deepseek-moe-16b and smollm-360m heads, where the tensor cores
      set the time), then the discounted-return scan, its adjoint
      and V-trace at (T, B) = (32, 32) (the training path), (32, 4096) and
-     (2048, 128) (each with its device time, `device_us`), then the
+     (2048, 128) (each with its device time, `device_us`, and beside it
+     `launch_floor_us`, the device time of the library's empty kernel
+     launched in the same profiler window; the f32 flash row at the
+     policy trunk's serving shape has it too), then the
      prioritized replay draw at (C, size, n) =
      (20000, 12800, 64) (the DQN path), a full 1M-slot buffer with n = 256,
      nearly empty and empty buffers, and forced ties (indices exact,
@@ -221,37 +224,12 @@ def device_us(fn, iters=10, tries=5):
     kernels' own time. Late in a long process the profiler loses some
     kernels' records, not their launch calls': a window with fewer kernel
     records than launch calls, or a kernel seen other than a whole number
-    of times a call, is run again, up to `tries` windows (acc_events
-    windows lost fewer on the card). The time is None where no window was
-    whole or the profiler saw no kernel; the launches are the last
-    window's."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    kernels = {}
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total, kernels, whole, seen, launched = 0.0, {}, True, 0, 0
-        for evt in prof.key_averages():
-            if evt.device_type != DeviceType.CUDA:
-                if "Launch" in evt.key and "Kernel" in evt.key:
-                    launched += evt.count
-                continue
-            t = getattr(evt, "self_device_time_total", None)
-            total += t if t is not None else evt.self_cuda_time_total
-            kernels[evt.key[:60]] = evt.count / iters
-            whole = whole and evt.count % iters == 0
-            if not evt.key.startswith(("Memset", "Memcpy")):
-                seen += evt.count
-        if kernels and whole and seen >= launched:
-            return total / iters, kernels
-    return None, kernels
+    of times a call, is run again, up to `tries` windows
+    (`launch/profiling.kernel_us`). The time is None where no window was
+    whole; the launches are the last window's."""
+    from repro_torch.launch.profiling import kernel_us
+    times, launches = kernel_us(fn, iters, tries)
+    return (sum(times.values()) if times else None), launches
 
 
 def attended_pairs(S, causal, window):
@@ -297,6 +275,7 @@ def phase_kernels():
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.profiling import beside_floor
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     cases = [(c, "float32") for c in KERNEL_CASES] + [
@@ -344,7 +323,12 @@ def phase_kernels():
         ms = cuda_time_ms(kernel, iters)
         plain_ms = cuda_time_ms(plain, iters)
         library_ms = cuda_time_ms(library, iters)
-        dev_us, dev_kernels = device_us(kernel)
+        floor_us = None
+        if ((B, H, KVH, S, D, causal, window), dname) == (SERVE_CASE,
+                                                         "float32"):
+            dev_us, floor_us, dev_kernels = beside_floor(kernel)
+        else:
+            dev_us, dev_kernels = device_us(kernel)
         library_dev_us, _ = device_us(library)
         es = torch.finfo(dt).bits // 8
         nbytes = es * (2 * B * H * S * D + 2 * B * KVH * S * D)
@@ -353,6 +337,7 @@ def phase_kernels():
         row = {"shape": [B, H, KVH, S, D], "causal": causal,
                "window": window, "dtype": dname, "max_abs_err": err,
                "tol": TOL[dname], "ms": ms, "device_us": dev_us,
+               "launch_floor_us": floor_us,
                "device_kernels": dev_kernels, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library_device_us": library_dev_us,
@@ -366,8 +351,10 @@ def phase_kernels():
 
 
 def scan_tol(T):
-    """nvcc contracts `b + c*acc` into one FMA, the plain loop rounds
-    twice: rtol = atol = 1e-5 at T <= 128, 1e-4 at T = 2048."""
+    """The kernels fuse `b + c*acc` into one FMA where the plain loop
+    rounds twice, and the discounted-return kernels compose the steps'
+    maps in a scan over time, not in order: rtol = atol = 1e-5 at
+    T <= 128, 1e-4 at T = 2048."""
     return 1e-5 if T <= 128 else 1e-4
 
 
@@ -381,6 +368,7 @@ def phase_scan_kernels():
         discounted_return_adjoint_ref, discounted_return_ref)
     from repro_torch.kernels.vtrace.kernel import vtrace_tb
     from repro_torch.kernels.vtrace.ref import vtrace_ref
+    from repro_torch.launch.profiling import beside_floor
     gen = torch.Generator(device="cuda").manual_seed(0)
     path = {}
     for T, B in SCAN_SHAPES:
@@ -420,14 +408,15 @@ def phase_scan_kernels():
                 err = max(err, (a - b).abs().max().item())
             ms = cuda_time_ms(kernel, 200)
             plain_ms = cuda_time_ms(plain, 5 if T > 128 else 50, warmup=2)
-            dev_us, dev_kernels = device_us(kernel)
+            dev_us, floor_us, dev_kernels = beside_floor(kernel)
             t_bytes = nbytes / H100_BYTES_PER_S
-            # operations: the larger of their count over the f32 peak and
-            # the serial chain of T dependent FMAs each column must run
+            t_ops = ops_per * T * B / PEAK_OPS["float32"]
+            # beside the bound: a serial chain of T dependent FMAs a column
+            # (what a kernel that scans each column in order must take)
             t_chain = T * FMA_CYCLES / SM_CLOCK_HZ
-            t_ops = max(ops_per * T * B / PEAK_OPS["float32"], t_chain)
             row = {"name": name, "shape": [T, B], "max_abs_err": err,
                    "tol": tol, "ms": ms, "device_us": dev_us,
+                   "launch_floor_us": floor_us,
                    "device_kernels": dev_kernels, "plain_ms": plain_ms,
                    "library_ms": None,
                    "bound_ms": max(t_bytes, t_ops) * 1e3,

@@ -6,34 +6,62 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes the
 plain version (ref.py). `discounted_return_tb.launches` and
 `discounted_return_adjoint_tb.launches` count kernel launches, so a run
 can show that its main path went through the kernels.
+
+Each entry's launch arguments go to the C side as one packed struct (the
+layouts of `ScanFwdParams` and `ScanAdjParams` in the source), one
+ctypes argument: at the training path's (T, B) = (32, 32) the host's
+work per call, not the kernel, sets the call's time
+(launch/profile_host_cost.py).
 """
 import ctypes
 import functools
+import struct
 
 import torch
 
 from repro_torch.kernels.common import (check_launch, check_tb, launch_stream,
-                                        load_kernels, mat_args, on_device)
+                                        load_kernels, on_device)
 from repro_torch.kernels.advantages.ref import (
     discounted_return_adjoint_ref, discounted_return_ref)
 
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# ScanFwdParams: base, coef, init, out; the (row, column) element strides
+# of base and coef, init's stride; T, B
+FWD_PARAMS = struct.Struct("<4Q5q2i")
+# ScanAdjParams: g, coef, out, init, dbase, dcoef, dinit (0 where not
+# asked for); the (row, column) strides of g, coef, out, init's stride;
+# T, B
+ADJ_PARAMS = struct.Struct("<7Q7q2i")
 
 
 def _ptr(t):
-    return None if t is None else t.data_ptr()
+    return 0 if t is None else t.data_ptr()
+
+
+def fwd_params(base, coef, init, out):
+    """The forward's packed arguments (ScanFwdParams)."""
+    T, B = base.shape
+    return FWD_PARAMS.pack(
+        base.data_ptr(), coef.data_ptr(), init.data_ptr(), out.data_ptr(),
+        *base.stride(), *coef.stride(), init.stride(0), T, B)
+
+
+def adj_params(g, coef, out, init, dbase, dcoef, dinit):
+    """The adjoint's packed arguments (ScanAdjParams); a gradient not
+    asked for (None) is a null pointer."""
+    T, B = g.shape
+    return ADJ_PARAMS.pack(
+        g.data_ptr(), coef.data_ptr(), out.data_ptr(), init.data_ptr(),
+        _ptr(dbase), _ptr(dcoef), _ptr(dinit), *g.stride(), *coef.stride(),
+        *out.stride(), init.stride(0), T, B)
 
 
 @functools.cache
 def _launchers():
     dll = load_kernels()
-    fwd = dll.discounted_return_tb
-    fwd.argtypes = [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I, _I, _P]
-    fwd.restype = _I
-    adj = dll.discounted_return_adjoint_tb
-    adj.argtypes = ([_P, _I64, _I64] * 3 + [_P, _I64, _P, _P, _P, _I, _I,
-                                             _P])
-    adj.restype = _I
+    fwd, adj = dll.discounted_return_tb, dll.discounted_return_adjoint_tb
+    for fn in (fwd, adj):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return dll, fwd, adj
 
 
@@ -43,19 +71,19 @@ def discounted_return_tb(base, coef, init):
     out_T = init. No gradient: under autograd use `DiscountedReturn`."""
     if not base.is_cuda:
         return discounted_return_ref(base, coef, init)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (base, coef, init)):
+    if torch.is_grad_enabled() and (base.requires_grad or coef.requires_grad
+                                    or init.requires_grad):
         raise RuntimeError("discounted_return_tb: an input requires grad; "
                            "call DiscountedReturn.apply, whose backward "
                            "is the adjoint kernel")
     T, B = base.shape
     check_tb("discounted_return_tb", T, B, (base, coef), (init,))
-    out = torch.empty((T, B), dtype=torch.float32, device=base.device)
+    dev = base.device
+    out = base.new_empty((T, B))  # float32 on base's device, contiguous
+    params = fwd_params(base, coef, init, out)
     dll, fwd, _ = _launchers()
-    with on_device(base.device):
-        stream = launch_stream(base.device)
-        code = fwd(*mat_args(base), *mat_args(coef), init.data_ptr(),
-                   init.stride(0), out.data_ptr(), T, B, stream)
+    with on_device(dev):
+        code = fwd(params, launch_stream(dev))
     discounted_return_tb.launches += 1
     check_launch(dll, code, "discounted_return_tb")
     return out
@@ -75,16 +103,13 @@ def discounted_return_adjoint_tb(g, coef, out, init, need=(True, True,
     T, B = g.shape
     check_tb("discounted_return_adjoint_tb", T, B, (g, coef, out), (init,))
     dev = g.device
-    dbase, dcoef = (torch.empty((T, B), dtype=torch.float32, device=dev)
-                    if n else None for n in need[:2])
-    dinit = torch.empty((B,), dtype=torch.float32, device=dev) \
-        if need[2] else None
+    dbase = g.new_empty((T, B)) if need[0] else None  # float32, on g's
+    dcoef = g.new_empty((T, B)) if need[1] else None  # device
+    dinit = g.new_empty((B,)) if need[2] else None
+    params = adj_params(g, coef, out, init, dbase, dcoef, dinit)
     dll, _, adj = _launchers()
     with on_device(dev):
-        stream = launch_stream(dev)
-        code = adj(*mat_args(g), *mat_args(coef), *mat_args(out),
-                   init.data_ptr(), init.stride(0), _ptr(dbase),
-                   _ptr(dcoef), _ptr(dinit), T, B, stream)
+        code = adj(params, launch_stream(dev))
     discounted_return_adjoint_tb.launches += 1
     check_launch(dll, code, "discounted_return_adjoint_tb")
     return dbase, dcoef, dinit

@@ -48,11 +48,14 @@ def launch_stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+_CURRENT = contextlib.nullcontext()  # reusable: no object a call
+
+
 def on_device(device):
     """Make `device` current around a launch: a no-op context where it
     already is (entering torch.cuda.device costs ~5 us of host time)."""
     if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
+        return _CURRENT
     return torch.cuda.device(device)
 
 
@@ -129,6 +132,18 @@ def load_kernels() -> ctypes.CDLL:
     return dll
 
 
+NULL_KERNEL = "repro_null_kernel"  # the profiler's name for it, in part
+
+
+def launch_null(device) -> None:
+    """Launch the library's empty kernel (shared/csrc/null.cu) on
+    `device`'s current stream: its device time is the launch floor."""
+    dll = load_kernels()
+    with on_device(device):
+        code = dll.repro_null_launch(ctypes.c_void_p(launch_stream(device)))
+    check_launch(dll, code, "repro_null_launch")
+
+
 def check_launch(dll, code: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if code != 0:
@@ -145,16 +160,26 @@ def mat_args(t):
 def check_tb(name, T, B, mats, vecs):
     """Raise unless every (T, B) matrix in `mats` and (B,) vector in
     `vecs` is float32 on one device, with 1 <= T, B < 2^31."""
+    dev = mats[0].get_device()  # an int: cheaper than comparing devices
+    f32 = torch.float32
+    for t in mats:
+        if t.dtype != f32 or t.get_device() != dev or t.shape != (T, B):
+            _tb_error(name, T, B, mats, vecs)
+    for t in vecs:
+        if t.dtype != f32 or t.get_device() != dev or t.shape != (B,):
+            _tb_error(name, T, B, mats, vecs)
+    if not (1 <= T < 2 ** 31 and 1 <= B < 2 ** 31):
+        raise ValueError(f"{name}: T={T}, B={B} outside [1, 2^31)")
+
+
+def _tb_error(name, T, B, mats, vecs):
+    """check_tb's message for what it found wrong."""
     dev = mats[0].device
     for t in (*mats, *vecs):
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name}: inputs on different devices")
-    if any(tuple(t.shape) != (T, B) for t in mats) or \
-            any(tuple(t.shape) != (B,) for t in vecs):
-        raise ValueError(f"{name}: expected (T, B) = {(T, B)} matrices and "
-                         f"({B},) vectors, got "
-                         f"{[tuple(t.shape) for t in (*mats, *vecs)]}")
-    if not (1 <= T < 2 ** 31 and 1 <= B < 2 ** 31):
-        raise ValueError(f"{name}: T={T}, B={B} outside [1, 2^31)")
+    raise ValueError(f"{name}: expected (T, B) = {(T, B)} matrices and "
+                     f"({B},) vectors, got "
+                     f"{[tuple(t.shape) for t in (*mats, *vecs)]}")

@@ -44,13 +44,20 @@
 // them), or more than 65535 query tiles per group, take the CUDA-core
 // kernel below in bf16.
 //
-// float32 keeps the CUDA-core kernel (flash_fwd), unchanged: every
-// product and sum f32 on the CUDA cores (no TF32, as the port's f32
-// reference requires). At the policy trunk's serving shape (B = bucket <=
-// 32, H = 4, S = 4, D = 64) one call moves a few tens of KB and launch
-// latency bounds it. One thread block of 4 warps per (query tile of 16
-// rows, head, batch); warp w owns rows w, w+4, w+8, w+12 of the tile, so
-// a tiny S still spreads over the warps. K/V tiles of 32 keys are staged
+// float32: every product and sum f32 on the CUDA cores (no TF32, as the
+// port's f32 reference requires). The policy trunk serves at (B = bucket
+// <= 32, H = 4 over KVH = 2, S = 4 or 3, D = 64): a call moves a few
+// hundred KB at most and launch latency and one global round trip bound
+// it. Where every row's keys lie in [0, kv_end) with kv_end <= 32 (every
+// trunk call), the caller picks the short-span kernels (below: one tile
+// of keys, one round trip of 16-byte loads, scores split over lanes by
+// key and dim; flash_short_reg_f32 keeps each lane's share of Q, K and V
+// in registers up to 4 keys at D <= 128, the trunk's calls, and
+// flash_short_f32 stages K/V once per kv-head group in shared memory for
+// the rest). Longer spans take flash_fwd: one
+// thread block of 4 warps per (query tile of 16 rows, head, batch); warp
+// w owns rows w, w+4, w+8, w+12 of the tile, so a tiny S still spreads
+// over the warps. K/V tiles of 32 keys are staged
 // in dynamic shared memory as f32 (D = 256 needs ~80 KB, above the 48 KB
 // static limit). For the scores, lane j owns key j of the tile and dots
 // it with each of the warp's rows (K rows padded to D+1 floats so the 32
@@ -252,6 +259,352 @@ cudaError_t dispatch_d(const Args& a, int B, int D, cudaStream_t stream) {
     case 64: return launch<T, 64>(a, B, stream);
     case 128: return launch<T, 128>(a, B, stream);
     case 256: return launch<T, 256>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- float32, a short key span: flash_short_f32 ----
+
+constexpr int kShortSpan = 32;     // the longest key range it takes
+constexpr int kShortWarps = 8;
+constexpr int kShortThreads = kShortWarps * 32;
+constexpr int kShortRows = 16;     // most rows of a block: two a warp
+constexpr int kShortGroupRows = 8; // rows a block gathers from small groups
+
+// 4 bytes global -> shared (the path for operands that are not 16-byte
+// aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               ::"r"(sm90::smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Blocks of a short-span launch: NG whole (kv head, batch) groups of M =
+// S * G rows a block when M is at most 4 (up to 8 rows), else one group's
+// rows in tiles of up to 16.
+struct ShortPlan {
+  int ng, tiles;
+  int64_t blocks;
+};
+
+ShortPlan short_plan(int B, int KVH, int M) {
+  const int ng = M <= kShortGroupRows / 2 ? kShortGroupRows / M : 1;
+  const int tiles = M > kShortRows ? (M + kShortRows - 1) / kShortRows : 1;
+  const int64_t groups = int64_t(B) * KVH;
+  return {ng, tiles, (groups + ng - 1) / ng * tiles};
+}
+
+// f32, every row's keys inside [0, kv_end) with kv_end <= 32: one tile of
+// keys, so the softmax needs no online rescale. Rows are the (query, head)
+// pairs r = qpos * G + g of the G query heads of one kv head; K and V are
+// staged once per group. The block's Q rows, K and V come in by cp.async
+// (16 bytes where every base and stride allows it, else 4), all in flight
+// before one wait. Warp w takes rows w and w + 8, together. Scores:
+// lane l is key j = l / P, part p = l % P (NP = 32 / P keys at once, NP >=
+// kv_end), and dots D / P of the row's dims, 16 bytes at a time from
+// shared memory, summed over the P lanes of the key by shuffles; the row
+// max and sum are shuffles over the keys (flash_fwd's butterfly order).
+// P V: lane l owns dims l + 32 i and takes each p_j from lane j * P. All
+// f32 FMAs on the CUDA cores. As in flash_fwd and the plain version, q is
+// scaled before the product; at P = 1 (17-32 keys) every score, sum and
+// product is flash_fwd's, in its order (one FMA chain over d), so these
+// calls give flash_fwd's bits (the f32 LM agreement amplifies any other
+// rounding through 28 layers).
+template <int D, int NP>
+__global__ void __launch_bounds__(kShortThreads)
+    flash_short_f32(Args a, int B, int ng, int tiles) {
+  constexpr int P = 32 / NP;           // lanes per key
+  constexpr int C4 = D / 4;            // 16-byte pieces of a row
+  constexpr int KS = D + 4 * (P % 8);  // padded K row: a quarter warp's
+                                       // 16-byte reads hit 8 bank groups
+  constexpr int kPer = D / 32;         // P V dims per lane
+  extern __shared__ __align__(16) float sh_short[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.H / a.KVH, M = a.S * G, n = a.kv_end;
+  // the caller keeps B * KVH * tiles < 2^31: int indices
+  const int u = blockIdx.x, tile = u % tiles;
+  const int g0 = u / tiles * ng;       // first group: g = b * KVH + kvh
+  const int ngb = min(ng, B * a.KVH - g0);
+  const int r0 = tile * kShortRows;    // first row of the group's tile
+  const int rg = tiles > 1 ? min(kShortRows, M - r0) : M;  // rows a group
+  const int R = ngb * rg;              // rows of the block
+  const int Rmax = ng * (tiles > 1 ? kShortRows : M);
+  float* sQ = sh_short;                // [Rmax][D]
+  float* sK = sQ + Rmax * D;           // [ng][n][KS]
+  float* sV = sK + ng * n * KS;        // [ng][n][D]
+
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  // 16-byte copies need every base and (b, h, s) stride a multiple of 4
+  // floats
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  const int64_t strides = a.q_b | a.q_h | a.q_s | a.k_b | a.k_h | a.k_s |
+                          a.v_b | a.v_h | a.v_s;
+  const bool vec = (ptrs & 15) == 0 && (strides & 3) == 0;
+  auto copy = [&](float* dst, const float* src) {
+    if (vec) {
+      sm90::cp_async16<false>(dst, src, true);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(dst + e, src + e);
+    }
+  };
+  // thread tid copies piece c of rows tid / C4, + kStep, ...
+  constexpr int kStep = kShortThreads / C4;
+  const int c = tid % C4 * 4;
+  for (int lr = tid / C4; lr < R; lr += kStep) {  // Q
+    const int gi = lr / rg, rr = r0 + lr - gi * rg;
+    const int g = g0 + gi, b = g / a.KVH, kvh = g - b * a.KVH;
+    const int qpos = rr / G, h = kvh * G + rr - qpos * G;
+    copy(sQ + lr * D + c, q + b * a.q_b + h * a.q_h + qpos * a.q_s + c);
+  }
+  for (int row = tid / C4; row < ngb * n; row += kStep) {  // K, V
+    const int gi = row / n, j = row - gi * n;
+    const int g = g0 + gi, b = g / a.KVH, kvh = g - b * a.KVH;
+    copy(sK + row * KS + c, k + b * a.k_b + kvh * a.k_h + j * a.k_s + c);
+    copy(sV + row * D + c, v + b * a.v_b + kvh * a.v_h + j * a.v_s + c);
+  }
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's rows: warp and warp + 8 (R <= 16), ne of them
+  const int ne = warp + kShortWarps < R ? 2 : warp < R ? 1 : 0;
+  if (ne == 0) return;  // warp-uniform; no barrier follows
+  const int j = lane / P, p = lane % P;
+  const float4* sQ4 = reinterpret_cast<const float4*>(sQ);
+  const float4* sK4 = reinterpret_cast<const float4*>(sK);
+  int gis[2], rrs[2];
+  float pr[2], l[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (e >= ne) break;
+    const int lr = warp + e * kShortWarps;
+    gis[e] = lr / rg;
+    rrs[e] = r0 + lr - gis[e] * rg;
+    const int qpos = rrs[e] / G;
+    const int lo = a.window > 0 ? max(0, qpos - a.window + 1) : 0;
+    const int hi = a.causal ? min(qpos + 1, n) : n;
+    const float4* qrow = sQ4 + lr * C4;
+    const float4* krow = sK4 + (gis[e] * n + min(j, n - 1)) * (KS / 4);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < C4 / P; ++i) {
+      const float4 qv = qrow[p + P * i], kv = krow[p + P * i];
+      s = fmaf(qv.x * a.scale, kv.x, s);
+      s = fmaf(qv.y * a.scale, kv.y, s);
+      s = fmaf(qv.z * a.scale, kv.z, s);
+      s = fmaf(qv.w * a.scale, kv.w, s);
+    }
+#pragma unroll
+    for (int m = P / 2; m > 0; m >>= 1) s += __shfl_xor_sync(kFull, s, m);
+    const bool valid = j >= lo && j < hi;
+    float mx = valid ? s : -INFINITY;
+#pragma unroll
+    for (int m = 16; m >= P; m >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, m));
+    pr[e] = valid ? expf(s - mx) : 0.f;
+    l[e] = pr[e];
+#pragma unroll
+    for (int m = 16; m >= P; m >>= 1) l[e] += __shfl_xor_sync(kFull, l[e], m);
+  }
+  float acc[2][kPer];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[e][i] = 0.f;
+  for (int jj = 0; jj < n; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (e >= ne) break;
+      const float pj = __shfl_sync(kFull, pr[e], jj * P);
+      const float* vrow = sV + (gis[e] * n + jj) * D + lane;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        acc[e][i] = fmaf(pj, vrow[32 * i], acc[e][i]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (e >= ne) break;
+    const int g = g0 + gis[e], b = g / a.KVH, kvh = g - b * a.KVH;
+    const int qpos = rrs[e] / G, h = kvh * G + rrs[e] - qpos * G;
+    float* orow = static_cast<float*>(a.o) + b * a.o_b + h * a.o_h +
+                  qpos * a.o_s + lane;
+    const float inv = 1.f / fmaxf(l[e], 1e-30f);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) orow[32 * i] = acc[e][i] * inv;
+  }
+}
+
+// Up to 4 keys (the policy trunk: S = 4 or 3) and D <= 128, each lane's
+// share of Q, K and V fits in registers: flash_short_reg_f32 loads it
+// there straight from global memory (16 bytes at a time where the
+// alignment rule allows, else 4), every load of the warp's rows before
+// the first use, with no shared memory and no barrier: the warps of a
+// block run apart. Lane l is key j = l / 8, part p = l % 8 for the
+// scores, as in flash_short_f32 at NP = 4, and owns dims l + 32 i for
+// P V, taking V's rows of those dims for every key.
+// 16 bytes, or 4 pieces of 4 where the alignment rule does not allow it,
+// pinned where written (sm90::ld_nc)
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  using sm90::ld_nc;
+  return vec ? sm90::ld_nc4(p)
+             : make_float4(ld_nc(p), ld_nc(p + 1), ld_nc(p + 2), ld_nc(p + 3));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kShortThreads)
+    flash_short_reg_f32(Args a, int B, int ng, int tiles) {
+  constexpr int NP = 4, P = 32 / NP;  // 4 keys of 8 lanes
+  constexpr int C4 = D / 4, kQ = C4 / P, kPer = D / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = a.H / a.KVH, M = a.S * G, n = a.kv_end;
+  const int u = blockIdx.x, tile = u % tiles;
+  const int g0 = u / tiles * ng;
+  const int ngb = min(ng, B * a.KVH - g0);
+  const int r0 = tile * kShortRows;
+  const int rg = tiles > 1 ? min(kShortRows, M - r0) : M;
+  const int R = ngb * rg;
+  const int ne = warp + kShortWarps < R ? 2 : warp < R ? 1 : 0;
+  if (ne == 0) return;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  const int64_t strides = a.q_b | a.q_h | a.q_s | a.k_b | a.k_h | a.k_s |
+                          a.v_b | a.v_h | a.v_s;
+  const bool vec = (ptrs & 15) == 0 && (strides & 3) == 0;
+  const int j = lane / P, p = lane % P, jc = min(j, n - 1);
+
+  // every load of this warp's rows, in flight at once
+  float4 qv[2][kQ], kv[2][kQ];
+  float vv[2][NP][kPer];
+  int gis[2], bs[2], kvhs[2], qps[2], hs[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (e >= ne) break;
+    const int lr = warp + e * kShortWarps;
+    gis[e] = lr / rg;
+    const int rr = r0 + lr - gis[e] * rg;
+    const int g = g0 + gis[e];
+    bs[e] = g / a.KVH;
+    kvhs[e] = g - bs[e] * a.KVH;
+    qps[e] = rr / G;
+    hs[e] = kvhs[e] * G + rr - qps[e] * G;
+    const float* qrow = static_cast<const float*>(a.q) + bs[e] * a.q_b +
+                        hs[e] * a.q_h + qps[e] * a.q_s;
+    const float* kb = static_cast<const float*>(a.k) + bs[e] * a.k_b +
+                      kvhs[e] * a.k_h;
+    const float* vb = static_cast<const float*>(a.v) + bs[e] * a.v_b +
+                      kvhs[e] * a.v_h + lane;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+      qv[e][i] = load4(qrow + 4 * (p + P * i), vec);
+      kv[e][i] = load4(kb + jc * a.k_s + 4 * (p + P * i), vec);
+    }
+#pragma unroll
+    for (int jj = 0; jj < NP; ++jj)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        vv[e][jj][i] = sm90::ld_nc(vb + min(jj, n - 1) * a.v_s + 32 * i);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (e >= ne) break;
+    const int lo = a.window > 0 ? max(0, qps[e] - a.window + 1) : 0;
+    const int hi = a.causal ? min(qps[e] + 1, n) : n;
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+      s = fmaf(qv[e][i].x * a.scale, kv[e][i].x, s);
+      s = fmaf(qv[e][i].y * a.scale, kv[e][i].y, s);
+      s = fmaf(qv[e][i].z * a.scale, kv[e][i].z, s);
+      s = fmaf(qv[e][i].w * a.scale, kv[e][i].w, s);
+    }
+#pragma unroll
+    for (int m = P / 2; m > 0; m >>= 1) s += __shfl_xor_sync(kFull, s, m);
+    const bool valid = j >= lo && j < hi;
+    float mx = valid ? s : -INFINITY;
+#pragma unroll
+    for (int m = 16; m >= P; m >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, m));
+    const float pr = valid ? expf(s - mx) : 0.f;
+    float l = pr;
+#pragma unroll
+    for (int m = 16; m >= P; m >>= 1) l += __shfl_xor_sync(kFull, l, m);
+    float acc[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < NP; ++jj) {
+      const float pj = __shfl_sync(kFull, pr, jj * P);  // 0 past n
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc[i] = fmaf(pj, vv[e][jj][i], acc[i]);
+    }
+    float* orow = static_cast<float*>(a.o) + bs[e] * a.o_b + hs[e] * a.o_h +
+                  qps[e] * a.o_s + lane;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) orow[32 * i] = acc[i] * inv;
+  }
+}
+
+template <int D>
+cudaError_t launch_short_reg(const Args& a, int B, cudaStream_t stream) {
+  const ShortPlan pl = short_plan(B, a.KVH, a.S * (a.H / a.KVH));
+  if (pl.blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  flash_short_reg_f32<D><<<unsigned(pl.blocks), kShortThreads, 0, stream>>>(
+      a, B, pl.ng, pl.tiles);
+  return cudaGetLastError();
+}
+
+template <int D, int NP>
+cudaError_t launch_short_np(const Args& a, int B, cudaStream_t stream) {
+  constexpr int P = 32 / NP, KS = D + 4 * (P % 8);
+  // the most any plan takes: 16 rows of Q, and K, V rows of at most
+  // max(8, NP) keys over the block's groups
+  constexpr int kMaxKV = NP > kShortGroupRows ? NP : kShortGroupRows;
+  constexpr int kMaxSmem = (kShortRows * D + kMaxKV * (KS + D)) * 4;
+  static bool configured = false;  // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_short_f32<D, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int M = a.S * (a.H / a.KVH);
+  const ShortPlan pl = short_plan(B, a.KVH, M);
+  if (pl.blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const int rows = pl.ng * (pl.tiles > 1 ? kShortRows : M);
+  const size_t smem = size_t(rows * D + pl.ng * a.kv_end * (KS + D)) * 4;
+  flash_short_f32<D, NP><<<unsigned(pl.blocks), kShortThreads, smem,
+                           stream>>>(a, B, pl.ng, pl.tiles);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_short_d(const Args& a, int B, cudaStream_t stream) {
+  const int n = a.kv_end;
+  if (n <= 4) {
+    if constexpr (D <= 128) return launch_short_reg<D>(a, B, stream);
+    else return launch_short_np<D, 4>(a, B, stream);
+  }
+  if (n <= 8) return launch_short_np<D, 8>(a, B, stream);
+  if (n <= 16) return launch_short_np<D, 16>(a, B, stream);
+  return launch_short_np<D, 32>(a, B, stream);
+}
+
+cudaError_t launch_short(const Args& a, int B, int D, cudaStream_t stream) {
+  if (a.kv_end < 1 || a.kv_end > kShortSpan) return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch_short_d<32>(a, B, stream);
+    case 64: return launch_short_d<64>(a, B, stream);
+    case 128: return launch_short_d<128>(a, B, stream);
+    case 256: return launch_short_d<256>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -565,17 +918,20 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* o;
-  int dtype, B, H, KVH, S, D, causal, window, kv_end;
+  int kind, B, H, KVH, S, D, causal, window, kv_end;
   float scale;
   int64_t q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
 };
 static_assert(sizeof(FlashParams) == 168, "FlashParams is packed");
 
-// dtype: 0 = float32, 1 = bfloat16; scale is D^-0.5 as the caller
-// rounds it to f32; element strides of the batch, head and sequence dims
-// (the head dim is contiguous). Launches on `stream`, allocates nothing,
-// and returns cudaGetLastError() after the launch (or
-// cudaErrorInvalidValue for a head dim, dtype or shape it does not take).
+// kind, the caller's choice of kernel (kernel.py's `kernel_kind`): 0 =
+// float32 (flash_fwd<float>), 1 = bfloat16 (flash_fwd_tc, or flash_fwd in
+// bf16 for operands cp.async cannot read), 2 = float32 with kv_end <= 32
+// (flash_short_f32); scale is D^-0.5 as the caller rounds it to f32;
+// element strides of the batch, head and sequence dims (the head dim is
+// contiguous). Launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() after the launch (or cudaErrorInvalidValue for a
+// head dim, kind or shape it does not take).
 int flash_attention_hsd(const FlashParams* p, void* stream) {
   if (p->B <= 0 || p->H <= 0 || p->KVH <= 0 || p->H % p->KVH != 0 ||
       p->S <= 0)
@@ -585,10 +941,11 @@ int flash_attention_hsd(const FlashParams* p, void* stream) {
          p->q_s, p->k_b, p->k_h, p->k_s, p->v_b, p->v_h, p->v_s,
          p->o_b, p->o_h, p->o_s};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 0) return dispatch_d<float>(a, p->B, p->D, s);
-  if (p->dtype == 1)
+  if (p->kind == 0) return dispatch_d<float>(a, p->B, p->D, s);
+  if (p->kind == 1)
     return tc_aligned(a) ? dispatch_tc(a, p->B, p->D, s)
                          : dispatch_d<__nv_bfloat16>(a, p->B, p->D, s);
+  if (p->kind == 2) return launch_short(a, p->B, p->D, s);
   return cudaErrorInvalidValue;
 }
 

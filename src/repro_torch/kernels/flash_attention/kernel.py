@@ -23,9 +23,29 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# FlashParams: q, k, v, o; dtype, B, H, KVH, S, D, causal, window, kv_end;
+# FlashParams: q, k, v, o; kind, B, H, KVH, S, D, causal, window, kv_end;
 # scale; the (b, h, s) element strides of q, k, v, o
 PARAMS = struct.Struct("<4Q9if12q")
+SHORT_SPAN = 32     # the longest key range the short-span kernels take
+_SHORT_ROWS = 16    # rows of a block of it (flash_attention.cu kShortRows)
+_GRID_X = 2 ** 31 - 1
+
+
+def kernel_kind(dt, kv_end, B, KVH, S, G):
+    """The kernel a call takes, as FlashParams' `kind`: 2, the short-span
+    kernels, for float32 (`dt` 0) when every row's keys lie in [0, kv_end)
+    with kv_end <= 32, one tile of keys (every policy-trunk call), and
+    the grid of at most B * KVH * ceil(S * G / 16) blocks fits (the C side
+    takes flash_short_reg_f32 up to 4 keys at D <= 128, else
+    flash_short_f32); else 0 (flash_fwd<float>) for float32 and 1 for
+    bfloat16 (flash_fwd_tc, or flash_fwd in bf16 for operands cp.async
+    cannot read)."""
+    if dt != 0:
+        return 1
+    if kv_end <= SHORT_SPAN and \
+            B * KVH * -(-S * G // _SHORT_ROWS) <= _GRID_X:
+        return 2
+    return 0
 
 
 @functools.cache
@@ -114,9 +134,11 @@ def flash_attention_hsd(q, k, v, *, causal=True, window=0, valid_len=None):
     B, H, S, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     qs, ks, vs = q.stride(), k.stride(), v.stride()
+    KVH = k.shape[1]
     _launch(PARAMS.pack(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dt, B, H,
-        k.shape[1], S, D, int(causal), int(window), kv_end, D ** -0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        kernel_kind(dt, kv_end, B, KVH, S, H // KVH), B, H, KVH, S, D,
+        int(causal), int(window), kv_end, D ** -0.5,
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
         S * H * D, D, H * D), q.device)
     return out.transpose(1, 2)
@@ -147,8 +169,9 @@ def grouped_params(qg, k, v, out, causal, window):
     else:
         return None
     return PARAMS.pack(
-        qg.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dt, B, H,
-        KVH, S, D, int(causal), int(window), S, D ** -0.5,
+        qg.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        kernel_kind(dt, S, B, KVH, S, G), B, H, KVH, S, D, int(causal),
+        int(window), S, D ** -0.5,
         qs[0], q_h, qs[1], ks[0], ks[2], ks[1], vs[0], vs[2], vs[1],
         S * H * D, D, H * D)
 

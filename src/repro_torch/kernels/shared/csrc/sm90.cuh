@@ -2,7 +2,9 @@
 // bf16 kernels (gmm/csrc/gmm.cu, flash_attention/csrc/flash_attention.cu):
 // cp.async from device to shared memory, ldmatrix (plain and transposed)
 // from shared memory into mma fragments, and mma.sync.m16n8k16 with bf16
-// inputs and f32 sums. Header only; the build's digest covers it.
+// inputs and f32 sums; and read-only loads pinned where they are written
+// (the f32 short-span flash kernel, advantages/csrc/advantages.cu).
+// Header only; the build's digest covers it.
 #pragma once
 #include <cuda_bf16.h>
 
@@ -78,6 +80,26 @@ __device__ __forceinline__ void mma_bf16(float (&acc)[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Read-only global loads that stay where they are written: nvcc may sink
+// an __ldg (read-only, so free to move past stores) down to its first
+// use, a round trip each; a volatile asm load is issued in program order,
+// and issue_here() keeps the loads above it above it.
+__device__ __forceinline__ float ld_nc(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 ld_nc4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ void issue_here() {
+  asm volatile("" ::: "memory");
 }
 
 }  // namespace sm90

@@ -29,9 +29,21 @@ only):
   checks, the allocation of y, the casts of r, k, v and u from bf16 to
   f32 (what an entry that takes f32 only must add), and the ctypes call
   itself (one packed argument where kernel.py has `PARAMS`, else one
-  argument a field).
+  argument a field);
+- the discounted-return scan `discounted_return_tb` and its adjoint
+  `discounted_return_adjoint_tb` at the training path's (T, B) =
+  (32, 32) (the adjoint with every gradient, and with dinit alone, A3C's
+  call), and their pieces: the argument checks (`check_tb`), the output
+  allocation (`torch.empty`, and `Tensor.new_empty`, which the wrappers
+  use), the packing of the arguments and the ctypes call itself
+  (one packed argument where kernel.py has `FWD_PARAMS`, else one
+  argument a field);
+- `flash_attention` (ops.py, the policy trunk's entry) in f32 at the
+  trunk's serving shape (B, H, KVH, S, D) = (32, 4, 2, 4, 64), causal,
+  with the same pieces as the bf16 rows.
 Prints one JSON line beside the card's name and power limit. Needs a
-card.
+card; a tree whose wrappers take one argument a field (an older
+checkout) is measured the same way, so two trees compare in one call.
 """
 import json
 import time
@@ -39,7 +51,8 @@ import time
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.common import launch_stream, on_device
+from repro_torch.kernels.advantages import kernel as scan_kernel
+from repro_torch.kernels.common import check_tb, launch_stream, on_device
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.replay_sample import kernel as replay_kernel
@@ -51,6 +64,8 @@ from repro_torch.launch.profiling import card
 LM_FLASH = {"deepseek-moe-16b": (4, 16, 16, 32, 128),
             "smollm-360m": (4, 15, 5, 32, 64)}
 REPLAY = (20000, 12800, 64)
+SCAN = (32, 32)                 # (T, B) of the training path
+TRUNK_FLASH = (32, 4, 2, 4, 64)  # the policy trunk's serve shape, f32
 # (B, T, H, N, chunk) of the rwkv6-1.6b serve path
 WKV = {"decode": (4, 1, 32, 64, 1), "prefill": (4, 32, 32, 64, 64)}
 
@@ -94,14 +109,14 @@ def shard_costs(dev):
             lambda: torch.cuda.current_stream().cuda_stream)}
 
 
-def flash_costs(dev, shape):
+def flash_costs(dev, shape, dtype=torch.bfloat16):
     B, H, KVH, S, D = shape
     G = H // KVH
     gen = torch.Generator(device=dev).manual_seed(0)
     qg = torch.randn((B, S, KVH, G, D), generator=gen,
-                     device=dev).to(torch.bfloat16)
+                     device=dev).to(dtype)
     k = torch.randn((B, S, KVH, D), generator=gen,
-                    device=dev).to(torch.bfloat16)
+                    device=dev).to(dtype)
     v = torch.randn_like(k)
     q_hsd = qg.reshape(B, S, H, D).transpose(1, 2)
     k_hsd, v_hsd = k.transpose(1, 2), v.transpose(1, 2)
@@ -194,11 +209,67 @@ def wkv_costs(dev, shape):
                 lambda: fn(*args))}
 
 
+def scan_costs(dev):
+    T, B = SCAN
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base, g = (torch.randn((T, B), generator=gen, device=dev)
+               for _ in range(2))
+    coef = 0.99 * torch.rand((T, B), generator=gen, device=dev)
+    init = torch.randn((B,), generator=gen, device=dev)
+    out = scan_kernel.discounted_return_tb(base, coef, init)
+    dbase, dcoef, dinit = (torch.empty_like(t) for t in (base, base, init))
+    _, fwd, adj = scan_kernel._launchers()
+    stream = launch_stream(dev)
+    ptr = [t.data_ptr() for t in (base, coef, init, out, g, dbase, dcoef,
+                                  dinit)]
+    if hasattr(scan_kernel, "FWD_PARAMS"):  # one packed argument
+        fwd_args = (scan_kernel.fwd_params(base, coef, init, out), stream)
+        adj_args = (scan_kernel.adj_params(g, coef, out, init, dbase, dcoef,
+                                           dinit), stream)
+        pack = {"pack (forward)": per_call_us(
+            lambda: scan_kernel.fwd_params(base, coef, init, out)),
+            "pack (adjoint)": per_call_us(
+                lambda: scan_kernel.adj_params(g, coef, out, init, dbase,
+                                               dcoef, dinit))}
+    else:  # one argument a field
+        fwd_args = (ptr[0], *base.stride(), ptr[1], *coef.stride(), ptr[2],
+                    init.stride(0), ptr[3], T, B, stream)
+        adj_args = (ptr[4], *g.stride(), ptr[1], *coef.stride(), ptr[3],
+                    *out.stride(), ptr[2], init.stride(0), *ptr[5:], T, B,
+                    stream)
+        pack = {}
+    return {
+        "discounted_return_tb": per_call_us(
+            lambda: scan_kernel.discounted_return_tb(base, coef, init)),
+        "discounted_return_adjoint_tb": per_call_us(
+            lambda: scan_kernel.discounted_return_adjoint_tb(
+                g, coef, out, init)),
+        "discounted_return_adjoint_tb (dinit alone)": per_call_us(
+            lambda: scan_kernel.discounted_return_adjoint_tb(
+                g, coef, out, init, need=(False, False, True))),
+        "checks (forward)": per_call_us(lambda: check_tb(
+            "discounted_return_tb", T, B, (base, coef), (init,))),
+        "checks (adjoint)": per_call_us(lambda: check_tb(
+            "discounted_return_adjoint_tb", T, B, (g, coef, out), (init,))),
+        "torch.empty": per_call_us(lambda: torch.empty(
+            (T, B), dtype=torch.float32, device=dev)),
+        "new_empty": per_call_us(lambda: base.new_empty((T, B))),
+        **pack,
+        f"ctypes call (forward, {len(fwd_args)} args)": per_call_us(
+            lambda: fwd(*fwd_args)),
+        f"ctypes call (adjoint, {len(adj_args)} args)": per_call_us(
+            lambda: adj(*adj_args))}
+
+
 def main():
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {"card": card(), "host_us_per_call": shard_costs(dev)}
     out["flash_attention_bf16"] = {f"{name} {shape}": flash_costs(dev, shape)
                                    for name, shape in LM_FLASH.items()}
+    out["flash_attention_f32_trunk"] = {
+        f"paper-drl-trunk {TRUNK_FLASH}": flash_costs(dev, TRUNK_FLASH,
+                                                      torch.float32)}
+    out["discounted_return"] = {f"{SCAN}": scan_costs(dev)}
     out["prioritized_sample_c"] = replay_costs(dev)
     out["wkv6"] = {f"{name} {shape}": wkv_costs(dev, shape)
                    for name, shape in WKV.items()}

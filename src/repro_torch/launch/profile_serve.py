@@ -12,8 +12,8 @@ through ServeEngine at one fixed bucket and reports, as one JSON line:
   * a torch.profiler window over `--profile-dispatches` dispatches
     (`launch/profiling.device_window`): the device's busy share (sum of
     device time over the window's wall time), the device time and the
-    number of device kernels per dispatch, and the top kernels by device
-    time.
+    number of device kernels per dispatch, the flash-attention kernels'
+    share of the device time, and the top kernels by device time.
 Needs a card: there is no CPU mode.
 """
 from __future__ import annotations
@@ -90,7 +90,8 @@ def main(argv=None):
     print(json.dumps({
         "card": card(), "env": args.env, "bucket": B,
         "dispatch_ms": dispatch_ms, "forward_ms": forward_ms,
-        "profile": device_window(dispatch, args.profile_dispatches),
+        "profile": device_window(dispatch, args.profile_dispatches,
+                                 share_of={"flash_attention": "flash_"}),
         "served": engine.stats["served"]}))
 
 

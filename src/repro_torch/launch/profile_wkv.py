@@ -143,7 +143,7 @@ def window(fn, kernels, n=10, tries=3):
     window and whether it was whole."""
     for _ in range(tries):
         prof = device_window(fn, n)
-        if prof["device_ops_per_call"] >= kernels:
+        if prof["records_whole"] and prof["device_ops_per_call"] >= kernels:
             return prof, True
     return prof, False
 

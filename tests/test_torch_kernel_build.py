@@ -174,3 +174,39 @@ def test_flash_packed_arguments_index_the_model_layout(KVH, G):
         odd = torch.zeros((B, S, G, KVH, D),
                           dtype=torch.bfloat16).transpose(2, 3)
         assert fk.grouped_params(odd, k, v, out, True, 0) is None
+
+
+@pytest.mark.parametrize("kv_end", [1, 3, 4, 31, 32, 33, 384])
+@pytest.mark.parametrize("dt", [0, 1])
+def test_flash_kernel_choice(dt, kv_end):
+    """`kernel_kind`, the one place the flash call picks its kernel: the
+    short-span f32 kernel (kind 2) exactly when the call is f32 (dt 0) and
+    every row's keys fit one tile (kv_end <= 32); flash_fwd<float> (0)
+    for longer f32 spans; bf16 (1) whatever the span."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    want = 1 if dt == 1 else 2 if kv_end <= 32 else 0
+    assert fk.kernel_kind(dt, kv_end, 32, 2, kv_end, 2) == want
+    # a grid past 2^31 - 1 blocks keeps flash_fwd
+    assert fk.kernel_kind(dt, kv_end, 65535, 65535, 64, 1) == (1 if dt
+                                                               else 0)
+
+
+@pytest.mark.parametrize("S,kind", [(1, 2), (3, 2), (4, 2), (32, 2),
+                                    (33, 0)])
+def test_flash_f32_packed_arguments_name_the_kernel(S, kind):
+    """The trunk's f32 calls (S = 3 for pendulum, 4 for cartpole) pack
+    kind 2, the short-span kernel, through both entries; a span of 33
+    keys packs flash_fwd's 0; a `valid_len` of 32 brings a longer call
+    back to the short kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    B, KVH, G, D = 32, 2, 2, 64
+    qg = torch.zeros((B, S, KVH, G, D))
+    k = v = torch.zeros((B, S, KVH, D))
+    out = torch.empty_like(qg)
+    assert fk.PARAMS.unpack(fk.grouped_params(qg, k, v, out, True,
+                                              0))[4] == kind
+    q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)
+    dt, kv_end = fk._check(q, k.transpose(1, 2), v.transpose(1, 2), None)
+    assert fk.kernel_kind(dt, kv_end, B, KVH, S, G) == kind
+    _, kv_end = fk._check(q, k.transpose(1, 2), v.transpose(1, 2), 32)
+    assert fk.kernel_kind(dt, kv_end, B, KVH, S, G) == 2

@@ -8,9 +8,10 @@ machine with only PyTorch:
 Attention tolerances are those of tests/test_kernels.py: 2e-5 for f32
 (every product and sum in f32, TF32 off), 3e-2 for bf16 inputs. The scans
 (discounted return, its adjoint, V-trace) are f32 throughout; nvcc
-contracts `b + c·acc` into one FMA where the plain loop rounds twice, so
-they are held to rtol = atol = 1e-5 at T <= 128 and 1e-4 at T = 2048,
-where the rounding differences of 2048 chained steps add up. The replay
+contracts `b + c·acc` into one FMA where the plain loop rounds twice, and
+the discounted-return kernels compose the steps' maps in parallel over
+time, so they are held to rtol = atol = 1e-5 at T <= 128 and 1e-4 at
+T = 2048, where the rounding differences of 2048 chained steps add up. The replay
 draw's indices must equal the plain draw's exactly (its logits and scores
 round as the plain version's do) and its weights agree within
 rtol = atol = 1e-5 (the partition function is summed in another order),
@@ -26,13 +27,16 @@ rtol = 1e-3, the reference's own (tests/test_kernels.py: the same f32
 recurrence blocked in chunks), with bf16 r, k, v, u held against the
 plain version on their f32 values; the RWKV time mix on the card, kernel
 against use_kernels=False, to the MoE layer's bf16 bounds."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.advantages.kernel import (
     DiscountedReturn, discounted_return_adjoint_tb, discounted_return_tb)
-from repro_torch.kernels.advantages.ref import discounted_return_ref
+from repro_torch.kernels.advantages.ref import (
+    discounted_return_adjoint_ref, discounted_return_ref)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_hsd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -202,6 +206,135 @@ def test_flash_attention_bf16_strided(cuda, D, offset):
                                rtol=3e-2)
 
 
+def _f32_qkv(shape_q, shape_kv, device, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device=device)
+            for shape in (shape_q, shape_kv, shape_kv))
+
+
+def _flash_kernel_names(fn):
+    """The device kernels one call of fn runs, by torch.profiler (a window
+    that lost kernel records is run again: `profiling.kernel_us`)."""
+    from repro_torch.launch.profiling import kernel_us
+    times, launches = kernel_us(fn, calls=1)
+    assert times is not None, "every profiler window lost kernel records"
+    return list(launches)
+
+
+# f32 with every key range inside one tile of 32 (the policy trunk's
+# calls: S = 4 and 3, G = 2, D = 64) takes the short-span kernel
+# flash_short_f32: S from one key to 32, G = 1 to 4 query heads a kv head
+# (blocks gather several groups where S * G <= 4, split a group's rows
+# in tiles of 32 past 32), every head dim
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 7, 16, 31, 32])
+@pytest.mark.parametrize("G", [1, 2, 3, 4])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_f32_short_span_matches_plain(cuda, D, G, S):
+    B, KVH = 3, 2
+    qg, k, v = _f32_qkv((B, S, KVH, G, D), (B, S, KVH, D), cuda, D + S + G)
+    out = flash_attention(qg, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_hsd.launches == 1
+    q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)
+    ref = attention_ref(q, k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    ref = ref.transpose(1, 2).reshape(B, S, KVH, G, D)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    assert torch.equal(flash_attention(qg, k, v, causal=True), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,kernel", [(4, "flash_short_reg_f32"),
+                                      (5, "flash_short_f32"),
+                                      (32, "flash_short_f32"),
+                                      (33, "flash_fwd")])
+def test_flash_f32_takes_the_short_kernel_up_to_32_keys(cuda, S, kernel):
+    """Up to 32 keys the f32 call runs a short-span kernel (up to 4 keys
+    at D <= 128 the one that keeps Q, K and V in registers); a span of 33
+    keys runs flash_fwd<float>, one launch either way."""
+    B, KVH, G, D = 2, 2, 2, 64
+    qg, k, v = _f32_qkv((B, S, KVH, G, D), (B, S, KVH, D), cuda, S)
+    names = _flash_kernel_names(lambda: flash_attention(qg, k, v))
+    assert len(names) == 1 and kernel in names[0]
+    if kernel == "flash_fwd":
+        assert "flash_short" not in names[0]
+    q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)
+    ref = attention_ref(q, k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    torch.testing.assert_close(
+        flash_attention(qg, k, v),
+        ref.transpose(1, 2).reshape(B, S, KVH, G, D), atol=2e-5, rtol=2e-5)
+
+
+# 17-32 keys: one key a lane, one FMA chain over d with q scaled first,
+# flash_fwd's butterflies: the short-span kernel gives flash_fwd's bits
+# (the f32 LM agreement in chip_smoke.py amplifies any other rounding)
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,G,D", [(17, 1, 128), (32, 1, 128), (32, 3, 64),
+                                   (24, 2, 32), (32, 1, 256)])
+def test_flash_f32_short_span_gives_flash_fwd_bits_past_16_keys(cuda, S, G,
+                                                                 D):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    B, KVH = 2, 2
+    qg, k, v = (30 * t for t in _f32_qkv((B, S, KVH, G, D), (B, S, KVH, D),
+                                         cuda, S + G + D))
+    outs = []
+    for kind in (2, 0):  # flash_short_f32, flash_fwd<float>
+        out = torch.empty_like(qg)
+        fields = list(fk.PARAMS.unpack(fk.grouped_params(qg, k, v, out, True,
+                                                         0)))
+        assert fields[4] == 2
+        fields[4] = kind
+        fk._launch(fk.PARAMS.pack(*fields), qg.device)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+# the short-span kernel's masks, (B, H, S, D) views: windows below and
+# above the span, non-causal, and valid_len cutting a longer S to at most
+# 32 keys (the rows past it still attend the first valid_len keys)
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("S,causal,window,valid_len", [
+    (20, True, 5, None), (20, True, 40, None), (20, False, 0, None),
+    (20, False, 0, 13), (100, False, 0, 32), (9, True, 4, 7)])
+def test_flash_f32_short_span_masks(cuda, D, S, causal, window, valid_len):
+    B, KVH, G = 2, 2, 3
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda, D + S)
+    out = flash_attention_hsd(q, k, v, causal=causal, window=window,
+                              valid_len=valid_len)
+    ref = attention_ref(q, k, v, causal=causal, window=window,
+                        valid_len=valid_len)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+# strided views: 16-byte strides take 16-byte copies, odd element strides
+# 4-byte ones; both read the operands where they lie
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 256])
+@pytest.mark.parametrize("offset", [0, 4, 3])
+@pytest.mark.parametrize("S", [3, 4, 17])
+def test_flash_f32_short_span_strided(cuda, D, offset, S):
+    B, KVH, G = 5, 2, 2
+    rng = np.random.default_rng(D + offset + S)
+    base = torch.tensor(rng.standard_normal(
+        (B, S, KVH, G + 2, D + 8)).astype(np.float32), device=cuda)
+    qg = base[:, :, :, 1:G + 1, offset:offset + D]
+    kv = base[:, :, :, 0, offset:offset + D]
+    vv = base[:, :, :, G + 1, offset:offset + D]
+    assert not qg.is_contiguous()
+    out = flash_attention(qg, kv, vv, causal=True)
+    q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)
+    ref = attention_ref(q, kv.transpose(1, 2), vv.transpose(1, 2),
+                        causal=True)
+    torch.testing.assert_close(
+        out, ref.transpose(1, 2).reshape(B, S, KVH, G, D), atol=2e-5,
+        rtol=2e-5)
+    assert torch.equal(flash_attention(qg.contiguous(), kv.contiguous(),
+                                       vv.contiguous(), causal=True), out)
+
+
 def _scan_tol(T):
     return 1e-5 if T <= 128 else 1e-4
 
@@ -269,6 +402,48 @@ def test_adjoint_computes_only_what_is_needed(scans):
     torch.testing.assert_close(init.grad, ref.grad, atol=1e-5, rtol=1e-5)
     with pytest.raises(RuntimeError, match="DiscountedReturn"):
         discounted_return_tb(base, coef, init)
+
+
+# ragged T (one pass of one row a lane, of 4, of 16; several passes)
+# and B (a partial 8-column tile, one column; 1029: 32 columns a block)
+SCAN_RAGGED = [(T, B) for T in (1, 7, 31, 32, 33, 100, 129, 513, 1100)
+               for B in (1, 5, 8, 9, 33, 1029)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", SCAN_RAGGED)
+def test_scans_ragged_strided_and_repeatable(scans, T, B):
+    """Both scans against their plain versions at ragged T and B; strided
+    inputs (a transposed buffer, every other column) and autograd's
+    stride-0 cotangent give the same bits as contiguous copies; a second
+    call gives the same bits; every subset of the adjoint's gradients
+    gives the bits of the full call."""
+    tol = _scan_tol(T)
+    base, coef, init = _scan_inputs(T, B, scans, seed=T + B)
+    g = torch.randn((T, B), device=scans)
+    out = discounted_return_tb(base, coef, init)
+    torch.testing.assert_close(out, discounted_return_ref(base, coef, init),
+                               atol=tol, rtol=tol)
+    assert torch.equal(discounted_return_tb(base, coef, init), out)
+    wide = torch.randn((T, 2 * B), device=scans)
+    wide[:, ::2] = base
+    for strided in (base.t().contiguous().t(), wide[:, ::2]):
+        assert torch.equal(discounted_return_tb(strided, coef, init), out)
+    full = discounted_return_adjoint_tb(g, coef, out, init)
+    want = discounted_return_adjoint_ref(g, coef, out, init)
+    for a, b in zip(full, want):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+    again = discounted_return_adjoint_tb(g, coef.t().contiguous().t(), out,
+                                         init)
+    assert all(torch.equal(a, b) for a, b in zip(again, full))
+    for need in itertools.product((False, True), repeat=3):
+        got = discounted_return_adjoint_tb(g, coef, out, init, need=need)
+        for a, b, n in zip(got, full, need):
+            assert (a is None) if not n else torch.equal(a, b)
+    ones = torch.ones((), device=scans).expand(T, B)  # stride 0
+    dense = discounted_return_adjoint_tb(ones.contiguous(), coef, out, init)
+    expanded = discounted_return_adjoint_tb(ones, coef, out, init)
+    assert all(torch.equal(a, b) for a, b in zip(expanded, dense))
 
 
 @pytest.mark.cuda
