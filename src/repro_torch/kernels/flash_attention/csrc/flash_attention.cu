@@ -50,11 +50,11 @@
 // hundred KB at most and launch latency and one global round trip bound
 // it. Where every row's keys lie in [0, kv_end) with kv_end <= 32 (every
 // trunk call), the caller picks the short-span kernels (below: one tile
-// of keys, one round trip of 16-byte loads, scores split over lanes by
-// key and dim; flash_short_reg_f32 keeps each lane's share of Q, K and V
-// in registers up to 4 keys at D <= 128, the trunk's calls, and
-// flash_short_f32 stages K/V once per kv-head group in shared memory for
-// the rest). Longer spans take flash_fwd: one
+// of keys, one round trip of 16-byte loads; flash_short_reg_f32 keeps
+// each lane's share of Q, K and V in registers up to 4 keys at D <= 128,
+// the trunk's calls, and flash_short_f32, one key a lane, stages K/V once
+// per kv-head group in shared memory for the rest). Longer spans take
+// flash_fwd: one
 // thread block of 4 warps per (query tile of 16 rows, head, batch); warp
 // w owns rows w, w+4, w+8, w+12 of the tile, so a tiny S still spreads
 // over the warps. K/V tiles of 32 keys are staged
@@ -299,25 +299,22 @@ ShortPlan short_plan(int B, int KVH, int M) {
 // pairs r = qpos * G + g of the G query heads of one kv head; K and V are
 // staged once per group. The block's Q rows, K and V come in by cp.async
 // (16 bytes where every base and stride allows it, else 4), all in flight
-// before one wait. Warp w takes rows w and w + 8, together. Scores:
-// lane l is key j = l / P, part p = l % P (NP = 32 / P keys at once, NP >=
-// kv_end), and dots D / P of the row's dims, 16 bytes at a time from
-// shared memory, summed over the P lanes of the key by shuffles; the row
-// max and sum are shuffles over the keys (flash_fwd's butterfly order).
-// P V: lane l owns dims l + 32 i and takes each p_j from lane j * P. All
-// f32 FMAs on the CUDA cores. As in flash_fwd and the plain version, q is
-// scaled before the product; at P = 1 (17-32 keys) every score, sum and
-// product is flash_fwd's, in its order (one FMA chain over d), so these
-// calls give flash_fwd's bits (the f32 LM agreement amplifies any other
-// rounding through 28 layers).
-template <int D, int NP>
+// before one wait. Warp w takes rows w and w + 8, together. Scores: lane
+// j is key j and dots its K row with the row's q, 16 bytes at a time from
+// shared memory (K rows padded by 4 floats, so the 8 keys of a quarter
+// warp's 16-byte reads hit 8 bank groups); the row max and sum are
+// flash_fwd's butterflies. P V: lane l owns dims l + 32 i and takes each
+// p_j from lane j. All f32 FMAs on the CUDA cores. As in flash_fwd and
+// the plain version, q is scaled before the product, and every score, sum
+// and product is flash_fwd's, in its order (one FMA chain over d), so a
+// call gives flash_fwd's bits wherever flash_fwd's tile starts at key 0
+// (the f32 LM agreement amplifies any other rounding through 28 layers).
+template <int D>
 __global__ void __launch_bounds__(kShortThreads)
     flash_short_f32(Args a, int B, int ng, int tiles) {
-  constexpr int P = 32 / NP;           // lanes per key
-  constexpr int C4 = D / 4;            // 16-byte pieces of a row
-  constexpr int KS = D + 4 * (P % 8);  // padded K row: a quarter warp's
-                                       // 16-byte reads hit 8 bank groups
-  constexpr int kPer = D / 32;         // P V dims per lane
+  constexpr int C4 = D / 4;     // 16-byte pieces of a row
+  constexpr int KS = D + 4;     // padded K row
+  constexpr int kPer = D / 32;  // P V dims per lane
   extern __shared__ __align__(16) float sh_short[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = a.H / a.KVH, M = a.S * G, n = a.kv_end;
@@ -374,7 +371,6 @@ __global__ void __launch_bounds__(kShortThreads)
   // this warp's rows: warp and warp + 8 (R <= 16), ne of them
   const int ne = warp + kShortWarps < R ? 2 : warp < R ? 1 : 0;
   if (ne == 0) return;  // warp-uniform; no barrier follows
-  const int j = lane / P, p = lane % P;
   const float4* sQ4 = reinterpret_cast<const float4*>(sQ);
   const float4* sK4 = reinterpret_cast<const float4*>(sK);
   int gis[2], rrs[2];
@@ -389,27 +385,20 @@ __global__ void __launch_bounds__(kShortThreads)
     const int lo = a.window > 0 ? max(0, qpos - a.window + 1) : 0;
     const int hi = a.causal ? min(qpos + 1, n) : n;
     const float4* qrow = sQ4 + lr * C4;
-    const float4* krow = sK4 + (gis[e] * n + min(j, n - 1)) * (KS / 4);
+    const float4* krow = sK4 + (gis[e] * n + min(lane, n - 1)) * (KS / 4);
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < C4 / P; ++i) {
-      const float4 qv = qrow[p + P * i], kv = krow[p + P * i];
+    for (int i = 0; i < C4; ++i) {
+      const float4 qv = qrow[i], kv = krow[i];
       s = fmaf(qv.x * a.scale, kv.x, s);
       s = fmaf(qv.y * a.scale, kv.y, s);
       s = fmaf(qv.z * a.scale, kv.z, s);
       s = fmaf(qv.w * a.scale, kv.w, s);
     }
-#pragma unroll
-    for (int m = P / 2; m > 0; m >>= 1) s += __shfl_xor_sync(kFull, s, m);
-    const bool valid = j >= lo && j < hi;
-    float mx = valid ? s : -INFINITY;
-#pragma unroll
-    for (int m = 16; m >= P; m >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, m));
+    const bool valid = lane >= lo && lane < hi;
+    const float mx = warp_max(valid ? s : -INFINITY);
     pr[e] = valid ? expf(s - mx) : 0.f;
-    l[e] = pr[e];
-#pragma unroll
-    for (int m = 16; m >= P; m >>= 1) l[e] += __shfl_xor_sync(kFull, l[e], m);
+    l[e] = warp_sum(pr[e]);
   }
   float acc[2][kPer];
 #pragma unroll
@@ -420,7 +409,7 @@ __global__ void __launch_bounds__(kShortThreads)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if (e >= ne) break;
-      const float pj = __shfl_sync(kFull, pr[e], jj * P);
+      const float pj = __shfl_sync(kFull, pr[e], jj);
       const float* vrow = sV + (gis[e] * n + jj) * D + lane;
 #pragma unroll
       for (int i = 0; i < kPer; ++i)
@@ -445,9 +434,10 @@ __global__ void __launch_bounds__(kShortThreads)
 // there straight from global memory (16 bytes at a time where the
 // alignment rule allows, else 4), every load of the warp's rows before
 // the first use, with no shared memory and no barrier: the warps of a
-// block run apart. Lane l is key j = l / 8, part p = l % 8 for the
-// scores, as in flash_short_f32 at NP = 4, and owns dims l + 32 i for
-// P V, taking V's rows of those dims for every key.
+// block run apart. For the scores lane l is key j = l / 8 and dots the
+// dims of its part p = l % 8, summed over the key's 8 lanes by shuffles;
+// the row max and sum are shuffles over the 4 keys. For P V it owns dims
+// l + 32 i, taking V's rows of those dims for every key.
 // 16 bytes, or 4 pieces of 4 where the alignment rule does not allow it,
 // pinned where written (sm90::ld_nc)
 __device__ __forceinline__ float4 load4(const float* p, bool vec) {
@@ -561,17 +551,16 @@ cudaError_t launch_short_reg(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, int NP>
-cudaError_t launch_short_np(const Args& a, int B, cudaStream_t stream) {
-  constexpr int P = 32 / NP, KS = D + 4 * (P % 8);
-  // the most any plan takes: 16 rows of Q, and K, V rows of at most
-  // max(8, NP) keys over the block's groups
-  constexpr int kMaxKV = NP > kShortGroupRows ? NP : kShortGroupRows;
-  constexpr int kMaxSmem = (kShortRows * D + kMaxKV * (KS + D)) * 4;
+template <int D>
+cudaError_t launch_short_staged(const Args& a, int B, cudaStream_t stream) {
+  constexpr int KS = D + 4;
+  // the most any plan takes: 16 rows of Q, and K, V rows of at most 32
+  // keys (or 8 over a block's groups)
+  constexpr int kMaxSmem = (kShortRows * D + kShortSpan * (KS + D)) * 4;
   static bool configured = false;  // the attribute is set once per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_short_f32<D, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_short_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return e;
     configured = true;
@@ -581,21 +570,18 @@ cudaError_t launch_short_np(const Args& a, int B, cudaStream_t stream) {
   if (pl.blocks > 0x7fffffff) return cudaErrorInvalidValue;
   const int rows = pl.ng * (pl.tiles > 1 ? kShortRows : M);
   const size_t smem = size_t(rows * D + pl.ng * a.kv_end * (KS + D)) * 4;
-  flash_short_f32<D, NP><<<unsigned(pl.blocks), kShortThreads, smem,
-                           stream>>>(a, B, pl.ng, pl.tiles);
+  flash_short_f32<D><<<unsigned(pl.blocks), kShortThreads, smem, stream>>>(
+      a, B, pl.ng, pl.tiles);
   return cudaGetLastError();
 }
 
+// up to 4 keys at D <= 128 in registers, every other span staged
 template <int D>
 cudaError_t launch_short_d(const Args& a, int B, cudaStream_t stream) {
-  const int n = a.kv_end;
-  if (n <= 4) {
-    if constexpr (D <= 128) return launch_short_reg<D>(a, B, stream);
-    else return launch_short_np<D, 4>(a, B, stream);
+  if constexpr (D <= 128) {
+    if (a.kv_end <= 4) return launch_short_reg<D>(a, B, stream);
   }
-  if (n <= 8) return launch_short_np<D, 8>(a, B, stream);
-  if (n <= 16) return launch_short_np<D, 16>(a, B, stream);
-  return launch_short_np<D, 32>(a, B, stream);
+  return launch_short_staged<D>(a, B, stream);
 }
 
 cudaError_t launch_short(const Args& a, int B, int D, cudaStream_t stream) {

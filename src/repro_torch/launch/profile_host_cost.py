@@ -28,22 +28,19 @@ only):
   the kernel wrapper `wkv6_btHN` on f32 inputs, and its pieces: the
   checks, the allocation of y, the casts of r, k, v and u from bf16 to
   f32 (what an entry that takes f32 only must add), and the ctypes call
-  itself (one packed argument where kernel.py has `PARAMS`, else one
-  argument a field);
+  itself (one packed argument);
 - the discounted-return scan `discounted_return_tb` and its adjoint
   `discounted_return_adjoint_tb` at the training path's (T, B) =
   (32, 32) (the adjoint with every gradient, and with dinit alone, A3C's
   call), and their pieces: the argument checks (`check_tb`), the output
   allocation (`torch.empty`, and `Tensor.new_empty`, which the wrappers
   use), the packing of the arguments and the ctypes call itself
-  (one packed argument where kernel.py has `FWD_PARAMS`, else one
-  argument a field);
+  (one packed argument);
 - `flash_attention` (ops.py, the policy trunk's entry) in f32 at the
   trunk's serving shape (B, H, KVH, S, D) = (32, 4, 2, 4, 64), causal,
   with the same pieces as the bf16 rows.
 Prints one JSON line beside the card's name and power limit. Needs a
-card; a tree whose wrappers take one argument a field (an older
-checkout) is measured the same way, so two trees compare in one call.
+card.
 """
 import json
 import time
@@ -182,16 +179,10 @@ def wkv_costs(dev, shape):
     y = torch.empty_like(r)
     _, fn = wkv_kernel._launcher()
     stream = launch_stream(dev)
-    if hasattr(wkv_kernel, "PARAMS"):
-        params = wkv_kernel.PARAMS.pack(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), state.data_ptr(), y.data_ptr(), state.data_ptr(),
-            B, T, H, N, L, 0)
-        args = (params, stream)
-    else:
-        args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                u.data_ptr(), state.data_ptr(), y.data_ptr(),
-                state.data_ptr(), B, T, H, N, L, stream)
+    args = (wkv_kernel.PARAMS.pack(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), state.data_ptr(), y.data_ptr(), state.data_ptr(),
+        B, T, H, N, L, 0), stream)
     with torch.no_grad():
         return {
             "ops.wkv6 (bf16 r, k, v, u)": per_call_us(
@@ -220,24 +211,9 @@ def scan_costs(dev):
     dbase, dcoef, dinit = (torch.empty_like(t) for t in (base, base, init))
     _, fwd, adj = scan_kernel._launchers()
     stream = launch_stream(dev)
-    ptr = [t.data_ptr() for t in (base, coef, init, out, g, dbase, dcoef,
-                                  dinit)]
-    if hasattr(scan_kernel, "FWD_PARAMS"):  # one packed argument
-        fwd_args = (scan_kernel.fwd_params(base, coef, init, out), stream)
-        adj_args = (scan_kernel.adj_params(g, coef, out, init, dbase, dcoef,
-                                           dinit), stream)
-        pack = {"pack (forward)": per_call_us(
-            lambda: scan_kernel.fwd_params(base, coef, init, out)),
-            "pack (adjoint)": per_call_us(
-                lambda: scan_kernel.adj_params(g, coef, out, init, dbase,
-                                               dcoef, dinit))}
-    else:  # one argument a field
-        fwd_args = (ptr[0], *base.stride(), ptr[1], *coef.stride(), ptr[2],
-                    init.stride(0), ptr[3], T, B, stream)
-        adj_args = (ptr[4], *g.stride(), ptr[1], *coef.stride(), ptr[3],
-                    *out.stride(), ptr[2], init.stride(0), *ptr[5:], T, B,
-                    stream)
-        pack = {}
+    fwd_args = (scan_kernel.fwd_params(base, coef, init, out), stream)
+    adj_args = (scan_kernel.adj_params(g, coef, out, init, dbase, dcoef,
+                                       dinit), stream)
     return {
         "discounted_return_tb": per_call_us(
             lambda: scan_kernel.discounted_return_tb(base, coef, init)),
@@ -254,7 +230,11 @@ def scan_costs(dev):
         "torch.empty": per_call_us(lambda: torch.empty(
             (T, B), dtype=torch.float32, device=dev)),
         "new_empty": per_call_us(lambda: base.new_empty((T, B))),
-        **pack,
+        "pack (forward)": per_call_us(
+            lambda: scan_kernel.fwd_params(base, coef, init, out)),
+        "pack (adjoint)": per_call_us(
+            lambda: scan_kernel.adj_params(g, coef, out, init, dbase, dcoef,
+                                           dinit)),
         f"ctypes call (forward, {len(fwd_args)} args)": per_call_us(
             lambda: fwd(*fwd_args)),
         f"ctypes call (adjoint, {len(adj_args)} args)": per_call_us(

@@ -22,19 +22,17 @@ kernel source in which one part is cut out (the output is then wrong,
 and only the time is read), loads it in place of the built library
 behind the wrappers, and reads each variant's device time per call at
 the trunk's serving shape (32, 4, 2, 4, 64) and the f32 LM prefill
-shapes of `KERNEL_CASES`, and the scans' `SCAN_SHAPES`. The cuts follow
-the kernel the wrappers take: for the
-short-span f32 flash kernel `flash_short_f32` (or, in a tree that has
-none, `flash_fwd<float>`) `no_staging` (no global loads), `no_scores`,
-`no_softmax` (no max, exp or sum), `no_pv`, `no_store` (outputs computed,
-not written); for the scans `no_loads`, `no_chain` (each step's output
-no longer depends on the next: in the parallel scans the lanes' rows and
-the shuffle tree) and `no_store`; `skeleton`, those cuts at once. Beside
-them, for the kernels of this tree: `launch` (the grid returns at once:
-its launch and block scheduling), `loads_only` (it returns once the
-tiles are in shared memory), and design alternatives measured whole:
-`tiled_t32` (T <= 32 on the tiled scans, K = 4, in place of the short
-kernels). Prints
+shapes of `KERNEL_CASES`, and the scans' `SCAN_SHAPES`. The cuts: for the
+short-span f32 flash kernels (`flash_short_reg_f32`, `flash_short_f32`)
+`no_staging` (no global loads), `no_scores`, `no_softmax` (no max, exp
+or sum), `no_pv`, `no_store` (outputs computed, not written); for the
+scans `no_loads`, `no_chain` (each step's output no longer depends on
+the next: the lanes' rows and the shuffle tree) and `no_store`;
+`skeleton`, those cuts at once. Beside them: `launch` (the grid returns
+at once: its launch and block scheduling), `loads_only` (it returns once
+the tiles are in shared memory), and design alternatives measured
+whole: `tiled_t32` (T <= 32 on the tiled scans, K = 4, in place of the
+short kernels). Prints
 one JSON line with the card's name and power limit. Needs a card and the
 CUDA toolkit.
 """
@@ -68,8 +66,8 @@ ABLATE_FLASH = [SERVE, (4, 16, 16, 32, 128, True, 0),
                 (4, 15, 5, 32, 64, True, 0)]
 ABLATE_SCANS = SCAN_SHAPES
 
-# [(variant, [(text, its replacement)])] by kernel; a variant with a text
-# not in the source is left out
+# [(variant, [(text, its replacement)])] by kernel source; every text
+# stands in the source (build_variants raises otherwise)
 _FLASH_SHORT = [  # flash_short_f32 and flash_short_reg_f32, both cut
     ("no_staging", [("for (int lr = tid / C4; lr < R; lr += kStep) {",
                      "for (int lr = tid / C4; lr < 0; lr += kStep) {"),
@@ -82,16 +80,14 @@ _FLASH_SHORT = [  # flash_short_f32 and flash_short_reg_f32, both cut
                      "      kv[e][i] = qv[e][i];"),
                     ("vv[e][jj][i] = sm90::ld_nc(vb + min(jj, n - 1) * "
                      "a.v_s + 32 * i);", "vv[e][jj][i] = float(i);")]),
-    ("no_scores", [("for (int i = 0; i < C4 / P; ++i) {",
-                    "for (int i = 0; i < 0; ++i) {"),
+    ("no_scores", [("for (int i = 0; i < C4; ++i) {\n      const float4 qv",
+                    "for (int i = 0; i < 0; ++i) {\n      const float4 qv"),
                    ("for (int i = 0; i < kQ; ++i) {\n      s = fmaf",
                     "for (int i = 0; i < 0; ++i) {\n      s = fmaf")]),
-    ("no_softmax", [("#pragma unroll\n    for (int m = 16; m >= P; m >>= 1)"
-                     "\n      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, m));"
-                     "\n    pr[e] = valid ? expf(s - mx) : 0.f;",
-                     "pr[e] = valid ? s : 0.f;"),
-                    ("#pragma unroll\n    for (int m = 16; m >= P; m >>= 1) "
-                     "l[e] += __shfl_xor_sync(kFull, l[e], m);", ""),
+    ("no_softmax", [("const float mx = warp_max(valid ? s : -INFINITY);\n"
+                     "    pr[e] = valid ? expf(s - mx) : 0.f;\n"
+                     "    l[e] = warp_sum(pr[e]);",
+                     "pr[e] = valid ? s : 0.f;\n    l[e] = pr[e];"),
                     ("#pragma unroll\n    for (int m = 16; m >= P; m >>= 1)"
                      "\n      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, m));"
                      "\n    const float pr = valid ? expf(s - mx) : 0.f;",
@@ -109,24 +105,6 @@ _FLASH_SHORT = [  # flash_short_f32 and flash_short_reg_f32, both cut
                   ("for (int i = 0; i < kPer; ++i) orow[32 * i] = acc[i] * inv;",
                    "for (int i = 0; i < kPer; ++i) if (inv == -1.f) "
                    "orow[32 * i] = acc[i];")]),
-]
-_FLASH_FWD = [
-    ("no_staging", [("for (int i = tid; i < kBlockM * D; i += kWarps * 32) {",
-                     "for (int i = tid; i < 0; i += kWarps * 32) {"),
-                    ("for (int i = tid; i < kBlockN * D; i += kWarps * 32) {",
-                     "for (int i = tid; i < 0; i += kWarps * 32) {")]),
-    ("no_scores", [("for (int d = 0; d < D; ++d) {\n      const float kd",
-                    "for (int d = 0; d < 0; ++d) {\n      const float kd")]),
-    ("no_softmax", [("const float tmax = warp_max(valid ? s[r] : -INFINITY);",
-                     "const float tmax = valid ? s[r] : -INFINITY;"),
-                    ("l[r] = l[r] * alpha + warp_sum(p[r]);",
-                     "l[r] = l[r] * alpha + p[r];")]),
-    ("no_pv", [("for (int j = 0; j < n; ++j) {\n      float vj[kPer];",
-                "for (int j = 0; j < 0; ++j) {\n      float vj[kPer];")]),
-    ("no_store", [("store_f32(o + qpos * a.o_s + lane + 32 * i, "
-                   "acc[r][i] * inv);",
-                   "if (inv == -1.f) store_f32(o + qpos * a.o_s + lane + "
-                   "32 * i, acc[r][i]);")]),
 ]
 _SCAN = [  # the parallel scans of advantages.cu, forward and adjoint
     ("no_loads", [("if (q >= Tl::kQuads || t < 0 || t >= T) continue;",
@@ -160,21 +138,7 @@ _SCAN = [  # the parallel scans of advantages.cu, forward and adjoint
                    "      if (need_o) dcoef[k] = x * ov[i];",
                    "      if (x == -1.f) dbase[k] = dcoef[k] = x;")]),
 ]
-_SCAN_SERIAL = [  # the one-thread-a-column scans that preceded them
-    ("no_loads", [("bv[u] = base.at(t - u, b);\n      cv[u] = coef.at(t - u, b);",
-                   "bv[u] = float(t - u);\n      cv[u] = 0.5f;"),
-                  ("gv[u] = g.at(t + u, b);\n      cv[u] = coef.at(t + u, b);",
-                   "gv[u] = float(t + u);\n      cv[u] = 0.5f;")]),
-    ("no_chain", [("acc = bv[u] + cv[u] * acc;", "acc = bv[u] + cv[u];"),
-                  ("a = gv[u] + c_prev * a;", "a = gv[u] + c_prev;")]),
-    ("no_store", [("out[int64_t(t - u) * B + b] = acc;",
-                   "if (acc == -1.f) out[int64_t(t - u) * B + b] = acc;"),
-                  ("if (dbase) dbase[i] = a;",
-                   "if (dbase && a == -1.f) dbase[i] = a;"),
-                  ("if (dcoef) dcoef[i] = a * ov[u];",
-                   "if (dcoef && a == -1.f) dcoef[i] = a * ov[u];")]),
-]
-for _cuts in (_FLASH_SHORT, _FLASH_FWD, _SCAN, _SCAN_SERIAL):
+for _cuts in (_FLASH_SHORT, _SCAN):
     _cuts.append(("skeleton", [c for _, cs in _cuts for c in cs]))
 # beyond the parts: `launch`, the grid returning at once (its launch and
 # block scheduling, nothing else); `loads_only`, returning once the tiles
@@ -271,15 +235,23 @@ def sweep(dev):
     return out
 
 
+def missing_texts(text, cuts):
+    """[(variant, text)] of every cut text that `text` does not hold."""
+    return [(name, old) for name, reps in cuts for old, _ in reps
+            if old not in text]
+
+
 def build_variants(tmp, source, cuts):
     """{variant: its library}, each compiled from a copy of `source` with
     its replacements made wherever their texts stand (every build started
-    at once); a variant with a text not in the source is left out."""
+    at once). Raises if a cut's text is not in the source."""
     text = source.read_text()
+    missing = missing_texts(text, cuts)
+    if missing:
+        raise ValueError(f"{source.name} no longer holds the cut texts "
+                         f"{missing}")
     procs = {}
     for name, reps in [("whole", [])] + cuts:
-        if any(old not in text for old, _ in reps):
-            continue
         cut = text
         for old, new in reps:
             cut = cut.replace(old, new)
@@ -316,16 +288,15 @@ def behind(module, dll):
 
 def ablate(tmp, dev):
     kdir = common.PACKAGE_DIR / "kernels"
-    flash_cuts = (_FLASH_SHORT if hasattr(flash_kernel, "kernel_kind")
-                  else _FLASH_FWD)
-    scan_src = kdir / "advantages" / "csrc" / "advantages.cu"
-    scan_cuts = _SCAN if "Tile<" in scan_src.read_text() else _SCAN_SERIAL
     for sub in ("flash", "scan"):
         (Path(tmp) / sub).mkdir()
     flash_libs = build_variants(
         Path(tmp) / "flash",
-        kdir / "flash_attention" / "csrc" / "flash_attention.cu", flash_cuts)
-    scan_libs = build_variants(Path(tmp) / "scan", scan_src, scan_cuts)
+        kdir / "flash_attention" / "csrc" / "flash_attention.cu",
+        _FLASH_SHORT)
+    scan_libs = build_variants(
+        Path(tmp) / "scan", kdir / "advantages" / "csrc" / "advantages.cu",
+        _SCAN)
     out = {"flash": {}, "scans": {}}
     for case in ABLATE_FLASH:
         qg, k, v = flash_inputs(case, dev)

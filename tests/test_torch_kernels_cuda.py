@@ -226,7 +226,7 @@ def _flash_kernel_names(fn):
 # calls: S = 4 and 3, G = 2, D = 64) takes the short-span kernel
 # flash_short_f32: S from one key to 32, G = 1 to 4 query heads a kv head
 # (blocks gather several groups where S * G <= 4, split a group's rows
-# in tiles of 32 past 32), every head dim
+# in tiles of 16 past 16), every head dim
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 2, 3, 4, 7, 16, 31, 32])
 @pytest.mark.parametrize("G", [1, 2, 3, 4])
@@ -266,14 +266,9 @@ def test_flash_f32_takes_the_short_kernel_up_to_32_keys(cuda, S, kernel):
         ref.transpose(1, 2).reshape(B, S, KVH, G, D), atol=2e-5, rtol=2e-5)
 
 
-# 17-32 keys: one key a lane, one FMA chain over d with q scaled first,
-# flash_fwd's butterflies: the short-span kernel gives flash_fwd's bits
-# (the f32 LM agreement in chip_smoke.py amplifies any other rounding)
-@pytest.mark.cuda
-@pytest.mark.parametrize("S,G,D", [(17, 1, 128), (32, 1, 128), (32, 3, 64),
-                                   (24, 2, 32), (32, 1, 256)])
-def test_flash_f32_short_span_gives_flash_fwd_bits_past_16_keys(cuda, S, G,
-                                                                 D):
+def _short_and_flash_fwd_outputs(cuda, S, G, D):
+    """One call's output from the short-span kernel (kind 2) and from
+    flash_fwd<float> (kind 0) on the same inputs."""
     from repro_torch.kernels.flash_attention import kernel as fk
     B, KVH = 2, 2
     qg, k, v = (30 * t for t in _f32_qkv((B, S, KVH, G, D), (B, S, KVH, D),
@@ -288,7 +283,30 @@ def test_flash_f32_short_span_gives_flash_fwd_bits_past_16_keys(cuda, S, G,
         fk._launch(fk.PARAMS.pack(*fields), qg.device)
         outs.append(out)
     torch.cuda.synchronize()
-    assert torch.equal(outs[0], outs[1])
+    return outs
+
+
+# 17-32 keys: one key a lane, one FMA chain over d with q scaled first,
+# flash_fwd's butterflies: the short-span kernel gives flash_fwd's bits
+# (the f32 LM agreement in chip_smoke.py amplifies any other rounding)
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,G,D", [(17, 1, 128), (32, 1, 128), (32, 3, 64),
+                                   (24, 2, 32), (32, 1, 256)])
+def test_flash_f32_short_span_gives_flash_fwd_bits_past_16_keys(cuda, S, G,
+                                                                 D):
+    short, fwd = _short_and_flash_fwd_outputs(cuda, S, G, D)
+    assert torch.equal(short, fwd)
+
+
+# flash_short_f32 takes one key a lane at every span it runs (5-32 keys,
+# and up to 4 at D = 256): flash_fwd's bits there too
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,G,D", [(5, 2, 64), (9, 1, 128), (16, 4, 32),
+                                   (1, 1, 256), (3, 2, 256), (12, 3, 256)])
+def test_flash_f32_short_span_gives_flash_fwd_bits_up_to_16_keys(cuda, S, G,
+                                                                 D):
+    short, fwd = _short_and_flash_fwd_outputs(cuda, S, G, D)
+    assert torch.equal(short, fwd)
 
 
 # the short-span kernel's masks, (B, H, S, D) views: windows below and

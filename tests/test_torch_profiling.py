@@ -26,3 +26,26 @@ def test_records_fall_short_of_launch_calls(launches, records, whole):
 def test_each_kernel_a_whole_number_of_times_a_call(counts, calls, whole):
     records = sum(counts.values())
     assert records_whole(records, records, counts, calls) is whole
+
+
+@pytest.mark.parametrize("source,cuts", [
+    ("flash_attention/csrc/flash_attention.cu", "_FLASH_SHORT"),
+    ("advantages/csrc/advantages.cu", "_SCAN")])
+def test_ablation_cut_texts_stand_in_their_sources(source, cuts):
+    """Every text `profile_small_kernels --ablate` cuts out of a kernel
+    source stands in that source as it is now."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import profile_small_kernels as psk
+    text = (common.PACKAGE_DIR / "kernels" / source).read_text()
+    assert psk.missing_texts(text, getattr(psk, cuts)) == []
+
+
+def test_ablation_refuses_a_cut_whose_text_moved(tmp_path):
+    """A cut whose text the source no longer holds is an error before any
+    build, not a variant quietly left out."""
+    from repro_torch.launch import profile_small_kernels as psk
+    source = tmp_path / "k.cu"
+    source.write_text("__global__ void k() { int x = 1; }\n")
+    with pytest.raises(ValueError, match="no_x"):
+        psk.build_variants(tmp_path, source,
+                           [("no_x", [("int x = 2;", "int x = 0;")])])
