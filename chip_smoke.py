@@ -46,7 +46,7 @@ Phases, in order; the script exits non-zero at the first failure:
      over that run must be 4 (one per layer) per dispatch;
   4. training: `repro_torch.launch.rl_train` at the default config
      (60 iterations of 32 envs x 32 steps, MLP (64, 64)) on cartpole for
-     ppo, a3c and dqn, impala through `Trainer` with the V-trace kernel,
+     ppo, a3c, impala (its default: the V-trace kernel) and dqn,
      ppo on pendulum for 20 iterations, and dqn on GridWorld(4, 16) at the
      reference's learning-bar config (tests/test_trainer.py) for 16 seeds;
      ppo and dqn on cartpole for 20 iterations with `--sync asp` and with
@@ -676,7 +676,6 @@ def train_counters():
 def phase_training(card, path_rows):
     """Drive the training path; returns the launch counts of the run."""
     import torch
-    import repro_torch.envs as envs
     from repro_torch.core.trainer import Trainer, TrainerConfig
     from repro_torch.envs.gridworld import GridWorld
     from repro_torch.launch.rl_train import main as rl_main
@@ -693,10 +692,6 @@ def phase_training(card, path_rows):
               f"rl_train {argv}: printed history {out['history']}")
         return history
 
-    def trainer(algo, **algo_kwargs):
-        return Trainer(envs.make("cartpole"), TrainerConfig(
-            algo=algo, algo_kwargs=algo_kwargs)).fit()[1]
-
     # (label, algo, env, config, run it, launches per iteration, bar as
     # (number of last logged returns, threshold) or None)
     runs = [
@@ -708,8 +703,8 @@ def phase_training(card, path_rows):
          {"discounted_return_tb": 1, "discounted_return_adjoint_tb": 1},
          (2, BARS["a3c"])),
         ("impala", "impala", "cartpole", cfg,
-         lambda: trainer("impala", use_kernel=True), {"vtrace_tb": 1},
-         (2, BARS["impala"])),
+         lambda: rl_train(["--algo", "impala", "--env", "cartpole"]),
+         {"vtrace_tb": 1}, (2, BARS["impala"])),
         ("ppo-pendulum", "ppo", "pendulum",
          dataclasses.replace(cfg, iters=20),
          lambda: rl_train(["--algo", "ppo", "--env", "pendulum",

@@ -12,10 +12,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.advantages import discounted_return
 from repro_torch.core.agent import PolicyGradientAgent, register
 from repro_torch.core.networks import make_policy
 from repro_torch.core.vtrace import epsilon_correction, vtrace
-from repro_torch.kernels.advantages.ref import discounted_return_ref
 from repro_torch.optim import adamw, clip_by_global_norm
 
 
@@ -29,9 +29,13 @@ class IMPALA:
     clip_c: float = 1.0
     use_vtrace: bool = True
     use_eps_correction: bool = False
-    # the reference calls vtrace without its kernel (impala.py:50-53);
-    # True runs the V-trace kernel for CUDA tensors (an opt-in)
-    use_kernel: bool = False
+    # the V-trace targets (and the naive branch's discounted return) run
+    # on their CUDA kernels for CUDA tensors: the reference's plain
+    # V-trace is a lax.scan that XLA compiles into one fused loop, whose
+    # counterpart here is the kernel, not an eager loop of ~110 small
+    # launches a step; False runs the plain versions on the card too (a
+    # cross-check)
+    use_kernel: bool = True
 
     def loss(self, params, traj, bootstrap_obs):
         """traj: time-major {obs, action, logp(behavior), reward, done}."""
@@ -54,8 +58,8 @@ class IMPALA:
                                 self.clip_rho, self.clip_c,
                                 use_kernel=self.use_kernel)
         else:  # naive on-policy targets computed from off-policy data
-            vs = discounted_return_ref(traj["reward"], discounts,
-                                       boot).detach()
+            vs = discounted_return(traj["reward"], discounts, boot.detach(),
+                                   use_kernel=self.use_kernel)
             vs_tp1 = torch.cat([vs[1:], boot[None]], dim=0)
             pg_adv = (traj["reward"] + discounts * vs_tp1
                       - v_t.detach()).detach()

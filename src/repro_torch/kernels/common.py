@@ -151,12 +151,6 @@ def check_launch(dll, code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
-def mat_args(t):
-    """A (T, B) tensor as the kernels' (pointer, row stride, column
-    stride) arguments, strides in elements."""
-    return t.data_ptr(), t.stride(0), t.stride(1)
-
-
 def check_tb(name, T, B, mats, vecs):
     """Raise unless every (T, B) matrix in `mats` and (B,) vector in
     `vecs` is float32 on one device, with 1 <= T, B < 2^31."""

@@ -3,6 +3,8 @@ where the CUDA-event time of a small kernel goes when the host, not the
 card, sets it.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_host_cost
+    PYTHONPATH=src python -m repro_torch.launch.profile_host_cost \
+        --parent OLD_CHECKOUT [--parent OLDER_CHECKOUT] [--pairs 8]
 
 Times, in us per call over 2000 calls without a sync (the host's enqueue
 only):
@@ -36,14 +38,34 @@ only):
   allocation (`torch.empty`, and `Tensor.new_empty`, which the wrappers
   use), the packing of the arguments and the ctypes call itself
   (one packed argument);
+- `vtrace_tb` at the training path's (T, B) = (32, 32), and its pieces:
+  the argument checks, the two output allocations (`new_empty`), the
+  packing of the arguments and the ctypes call itself (one packed
+  argument);
 - `flash_attention` (ops.py, the policy trunk's entry) in f32 at the
   trunk's serving shape (B, H, KVH, S, D) = (32, 4, 2, 4, 64), causal,
   with the same pieces as the bf16 rows.
-Prints one JSON line beside the card's name and power limit. Needs a
-card.
+Prints one JSON line beside the card's name and power limit.
+
+With `--parent` (once or more), it measures nothing else: the whole
+calls of the training path's small kernels (`vtrace_tb`,
+`discounted_return_tb`, the adjoint with every gradient and with dinit
+alone, at (32, 32)) in rounds of processes, one on the package of each
+checkout given and one on this one's, the order rotating from round to
+round, after a warm-up process per checkout (the kernel builds). A
+process times each call ROUNDS times, the calls in turns, and reports
+the median, beside the host's load average (`os.getloadavg()`) before
+and after and its CPU time over its wall time while it measured (below
+1: the process waited for a core). Needs a card.
 """
+import argparse
 import json
+import os
+import statistics
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +76,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.replay_sample import kernel as replay_kernel
 from repro_torch.kernels.replay_sample.kernel import shard_topk_c
+from repro_torch.kernels.vtrace import kernel as vtrace_kernel
 from repro_torch.kernels.wkv6 import kernel as wkv_kernel
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.launch.profiling import card
@@ -65,6 +88,7 @@ SCAN = (32, 32)                 # (T, B) of the training path
 TRUNK_FLASH = (32, 4, 2, 4, 64)  # the policy trunk's serve shape, f32
 # (B, T, H, N, chunk) of the rwkv6-1.6b serve path
 WKV = {"decode": (4, 1, 32, 64, 1), "prefill": (4, 32, 32, 64, 64)}
+ROUNDS = 5   # timings of each call in a process of a pair, in turns
 
 
 def per_call_us(fn, n=2000):
@@ -200,13 +224,19 @@ def wkv_costs(dev, shape):
                 lambda: fn(*args))}
 
 
-def scan_costs(dev):
+def scan_inputs(dev):
+    """base, g (T, B), coef (T, B) in [0, 0.99), init (B,) at SCAN."""
     T, B = SCAN
     gen = torch.Generator(device=dev).manual_seed(0)
     base, g = (torch.randn((T, B), generator=gen, device=dev)
                for _ in range(2))
     coef = 0.99 * torch.rand((T, B), generator=gen, device=dev)
-    init = torch.randn((B,), generator=gen, device=dev)
+    return base, g, coef, torch.randn((B,), generator=gen, device=dev)
+
+
+def scan_costs(dev):
+    T, B = SCAN
+    base, g, coef, init = scan_inputs(dev)
     out = scan_kernel.discounted_return_tb(base, coef, init)
     dbase, dcoef, dinit = (torch.empty_like(t) for t in (base, base, init))
     _, fwd, adj = scan_kernel._launchers()
@@ -241,7 +271,108 @@ def scan_costs(dev):
             lambda: adj(*adj_args))}
 
 
-def main():
+def vtrace_inputs(dev):
+    T, B = SCAN
+    gen = torch.Generator(device=dev).manual_seed(0)
+    log_rhos = 0.5 * torch.randn((T, B), generator=gen, device=dev)
+    discounts = 0.99 * torch.rand((T, B), generator=gen, device=dev)
+    rewards, values = (torch.randn((T, B), generator=gen, device=dev)
+                       for _ in range(2))
+    return (log_rhos, discounts, rewards, values,
+            torch.randn((B,), generator=gen, device=dev))
+
+
+def vtrace_costs(dev):
+    T, B = SCAN
+    args = vtrace_inputs(dev)
+    vs, adv = (torch.empty((T, B), device=dev) for _ in range(2))
+    _, fn = vtrace_kernel._launcher()
+    call = (vtrace_kernel.vtrace_params(*args, vs, adv, 1.0, 1.0),
+            launch_stream(dev))
+    return {
+        "vtrace_tb": per_call_us(lambda: vtrace_kernel.vtrace_tb(*args)),
+        "checks": per_call_us(lambda: check_tb(
+            "vtrace_tb", T, B, args[:4], args[4:])),
+        "new_empty (vs, pg_adv)": per_call_us(
+            lambda: (args[0].new_empty((T, B)), args[0].new_empty((T, B)))),
+        "pack": per_call_us(
+            lambda: vtrace_kernel.vtrace_params(*args, vs, adv, 1.0, 1.0)),
+        f"ctypes call ({len(call)} args)": per_call_us(lambda: fn(*call))}
+
+
+def whole_calls():
+    """The whole calls of the training path's small kernels, with the
+    host's load around them: what one side of a pair prints. Uses only
+    the wrappers' public signatures, which an older checkout shares."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    base, g, coef, init = scan_inputs(dev)
+    out = scan_kernel.discounted_return_tb(base, coef, init)
+    vt = vtrace_inputs(dev)
+    calls = {
+        "vtrace_tb": lambda: vtrace_kernel.vtrace_tb(*vt),
+        "discounted_return_tb": lambda: scan_kernel.discounted_return_tb(
+            base, coef, init),
+        "discounted_return_adjoint_tb": lambda:
+            scan_kernel.discounted_return_adjoint_tb(g, coef, out, init),
+        "discounted_return_adjoint_tb (dinit alone)": lambda:
+            scan_kernel.discounted_return_adjoint_tb(
+                g, coef, out, init, need=(False, False, True))}
+    for fn in calls.values():  # build, load and warm every path first
+        fn()
+    torch.cuda.synchronize()
+    load0, cpu0, wall0 = os.getloadavg(), time.process_time(), \
+        time.perf_counter()
+    rounds = {name: [] for name in calls}
+    for _ in range(ROUNDS):
+        for name, fn in calls.items():
+            rounds[name].append(per_call_us(fn))
+    cpu, wall = time.process_time() - cpu0, time.perf_counter() - wall0
+    return {"host_us_per_call": {name: statistics.median(us)
+                                 for name, us in rounds.items()},
+            "rounds": rounds, "loadavg_before": load0,
+            "loadavg_after": os.getloadavg(), "cpu_over_wall": cpu / wall}
+
+
+def side(checkout):
+    """whole_calls() in a new process on `checkout`'s package (its
+    src/ first on the path), run from that checkout."""
+    code = ("import json, runpy; print(json.dumps(runpy.run_path("
+            f"{str(Path(__file__).resolve())!r})['whole_calls']()))")
+    env = dict(os.environ, PYTHONPATH=str(Path(checkout).resolve() / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=checkout,
+                          env=env, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"whole_calls on {checkout} failed:\n"
+                           f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def pairs(parents, n):
+    """n rounds of one process per checkout (`parents`, then this tree,
+    named "tree"), the order rotating by one each round."""
+    sides = {str(p): p for p in parents}
+    sides["tree"] = Path(__file__).resolve().parents[3]
+    for checkout in sides.values():  # the builds, outside any round
+        side(checkout)
+    names = list(sides)
+    out = []
+    for i in range(n):
+        order = names[i % len(names):] + names[:i % len(names)]
+        out.append({"order": order,
+                    **{name: side(sides[name]) for name in order}})
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.profile_host_cost")
+    ap.add_argument("--parent", action="append",
+                    help="an older checkout to pair with (repeatable)")
+    ap.add_argument("--pairs", type=int, default=8)
+    args = ap.parse_args(argv)
+    if args.parent:
+        print(json.dumps({"card": card(),
+                          "pairs": pairs(args.parent, args.pairs)}))
+        return
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {"card": card(), "host_us_per_call": shard_costs(dev)}
     out["flash_attention_bf16"] = {f"{name} {shape}": flash_costs(dev, shape)
@@ -250,6 +381,7 @@ def main():
         f"paper-drl-trunk {TRUNK_FLASH}": flash_costs(dev, TRUNK_FLASH,
                                                       torch.float32)}
     out["discounted_return"] = {f"{SCAN}": scan_costs(dev)}
+    out["vtrace_tb"] = {f"{SCAN}": vtrace_costs(dev)}
     out["prioritized_sample_c"] = replay_costs(dev)
     out["wkv6"] = {f"{name} {shape}": wkv_costs(dev, shape)
                    for name, shape in WKV.items()}

@@ -1,6 +1,6 @@
 """Device time of the port's small kernels beside the launch floor, on the
 card: the f32 flash-attention forward at the policy trunk's serving
-shapes and the discounted-return scan and its adjoint.
+shapes, the discounted-return scan and its adjoint, and V-trace.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_small_kernels \
         [--reps 2] [--ablate]
@@ -10,25 +10,29 @@ The sweep: f32 flash attention through the model's entry
 32; H = 4 over KVH = 2, D = 64, causal; S = 4 for cartpole and 3 for
 pendulum) and `chip_smoke.KERNEL_CASES`' f32 rows, and the scans
 (`discounted_return_tb`, `discounted_return_adjoint_tb` with every
-gradient) at `chip_smoke.SCAN_SHAPES` and the adjoint with dinit alone
-(A3C's call) at (32, 32). For each: the kernels' device time per call
+gradient) and `vtrace_tb` at `chip_smoke.SCAN_SHAPES` and the adjoint
+with dinit alone (A3C's call) at (32, 32). For each: the kernels' device time per call
 (torch.profiler, `profiling.kernel_us`) with the library's empty kernel
 (kernels/shared/csrc/null.cu) launched after each call in the same
 window, its device time the launch floor; and CUDA-event ms over
 back-to-back calls. `--reps` repeats the sweep, in turns.
 
 `--ablate` instead builds one library per variant from a copy of a
-kernel source in which one part is cut out (the output is then wrong,
-and only the time is read), loads it in place of the built library
-behind the wrappers, and reads each variant's device time per call at
-the trunk's serving shape (32, 4, 2, 4, 64) and the f32 LM prefill
-shapes of `KERNEL_CASES`, and the scans' `SCAN_SHAPES`. The cuts: for the
+kernel source and of the shared headers it includes
+(kernels/shared/csrc/*.cuh) in which one part is cut out (the output is
+then wrong, and only the time is read), loads it in place of the built
+library behind the wrappers, and reads each variant's device time per
+call at the trunk's serving shape (32, 4, 2, 4, 64) and the f32 LM
+prefill shapes of `KERNEL_CASES`, and the scans' and V-trace's
+`SCAN_SHAPES`. The cuts: for the
 short-span f32 flash kernels (`flash_short_reg_f32`, `flash_short_f32`)
 `no_staging` (no global loads), `no_scores`, `no_softmax` (no max, exp
 or sum), `no_pv`, `no_store` (outputs computed, not written); for the
 scans `no_loads`, `no_chain` (each step's output no longer depends on
 the next: the lanes' rows and the shuffle tree) and `no_store`;
-`skeleton`, those cuts at once. Beside them: `launch` (the grid returns
+for V-trace (`vtrace_short`, `vtrace_tiled`) `no_loads`, `no_prologue`
+(no e^{log rho}, clips or delta), `no_chain`, `no_epilogue` (pg_adv
+not formed) and `no_store`; `skeleton`, those cuts at once. Beside them: `launch` (the grid returns
 at once: its launch and block scheduling), `loads_only` (it returns once
 the tiles are in shared memory), and design alternatives measured
 whole: `tiled_t32` (T <= 32 on the tiled scans, K = 4, in place of the
@@ -50,6 +54,7 @@ from repro_torch.kernels.advantages import kernel as scan_kernel
 from repro_torch.kernels.advantages.ref import discounted_return_ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.vtrace import kernel as vtrace_kernel
 from repro_torch.launch.profiling import beside_floor, card
 
 # (B, H, KVH, S, D, causal, window): the trunk's serve buckets, then
@@ -106,9 +111,14 @@ _FLASH_SHORT = [  # flash_short_f32 and flash_short_reg_f32, both cut
                    "for (int i = 0; i < kPer; ++i) if (inv == -1.f) "
                    "orow[32 * i] = acc[i];")]),
 ]
+# the tiled kernels' loads and stores (shared/csrc/scan_tiles.cuh)
+_LOAD_TILE = ("if (q >= Tl::kQuads || t < 0 || t >= T) continue;",
+              "if (true) continue;")
+_STORE_OUT = ("for (int q = threadIdx.x; q < n * Tl::kRowQuads; "
+              "q += kThreads) {",
+              "for (int q = threadIdx.x; q < 0; q += kThreads) {")
 _SCAN = [  # the parallel scans of advantages.cu, forward and adjoint
-    ("no_loads", [("if (q >= Tl::kQuads || t < 0 || t >= T) continue;",
-                   "if (true) continue;"),
+    ("no_loads", [_LOAD_TILE,
                   ("    bv[i] = ld_nc(base.p + t * base.s0 + bc * base.s1);\n"
                    "    cv[i] = ld_nc(coef.p + t * coef.s0 + bc * coef.s1);",
                    "    bv[i] = float(i);\n    cv[i] = 0.5f;"),
@@ -129,16 +139,52 @@ _SCAN = [  # the parallel scans of advantages.cu, forward and adjoint
                    "for (int s = K - 1; s >= K; --s) {"),
                   ("for (int s = 0; s < K; ++s) {",
                    "for (int s = 0; s < 0; ++s) {")]),
-    ("no_store", [("for (int q = threadIdx.x; q < n * Tl::kRowQuads; "
-                   "q += kThreads) {",
-                   "for (int q = threadIdx.x; q < 0; q += kThreads) {"),
+    ("no_store", [_STORE_OUT,
                   ("      out[int64_t(t) * B + b] = x;",
                    "      if (x == -1.f) out[int64_t(t) * B + b] = x;"),
                   ("      if (dbase) dbase[k] = x;\n"
                    "      if (need_o) dcoef[k] = x * ov[i];",
                    "      if (x == -1.f) dbase[k] = dcoef[k] = x;")]),
 ]
-for _cuts in (_FLASH_SHORT, _SCAN):
+_VTRACE = [  # vtrace_short and vtrace_tiled<K>
+    ("no_loads", [_LOAD_TILE,
+                  ("    lr[i] = ld_nc(p.log_rhos + t * p.lr_s0 + bc * p.lr_s1);\n"
+                   "    g[i] = ld_nc(p.discounts + t * p.d_s0 + bc * p.d_s1);\n"
+                   "    r[i] = ld_nc(p.rewards + t * p.r_s0 + bc * p.r_s1);\n"
+                   "    v[i] = ld_nc(p.values + t * p.v_s0 + bc * p.v_s1);",
+                   "    lr[i] = 0.1f * i;\n    g[i] = 0.5f;\n"
+                   "    r[i] = float(i);\n    v[i] = 1.f;"),
+                  ("  v[R] = ld_nc(p.values + int64_t(min(t0 + R, T - 1)) * "
+                   "p.v_s0 +\n               bc * p.v_s1);", "  v[R] = 1.f;"),
+                  ("const float boot = ld_nc(p.bootstrap + bc * p.boot_s);",
+                   "const float boot = 1.f;"),
+                  ("const float boot = b < B ? ld_nc(p.bootstrap + int64_t(b) "
+                   "* p.boot_s)\n                           : 0.f;",
+                   "const float boot = 1.f;")]),
+    ("no_prologue", [("  const float e = expf(log_rho);\n"
+                      "  const float rho = fminf(clip_rho, e);\n"
+                      "  return {rho, g * fminf(clip_c, e), "
+                      "rho * (r + g * v_next - v)};",
+                      "  return {log_rho, g, r};")]),
+    ("no_chain", [("Bv = fmaf(st[i].coef, Bv, st[i].delta);",
+                   "Bv = st[i].delta;"),
+                  ("Bv = fmaf(st[s].coef, Bv, st[s].delta);",
+                   "Bv = st[s].delta;"),
+                  ("if (u > w) x = fmaf(sC[u][lane], x, sB[u][lane]);", ";"),
+                  ("for (int d = 1; d < 32; d <<= 1) {",
+                   "for (int d = 1; d < 1; d <<= 1) {"),
+                  ("x = fmaf(st[i].coef, x, st[i].delta);",
+                   "x = st[i].delta;"),
+                  ("acc = fmaf(st[s].coef, acc, st[s].delta);",
+                   "acc = st[s].delta;")]),
+    ("no_epilogue", [("return s.rho * (r + g * vs_next - v);",
+                      "return vs_next;")]),
+    ("no_store", [_STORE_OUT,
+                  ("p.pg_adv[k] = pg_adv(", "if (x == -1.f) p.pg_adv[k] = "
+                                            "pg_adv("),
+                  ("p.vs[k] = v[i] + x;", "if (x == -1.f) p.vs[k] = v[i] + x;")]),
+]
+for _cuts in (_FLASH_SHORT, _SCAN, _VTRACE):
     _cuts.append(("skeleton", [c for _, cs in _cuts for c in cs]))
 # beyond the parts: `launch`, the grid returning at once (its launch and
 # block scheduling, nothing else); `loads_only`, returning once the tiles
@@ -163,6 +209,15 @@ _SCAN += [
                      f"    __syncthreads();\n    {_RET}\n"
                      "    if (p + 1 < passes) {")]),
     ("tiled_t32", [("if (p->T <= kShortT) {", "if (false) {")])]
+_VTRACE += [
+    ("launch", [("extern __shared__ float smem[];\n",
+                 f"extern __shared__ float smem[];\n  {_RET}\n"),
+                ("__shared__ float sC[kWarps][32], sB[kWarps][32];\n",
+                 f"__shared__ float sC[kWarps][32], sB[kWarps][32];\n"
+                 f"  {_RET}\n")]),
+    ("loads_only", [("    __syncthreads();\n    if (pass > 0) {",
+                     f"    __syncthreads();\n    {_RET}\n"
+                     "    if (pass > 0) {")])]
 _STUB = ('#include <cuda_runtime.h>\nextern "C" const char* '
          'repro_cuda_error_string(int c) { return cudaGetErrorString('
          'static_cast<cudaError_t>(c)); }\n')
@@ -199,6 +254,18 @@ def scan_inputs(T, B, dev, seed=0):
     return base, coef, init, g, discounted_return_ref(base, coef, init)
 
 
+def vtrace_inputs(T, B, dev, seed=0):
+    """log rho, discounts, rewards, values (T, B) and the bootstrap (B,),
+    as chip_smoke's scan phase draws them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log_rhos = 0.5 * torch.randn((T, B), generator=gen, device=dev)
+    discounts = 0.99 * torch.rand((T, B), generator=gen, device=dev)
+    rewards, values = (torch.randn((T, B), generator=gen, device=dev)
+                       for _ in range(2))
+    return (log_rhos, discounts, rewards, values,
+            torch.randn((B,), generator=gen, device=dev))
+
+
 def calls(dev):
     """{label: a call of a wrapper} for the sweep."""
     out = {}
@@ -222,6 +289,9 @@ def calls(dev):
                 lambda a=(g, coef, o, init):
                 scan_kernel.discounted_return_adjoint_tb(
                     *a, need=(False, False, True)), 200)
+        out[f"vtrace_tb {(T, B)}"] = (
+            lambda a=vtrace_inputs(T, B, dev): vtrace_kernel.vtrace_tb(*a),
+            200)
     return out
 
 
@@ -235,35 +305,53 @@ def sweep(dev):
     return out
 
 
+def build_texts(source):
+    """{path relative to the kernels directory: text} of a kernel source
+    and of the shared headers (kernels/shared/csrc/*.cuh) its build
+    reads."""
+    kdir = Path(source).parents[2]
+    files = [Path(source), *sorted((kdir / "shared" / "csrc").glob("*.cuh"))]
+    return {f.relative_to(kdir): f.read_text() for f in files}
+
+
 def missing_texts(text, cuts):
     """[(variant, text)] of every cut text that `text` does not hold."""
     return [(name, old) for name, reps in cuts for old, _ in reps
             if old not in text]
 
 
+def write_variant(root, texts, reps):
+    """Write `texts` (build_texts) under `root` as they lie in the
+    package, each with the replacements `reps` made wherever their texts
+    stand; returns the source's copy."""
+    for rel, text in texts.items():
+        for old, new in reps:
+            text = text.replace(old, new)
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(text)
+    return root / next(iter(texts))
+
+
 def build_variants(tmp, source, cuts):
-    """{variant: its library}, each compiled from a copy of `source` with
-    its replacements made wherever their texts stand (every build started
-    at once). Raises if a cut's text is not in the source."""
-    text = source.read_text()
-    missing = missing_texts(text, cuts)
+    """{variant: its library}, each compiled from copies of `source` and
+    the shared headers, laid out as in the package (so its includes
+    resolve to the copies), with its replacements made wherever their
+    texts stand (every build started at once). Raises if a cut's text is
+    in none of them."""
+    texts = build_texts(source)
+    missing = missing_texts("\n".join(texts.values()), cuts)
     if missing:
-        raise ValueError(f"{source.name} no longer holds the cut texts "
-                         f"{missing}")
+        raise ValueError(f"{Path(source).name} and its headers no longer "
+                         f"hold the cut texts {missing}")
     procs = {}
     for name, reps in [("whole", [])] + cuts:
-        cut = text
-        for old, new in reps:
-            cut = cut.replace(old, new)
-        srcs = [Path(tmp) / f"{name}.cu"]
-        srcs[0].write_text(cut)
-        if "repro_cuda_error_string" not in cut:  # what check_launch asks
-            srcs.append(Path(tmp) / "stub.cu")
+        srcs = [write_variant(Path(tmp) / name, texts, reps)]
+        if "repro_cuda_error_string" not in srcs[0].read_text():
+            srcs.append(Path(tmp) / name / "stub.cu")  # check_launch's
             srcs[1].write_text(_STUB)
-        procs[name] = subprocess.Popen(  # -I: its includes resolve
-            [common._nvcc(), *common.NVCC_FLAGS, "-I", str(source.parent),
-             "-shared", *map(str, srcs), "-o",
-             str(Path(tmp) / f"{name}.so")], stdout=subprocess.PIPE,
+        procs[name] = subprocess.Popen(
+            [common._nvcc(), *common.NVCC_FLAGS, "-shared", *map(str, srcs),
+             "-o", str(Path(tmp) / f"{name}.so")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -288,7 +376,7 @@ def behind(module, dll):
 
 def ablate(tmp, dev):
     kdir = common.PACKAGE_DIR / "kernels"
-    for sub in ("flash", "scan"):
+    for sub in ("flash", "scan", "vtrace"):
         (Path(tmp) / sub).mkdir()
     flash_libs = build_variants(
         Path(tmp) / "flash",
@@ -297,7 +385,9 @@ def ablate(tmp, dev):
     scan_libs = build_variants(
         Path(tmp) / "scan", kdir / "advantages" / "csrc" / "advantages.cu",
         _SCAN)
-    out = {"flash": {}, "scans": {}}
+    vtrace_libs = build_variants(
+        Path(tmp) / "vtrace", kdir / "vtrace" / "csrc" / "vtrace.cu", _VTRACE)
+    out = {"flash": {}, "scans": {}, "vtrace": {}}
     for case in ABLATE_FLASH:
         qg, k, v = flash_inputs(case, dev)
         row = {}
@@ -319,8 +409,15 @@ def ablate(tmp, dev):
             row[name] = {"forward_device_us": fwd, "adjoint_device_us": adj,
                          "launch_floor_us": floor}
         out["scans"][str((T, B))] = row
-    behind(flash_kernel, common.load_kernels())
-    behind(scan_kernel, common.load_kernels())
+        args = vtrace_inputs(T, B, dev)
+        row = {}
+        for name, dll in vtrace_libs.items():
+            behind(vtrace_kernel, dll)
+            us, floor, _ = beside_floor(lambda: vtrace_kernel.vtrace_tb(*args))
+            row[name] = {"device_us": us, "launch_floor_us": floor}
+        out["vtrace"][str((T, B))] = row
+    for module in (flash_kernel, scan_kernel, vtrace_kernel):
+        behind(module, common.load_kernels())
     return out
 
 

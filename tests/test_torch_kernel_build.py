@@ -82,12 +82,14 @@ def test_build_reruns_exactly_when_a_source_or_header_changes(tree, edit):
 
 
 def test_shared_header_is_a_source_and_every_include_resolves():
-    """The repository's own kernels: the shared tensor-core header is in
-    the build's sources, and every quoted include of a `.cu` names a
-    header that is one of them (nvcc resolves it beside the source)."""
+    """The repository's own kernels: the shared headers (the tensor-core
+    helpers, the scans' blocking) are in the build's sources, and every
+    quoted include of a `.cu` or `.cuh` names a header that is one of
+    them (nvcc resolves it beside the including file)."""
     sources = common.kernel_sources()
     names = [p.relative_to(common.PACKAGE_DIR).as_posix() for p in sources]
     assert "kernels/shared/csrc/sm90.cuh" in names
+    assert "kernels/shared/csrc/scan_tiles.cuh" in names
     included = set()
     for src in sources:
         for line in src.read_text().splitlines():
@@ -95,7 +97,7 @@ def test_shared_header_is_a_source_and_every_include_resolves():
                 header = (src.parent / line.split('"')[1]).resolve()
                 assert header in sources, f"{src.name}: {line}"
                 included.add(header.name)
-    assert included == {"sm90.cuh"}
+    assert included == {"sm90.cuh", "scan_tiles.cuh"}
 
 
 @pytest.mark.parametrize("edit", ["kernels/shared/csrc/sm90.cuh",

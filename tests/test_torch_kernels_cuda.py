@@ -483,6 +483,123 @@ def test_vtrace_matches_plain(scans, T, B):
     torch.testing.assert_close(adv, r_adv, atol=tol, rtol=tol)
 
 
+def _vtrace_inputs(T, B, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    log_rhos = 0.7 * torch.randn((T, B), generator=g, device=device)
+    dones = torch.rand((T, B), generator=g, device=device) < 0.1
+    dones[T - 1, ::2] = True
+    discounts = 0.99 * (~dones).float()
+    rewards, values = (torch.randn((T, B), generator=g, device=device)
+                       for _ in range(2))
+    boot = torch.randn((B,), generator=g, device=device)
+    return log_rhos, discounts, rewards, values, boot
+
+
+# ragged T (the short kernel's 1..32; the tiled kernel's one pass of 4
+# rows a lane and several passes of 16) and B (one column, partial
+# 32-column and 8-column blocks, and past 4096)
+VTRACE_RAGGED = [(T, B) for T in (1, 3, 31, 32, 33, 127, 128, 129, 513,
+                                  2048) for B in (1, 31, 33, 4097)]
+
+
+def _vtrace_carried(log_rhos, discounts, rewards, values, boot, clip_rho,
+                    clip_c):
+    """The magnitude each output carries through the recurrence, in f64:
+    for vs_t the same recurrence over |delta| (sum over s >= t of
+    |delta_s| times the coefficients g c between), for pg_adv_t rho_t g_t
+    times that at t + 1. An f32 evaluation in any order errs by a few
+    units of roundoff of it."""
+    lr, g, r, v, bt = (a.double() for a in (log_rhos, discounts, rewards,
+                                            values, boot))
+    e = torch.exp(lr)
+    rho = e.clamp(max=clip_rho)
+    delta = rho * (r + g * torch.cat([v[1:], bt[None]]) - v)
+    m = discounted_return_ref(delta.abs(), g * e.clamp(max=clip_c),
+                              torch.zeros_like(bt))
+    return m, rho * g * torch.cat([m[1:], torch.zeros_like(bt)[None]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", VTRACE_RAGGED)
+def test_vtrace_ragged_strided_and_repeatable(scans, T, B):
+    """V-trace against its plain version at ragged T and B with the clips
+    (1, 1), (2, 0.5) and (0.5, 2) and discounts 0 at dones; one launch a
+    call; a second call, strided inputs (a transposed buffer, every other
+    column, every third bootstrap) and stride-0 ones (a broadcast
+    discount row, a broadcast bootstrap) give the bits of contiguous
+    copies.
+
+    With c̄ <= 1 the recurrence contracts and both outputs are held to
+    scan_tol. With c̄ = 2 its coefficients g c reach 1.98 and |vs| grows
+    to ~3e4 over 127 steps; there no f32 evaluation holds scan_tol
+    element by element where an output cancels to O(1) (the plain
+    version itself lies up to 2.7x scan_tol from its own f64 value at
+    T = 128, B = 4097), so the bound is scan_tol relative to the output
+    plus the magnitude it carries (`_vtrace_carried`): the kernel's
+    reorder stays within ~3% of it, and an error of 1e-3 of that
+    magnitude would exceed it 100-fold."""
+    tol = _scan_tol(T)
+    args = _vtrace_inputs(T, B, scans, seed=T + B)
+    for clip_rho, clip_c in ((1.0, 1.0), (2.0, 0.5)):
+        got = vtrace_tb(*args, clip_rho=clip_rho, clip_c=clip_c)
+        want = vtrace_ref(*args, clip_rho=clip_rho, clip_c=clip_c)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+    got = vtrace_tb(*args, clip_rho=0.5, clip_c=2.0)
+    want = vtrace_ref(*args, clip_rho=0.5, clip_c=2.0)
+    for a, b, m in zip(got, want, _vtrace_carried(*args, 0.5, 2.0)):
+        err = (a - b).abs().double()
+        assert bool((err <= tol + tol * (b.abs().double() + m)).all())
+    assert vtrace_tb.launches == 3
+    log_rhos, discounts, rewards, values, boot = args
+    out = vtrace_tb(*args)
+    assert all(torch.equal(a, b) for a, b in zip(vtrace_tb(*args), out))
+    wide = torch.randn((T, 2 * B), device=scans)
+    wide[:, ::2] = rewards
+    boots = torch.randn((3 * B,), device=scans)
+    boots[::3] = boot
+    strided = vtrace_tb(log_rhos.t().contiguous().t(), discounts,
+                        wide[:, ::2], values.t().contiguous().t(),
+                        boots[::3])
+    assert all(torch.equal(a, b) for a, b in zip(strided, out))
+    row = torch.full((), 0.99, device=scans).expand(T, B)  # stride 0
+    one = boot[:1].expand(B)
+    dense = vtrace_tb(log_rhos, row.contiguous(), rewards, values,
+                      one.contiguous())
+    expanded = vtrace_tb(log_rhos, row, rewards, values, one)
+    assert all(torch.equal(a, b) for a, b in zip(expanded, dense))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo_kwargs", [{}, {"use_vtrace": False}])
+def test_impala_learner_step_kernel_matches_plain(scans, algo_kwargs):
+    """One IMPALA learner_step on the card from one state and trajectory:
+    by default it launches the V-trace kernel once (the naive branch, the
+    discounted-return kernel once), with use_kernel=False nothing, and
+    the params agree within 1e-5."""
+    import repro_torch.envs as envs
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.rollout import rollout_fresh
+    env = envs.make("cartpole")
+    kern = agent_api.make("impala", env=env, **algo_kwargs)
+    plain = agent_api.make("impala", env=env, use_kernel=False,
+                           **algo_kwargs)
+    state = kern.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=scans).manual_seed(1)
+    traj, env_state = rollout_fresh(kern.policy, kern.actor_policy(state, 0),
+                                    env, gen, 32, 32)
+    boot = env.obs(env_state)
+    a, la = kern.learner_step(state, traj, boot)
+    counts = (vtrace_tb.launches, discounted_return_tb.launches)
+    assert counts == ((0, 1) if algo_kwargs else (1, 0))
+    b, lb = plain.learner_step(state, traj, boot)
+    assert (vtrace_tb.launches, discounted_return_tb.launches) == counts
+    torch.testing.assert_close(la["loss"], lb["loss"], atol=1e-5, rtol=1e-5)
+    for k in a.params:
+        torch.testing.assert_close(a.params[k], b.params[k], atol=1e-5,
+                                   rtol=1e-5)
+
+
 # (C, size, n): the DQN path's, a full 1M buffer, nearly empty, odd C,
 # empty, n > size, and n above one tile's filled slots
 REPLAY_CASES = [(20000, 12800, 64), (1048576, 1048576, 256),

@@ -30,14 +30,33 @@ def test_each_kernel_a_whole_number_of_times_a_call(counts, calls, whole):
 
 @pytest.mark.parametrize("source,cuts", [
     ("flash_attention/csrc/flash_attention.cu", "_FLASH_SHORT"),
-    ("advantages/csrc/advantages.cu", "_SCAN")])
+    ("advantages/csrc/advantages.cu", "_SCAN"),
+    ("vtrace/csrc/vtrace.cu", "_VTRACE")])
 def test_ablation_cut_texts_stand_in_their_sources(source, cuts):
     """Every text `profile_small_kernels --ablate` cuts out of a kernel
-    source stands in that source as it is now."""
+    source's build stands in that source or in the shared headers it
+    includes (kernels/shared/csrc/*.cuh) as they are now."""
     from repro_torch.kernels import common
     from repro_torch.launch import profile_small_kernels as psk
-    text = (common.PACKAGE_DIR / "kernels" / source).read_text()
-    assert psk.missing_texts(text, getattr(psk, cuts)) == []
+    texts = psk.build_texts(common.PACKAGE_DIR / "kernels" / source)
+    assert psk.missing_texts("\n".join(texts.values()),
+                             getattr(psk, cuts)) == []
+
+
+def test_a_variant_includes_its_cut_header(tmp_path):
+    """A variant's copies lie as in the package, so the source's quoted
+    include of the shared header resolves to the header's copy, which
+    carries the cut (the tiled kernels' loads stand there)."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import profile_small_kernels as psk
+    texts = psk.build_texts(common.PACKAGE_DIR / "kernels" / "vtrace" /
+                            "csrc" / "vtrace.cu")
+    src = psk.write_variant(tmp_path, texts, [psk._LOAD_TILE])
+    include = '#include "../../shared/csrc/scan_tiles.cuh"'
+    assert include in src.read_text()
+    header = (src.parent / "../../shared/csrc/scan_tiles.cuh").read_text()
+    old, new = psk._LOAD_TILE
+    assert new in header and old not in header
 
 
 def test_ablation_refuses_a_cut_whose_text_moved(tmp_path):
@@ -49,3 +68,21 @@ def test_ablation_refuses_a_cut_whose_text_moved(tmp_path):
     with pytest.raises(ValueError, match="no_x"):
         psk.build_variants(tmp_path, source,
                            [("no_x", [("int x = 2;", "int x = 0;")])])
+
+
+def test_host_pairs_rotate_the_order(monkeypatch):
+    """`profile_host_cost --parent A --parent B` runs a warm-up process
+    per checkout, then rounds of one process each, the order rotating by
+    one each round so every checkout takes every place."""
+    from repro_torch.launch import profile_host_cost as phc
+    seen = []
+    monkeypatch.setattr(phc, "side", lambda co: seen.append(str(co)) or co)
+    out = phc.pairs(["a", "b"], 4)
+    tree = str(phc.Path(phc.__file__).resolve().parents[3])
+    assert seen[:3] == ["a", "b", tree]
+    assert [r["order"] for r in out] == [["a", "b", "tree"],
+                                         ["b", "tree", "a"],
+                                         ["tree", "a", "b"],
+                                         ["a", "b", "tree"]]
+    assert all(str(r[name]) == (tree if name == "tree" else name)
+               for r in out for name in r["order"])
