@@ -40,6 +40,16 @@ Phases, in order; the script exits non-zero at the first failure:
      torch.profiler (`device_us`, and the library call's; None where
      five windows each lost kernel records), beside the CUDA-event ms,
      which counts the host's launch cost too;
+  2b. training attention: at the policy trunk's training shapes
+     (TRAIN_FLASH_CASES: a full-width ppo minibatch (256, 4, 2, 4, 64),
+     the reduced trunk's and the full-width a3c/impala batch of 1024 rows,
+     pendulum's 3 keys, a dqn batch of 64), the forward writing each row's
+     log-sum-exp (O bitwise the serving forward's, lse within 2e-5 of the
+     plain version's) and the backward kernel `flash_attention_bwd`
+     against its plain version on the kernel's o and lse (within 1e-4 x
+     max(1, max|grad|)), bitwise on a repeat; each with ms, device time
+     beside the launch floor, plain ms, the library's ms (SDPA's forward;
+     SDPA's backward through autograd) and its bound;
   3. slice: the full-width `paper-drl-trunk` policy served through
      ServeEngine for cartpole and pendulum at 500 and 2000 offered
      requests/s, with a hot swap in every cell; the kernel's launch count
@@ -50,7 +60,13 @@ Phases, in order; the script exits non-zero at the first failure:
      ppo on pendulum for 20 iterations, and dqn on GridWorld(4, 16) at the
      reference's learning-bar config (tests/test_trainer.py) for 16 seeds;
      ppo and dqn on cartpole for 20 iterations with `--sync asp` and with
-     `--sync ssp` (one worker, the plan's delay schedule);
+     `--sync ssp` (one worker, the plan's delay schedule); ppo on the
+     wrapped `pendulum-norm` and impala on `cartpole-repeat` for 20
+     iterations; `rl_train --policy trunk` (the reduced trunk) for ppo,
+     a3c, impala and dqn for 3 iterations, and a full-width trunk fit
+     (Trainer, trunk_kwargs={"reduced": False}) of ppo and impala, each
+     gated on the training attention's exact forward-with-lse and backward
+     launches an iteration (TRUNK_LAUNCHES per layer);
      each run checks finite losses and its kernels' launch counts per
      iteration; the learning bars: cartpole ppo/a3c/impala on the mean of
      the last two logged returns, GridWorld dqn on the mean over the seeds
@@ -67,8 +83,15 @@ Phases, in order; the script exits non-zero at the first failure:
      trajectory, kernels on against the plain versions, on the card; the
      dqn step with the kernel runs under
      torch.cuda.set_sync_debug_mode("error"), so it syncs nothing; so do
-     the dqn steps through the sharded replay service (R = 2 and 4);
-  6. the flash-attention kernel raises on an input that requires grad;
+     the dqn steps through the sharded replay service (R = 2 and 4); and
+     per algorithm the full-width trunk's learner loss (within 1e-5) and
+     gradients (within 1e-4 x max|g|), training attention kernels against
+     the plain attention;
+  5b. evolution: ES and DeepGA on cartpole (32 members, 4 generations)
+     and ERL on pendulum (8 members, 3 generations) on the card, each
+     population a batch there; finite fitness;
+  6. the forward-only flash-attention entry raises on an input that
+     requires grad (training goes through ops.flash_attention);
   7. CLI: `repro_torch.launch.serve_policy --quick` for ppo and dqn
      (trains 4 iterations in-process, then serves);
   8. the gmm kernel raises on an input that requires grad;
@@ -190,6 +213,28 @@ WKV_TOL = dict(atol=2e-4, rtol=1e-3)   # the reference's own
 WKV_BF16_CASES = [(4, 32, 32, 64, 64), (4, 1, 32, 64, 1)]
 RWKV = dict(arch="rwkv6-1.6b", batch=4, prompt_len=32, gen_len=16,
             agree_prompts=(32, 512))
+# (B, H, KVH, S, D) of the policy trunk's training attention (4 query heads
+# over 2 kv heads, 4 keys for cartpole, 3 for pendulum): a full-width ppo
+# minibatch (the path's row in the kernels line), the reduced trunk's
+# (rl_train's default) a3c/impala batch of 32 envs x 32 steps, the same at
+# full width, pendulum's 3 keys, and a dqn batch
+TRAIN_FLASH_CASES = [(256, 4, 2, 4, 64), (1024, 4, 2, 4, 32),
+                     (1024, 4, 2, 4, 64), (256, 4, 2, 3, 64),
+                     (64, 4, 2, 4, 32)]
+# the backward against its plain version fed the kernel's o and lse: dk and
+# dv sum S * G rows and dq S keys of f32 products in another order
+BWD_TOL = 1e-4
+TRUNK_ITERS = 3
+# (forward-with-lse, backward) launches per layer an iteration: ppo
+# differentiates 4 epochs x 4 minibatches; a3c its batch and, through the
+# n-step target, the bootstrap value; impala its batch (its bootstrap
+# forward is differentiable but V-trace's targets are detached); dqn the
+# online net on obs and, for the double-Q argmax (no gradient), next_obs
+TRUNK_LAUNCHES = {"ppo": (16, 16), "a3c": (2, 2), "impala": (2, 1),
+                  "dqn": (2, 1)}
+# the trunk's learner gradients, kernels against use_kernels=False at full
+# width: x max|gradient| (f32 through four layers in another order)
+TRUNK_GRAD_TOL = 1e-4
 
 
 def fail(msg):
@@ -348,6 +393,100 @@ def phase_kernels():
         results[((B, H, KVH, S, D, causal, window), dname)] = row
     print("kernels_checked " + json.dumps({"kernels": ["flash_attention_hsd"]}))
     return results
+
+
+def phase_flash_bwd_kernel():
+    """The training attention's kernels at TRAIN_FLASH_CASES: the forward
+    with each row's log-sum-exp (O bitwise the serving forward's, lse
+    against the plain version's) and the backward against its plain
+    version on the kernel's o and lse (bitwise on a repeat), each with
+    its ms, device time beside the launch floor, plain ms, the library's
+    ms (SDPA's forward, and SDPA's backward through autograd) and its
+    bound. Returns {kernel name: {case: row}}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
+    from repro_torch.launch.profiling import beside_floor
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {"flash_attention_fwd_lse": {}, "flash_attention_bwd": {}}
+    for B, H, KVH, S, D in TRAIN_FLASH_CASES:
+        G = H // KVH
+        qg = torch.randn((B, S, KVH, G, D), generator=gen, device="cuda")
+        k, v = (torch.randn((B, S, KVH, D), generator=gen, device="cuda")
+                for _ in range(2))
+        q, kt, vt = (qg.reshape(B, S, H, D).transpose(1, 2),
+                     k.transpose(1, 2), v.transpose(1, 2))
+        do = torch.randn((B, S, H, D), generator=gen,
+                         device="cuda").transpose(1, 2)
+        o, lse = fk.flash_attention_fwd_lse(q, kt, vt)
+        got = fk.flash_attention_bwd(q, kt, vt, o, lse, do)
+        again = fk.flash_attention_bwd(q, kt, vt, o, lse, do)
+        torch.cuda.synchronize()
+        case = (B, H, KVH, S, D)
+        check(torch.equal(o, fk.flash_attention_hsd(q, kt, vt)),
+              f"flash_attention_fwd_lse {case}: O not bitwise the serving "
+              f"forward's")
+        _, lse_ref = attention_lse_ref(q, kt, vt)
+        lse_err = (lse - lse_ref).abs().max().item()
+        check(lse_err <= TOL["float32"],
+              f"flash_attention_fwd_lse {case}: lse max_abs_err {lse_err}")
+        want = attention_bwd_ref(q, kt, vt, o, lse, do)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        check(all(torch.isfinite(a).all().item() for a in got),
+              f"flash_attention_bwd {case}: non-finite gradients")
+        check(err <= BWD_TOL * max(1.0, scale),
+              f"flash_attention_bwd {case}: max_abs_err {err} > "
+              f"{BWD_TOL} x max(1, {scale})")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_bwd {case}: a repeat is not bitwise")
+        qc, kc, vc = (t.contiguous().requires_grad_() for t in (q, kt, vt))
+        sdpa = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                              enable_gqa=True)
+        dc = do.contiguous()
+        pairs = attended_pairs(S, True, 0)
+        specs = {
+            "flash_attention_fwd_lse": dict(
+                kernel=lambda: fk.flash_attention_fwd_lse(q, kt, vt),
+                plain=lambda: attention_lse_ref(q, kt, vt),
+                library=lambda: F.scaled_dot_product_attention(
+                    qc.detach(), kc.detach(), vc.detach(), is_causal=True,
+                    enable_gqa=True),
+                nbytes=4 * (2 * B * H * S * D + 2 * B * KVH * S * D
+                            + B * H * S),
+                ops=4 * D * B * H * pairs, err=lse_err),
+            "flash_attention_bwd": dict(
+                kernel=lambda: fk.flash_attention_bwd(q, kt, vt, o, lse, do),
+                plain=lambda: attention_bwd_ref(q, kt, vt, o, lse, do),
+                library=lambda: torch.autograd.grad(
+                    sdpa, (qc, kc, vc), dc, retain_graph=True),
+                # q, o, dO, dq; k, v, dk, dv; lse
+                nbytes=4 * (4 * B * H * S * D + 4 * B * KVH * S * D
+                            + B * H * S),
+                # s, dP, dQ, dK, dV: 2 D each per attended pair; Δ per row
+                ops=B * H * (10 * D * pairs + 2 * D * S), err=err)}
+        for name, sp in specs.items():
+            dev_us, floor_us, dev_kernels = beside_floor(sp["kernel"])
+            t_bytes = sp["nbytes"] / H100_BYTES_PER_S
+            t_ops = sp["ops"] / PEAK_OPS["float32"]
+            library_dev_us, _ = device_us(sp["library"])
+            row = {"shape": list(case), "max_abs_err": sp["err"],
+                   "tol": BWD_TOL if name == "flash_attention_bwd"
+                   else TOL["float32"],
+                   "ms": cuda_time_ms(sp["kernel"], 200),
+                   "device_us": dev_us, "launch_floor_us": floor_us,
+                   "device_kernels": dev_kernels,
+                   "plain_ms": cuda_time_ms(sp["plain"], 50),
+                   "library_ms": cuda_time_ms(sp["library"], 200),
+                   "library_device_us": library_dev_us,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": sp["nbytes"], "ops": sp["ops"]}
+            print(f"{name}_case " + json.dumps(row))
+            rows[name][case] = row
+    return rows
 
 
 def scan_tol(T):
@@ -664,13 +803,32 @@ def phase_slice(card):
 def train_counters():
     from repro_torch.kernels.advantages.kernel import (
         discounted_return_adjoint_tb, discounted_return_tb)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd, flash_attention_fwd_lse)
     from repro_torch.kernels.replay_sample.kernel import (
         prioritized_sample_c, shard_topk_c)
     from repro_torch.kernels.vtrace.kernel import vtrace_tb
     return {f.__name__: f for f in (discounted_return_tb,
                                     discounted_return_adjoint_tb,
                                     vtrace_tb, prioritized_sample_c,
-                                    shard_topk_c)}
+                                    shard_topk_c, flash_attention_fwd_lse,
+                                    flash_attention_bwd)}
+
+
+# each algorithm's scan or draw kernel launches an iteration
+ALGO_KERNELS = {"ppo": {"discounted_return_tb": 1},
+                "a3c": {"discounted_return_tb": 1,
+                        "discounted_return_adjoint_tb": 1},
+                "impala": {"vtrace_tb": 1},
+                "dqn": {"prioritized_sample_c": 1}}
+
+
+def trunk_launches(algo, n_layers):
+    """A trunk fit's kernel launches an iteration: its algorithm's, and
+    the training attention's forward with lse and backward per layer."""
+    fwd, bwd = TRUNK_LAUNCHES[algo]
+    return dict(ALGO_KERNELS[algo], flash_attention_fwd_lse=fwd * n_layers,
+                flash_attention_bwd=bwd * n_layers)
 
 
 def phase_training(card, path_rows):
@@ -679,9 +837,23 @@ def phase_training(card, path_rows):
     from repro_torch.core.trainer import Trainer, TrainerConfig
     from repro_torch.envs.gridworld import GridWorld
     from repro_torch.launch.rl_train import main as rl_main
+    import repro_torch.envs as envs
     counters = train_counters()
     cfg = TrainerConfig()          # the default config: 60 x 32 x 32
     grid = TrainerConfig(algo="dqn", **GRID_CFG)
+    trunk = dataclasses.replace(cfg, iters=TRUNK_ITERS, superstep=TRUNK_ITERS,
+                                log_every=1)
+
+    def trunk_fit(algo):
+        """A full-width trunk fit through Trainer (4 layers, d_model
+        256, D 64)."""
+        run = dataclasses.replace(trunk, algo=algo, algo_kwargs={
+            "policy": "trunk", "trunk_kwargs": {"reduced": False}})
+        trainer = Trainer(envs.make("cartpole"), run)
+        check(trainer.agent.policy.lm.cfg.d_model == 256
+              and trainer.agent.policy.lm.cfg.n_layers == 4,
+              "not the full-width trunk")
+        return trainer.fit()[1]
 
     def rl_train(argv):
         buf = io.StringIO()
@@ -695,32 +867,26 @@ def phase_training(card, path_rows):
     # (label, algo, env, config, run it, launches per iteration, bar as
     # (number of last logged returns, threshold) or None)
     runs = [
-        ("ppo", "ppo", "cartpole", cfg,
-         lambda: rl_train(["--algo", "ppo", "--env", "cartpole"]),
-         {"discounted_return_tb": 1}, (2, BARS["ppo"])),
-        ("a3c", "a3c", "cartpole", cfg,
-         lambda: rl_train(["--algo", "a3c", "--env", "cartpole"]),
-         {"discounted_return_tb": 1, "discounted_return_adjoint_tb": 1},
-         (2, BARS["a3c"])),
-        ("impala", "impala", "cartpole", cfg,
-         lambda: rl_train(["--algo", "impala", "--env", "cartpole"]),
-         {"vtrace_tb": 1}, (2, BARS["impala"])),
+        (algo, algo, "cartpole", cfg,
+         lambda algo=algo: rl_train(["--algo", algo, "--env", "cartpole"]),
+         ALGO_KERNELS[algo], (2, BARS[algo]))
+        for algo in ("ppo", "a3c", "impala")
+    ] + [
         ("ppo-pendulum", "ppo", "pendulum",
          dataclasses.replace(cfg, iters=20),
          lambda: rl_train(["--algo", "ppo", "--env", "pendulum",
                            "--iters", "20"]),
-         {"discounted_return_tb": 1}, None),
+         ALGO_KERNELS["ppo"], None),
         ("dqn", "dqn", "cartpole", cfg,
          lambda: rl_train(["--algo", "dqn", "--env", "cartpole"]),
-         {"prioritized_sample_c": 1}, None),
+         ALGO_KERNELS["dqn"], None),
     ] + [
         (f"{algo}-{mech}", algo, "cartpole",
          dataclasses.replace(cfg, iters=SYNC_ITERS),
          lambda algo=algo, mech=mech: rl_train([
              "--algo", algo, "--env", "cartpole", "--sync", mech,
              "--iters", str(SYNC_ITERS)]),
-         {"ppo": {"discounted_return_tb": 1},
-          "dqn": {"prioritized_sample_c": 1}}[algo], None)
+         ALGO_KERNELS[algo], None)
         for algo in ("ppo", "dqn") for mech in ("asp", "ssp")
     ] + [
         (f"dqn-gridworld-seed{seed}", "dqn", "gridworld(4,16)",
@@ -728,7 +894,30 @@ def phase_training(card, path_rows):
          lambda seed=seed: Trainer(GridWorld(n=4, max_steps=16),
                                    dataclasses.replace(grid, seed=seed)
                                    ).fit()[1],
-         {"prioritized_sample_c": 1}, (4, None)) for seed in GRID_SEEDS]
+         ALGO_KERNELS["dqn"], (4, None)) for seed in GRID_SEEDS
+    ] + [
+        ("ppo-pendulum-norm", "ppo", "pendulum-norm",
+         dataclasses.replace(cfg, iters=SYNC_ITERS),
+         lambda: rl_train(["--algo", "ppo", "--env", "pendulum-norm",
+                           "--iters", str(SYNC_ITERS)]),
+         ALGO_KERNELS["ppo"], None),
+        ("impala-cartpole-repeat", "impala", "cartpole-repeat",
+         dataclasses.replace(cfg, iters=SYNC_ITERS),
+         lambda: rl_train(["--algo", "impala", "--env", "cartpole-repeat",
+                           "--iters", str(SYNC_ITERS)]),
+         ALGO_KERNELS["impala"], None),
+    ] + [
+        (f"{algo}-trunk", algo, "cartpole", trunk,
+         lambda algo=algo: rl_train([
+             "--algo", algo, "--env", "cartpole", "--policy", "trunk",
+             "--iters", str(TRUNK_ITERS), "--superstep", str(TRUNK_ITERS),
+             "--log-every", "1"]),
+         trunk_launches(algo, 2), None) for algo in ("ppo", "a3c", "impala",
+                                                     "dqn")
+    ] + [
+        (f"{algo}-trunk-full-width", algo, "cartpole", trunk,
+         lambda algo=algo: trunk_fit(algo), trunk_launches(algo, 4), None)
+        for algo in ("ppo", "impala")]
     for fn in counters.values():
         fn.launches = 0
     totals = dict.fromkeys(counters, 0)
@@ -901,6 +1090,118 @@ def phase_path_agreement():
     dqn_path_agreement(env)
     for R in REPLAY_SHARDS:
         dqn_sharded_path_agreement(env, R)
+    trunk_path_agreement(env)
+
+
+def trunk_path_agreement(env):
+    """Per algorithm, the full-width trunk's learner loss and gradients
+    (a ppo minibatch, a3c and impala on the whole batch, a dqn batch of
+    64) from one state and trajectory, with the training attention's
+    kernels (use_kernels) and with the plain attention."""
+    import torch
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.algos.dqn import prefixed, sub
+    from repro_torch.core.rollout import rollout_fresh
+    for algo in ("ppo", "a3c", "impala", "dqn"):
+        extra = {"warmup": 0} if algo == "dqn" else {}
+        agents = [agent_api.make(algo, env=env, policy="trunk",
+                                 total_iters=10, trunk_kwargs={
+                                     "reduced": False, "use_kernels": uk},
+                                 **extra) for uk in (True, False)]
+        state = agents[0].init(torch.Generator().manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        traj, env_state = rollout_fresh(agents[0].policy, agents[0]
+                                        .actor_policy(state, 0), env, gen,
+                                        32, 32)
+        boot = env.obs(env_state)
+        results = []
+        for ag in agents:
+            if algo == "dqn":
+                batch = {k: v[:64] for k, v in ag.transitions(traj).items()}
+                res = agent_api.value_and_grad(
+                    lambda on, ag=ag, batch=batch: ag.dqn.loss(
+                        {**state.params, **prefixed("online", on)}, batch)[0],
+                    sub(state.params, "online"))
+            elif algo == "ppo":
+                mb = {k: v[:256] for k, v in ag.algo.make_batch(
+                    state.params, traj, boot).items()}
+                res = agent_api.value_and_grad(ag.algo.loss, state.params,
+                                               mb)
+            else:
+                res = agent_api.value_and_grad(ag.algo.loss, state.params,
+                                               traj, boot)
+            results.append(res)
+        (lk, gk), (lp, gp) = results
+        scale = max(g.abs().max().item() for g in gp.values())
+        err = max((gk[k] - gp[k]).abs().max().item() for k in gp)
+        check(math.isfinite(lk.item()) and abs(lk.item() - lp.item())
+              <= 1e-5 * max(1.0, abs(lp.item())),
+              f"trunk {algo}: loss {lk.item()} vs plain {lp.item()}")
+        check(err <= TRUNK_GRAD_TOL * scale,
+              f"trunk {algo}: gradients max_abs_err {err} > "
+              f"{TRUNK_GRAD_TOL} x {scale}")
+        print(f"path trunk {algo}: full-width learner gradients, kernels vs "
+              f"plain attention, max_abs_err {err:.3e} (max |g| "
+              f"{scale:.3e}), loss {lk.item():.6f} vs {lp.item():.6f}")
+
+
+def phase_evolution(card):
+    """ES and DeepGA on cartpole and ERL on pendulum for a few
+    generations on the card, each population a batch there; finite
+    fitness."""
+    import torch
+    import repro_torch.envs as envs
+    from repro_torch.core.evo import ERL, ES, DeepGA
+    from repro_torch.core.networks import MLPPolicy
+    from repro_torch.optim import adamw
+    cpu = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cart, pend = envs.make("cartpole"), envs.make("pendulum")
+    runs = {}
+    es = ES(MLPPolicy.for_spec(cart.spec, hidden=(32,)), cart, pop_size=32,
+            sigma=0.1, lr=0.05, max_steps=200)
+    theta = es.init(cpu)
+    ga = DeepGA(MLPPolicy.for_spec(cart.spec, hidden=(32,)), cart,
+                pop_size=32, truncation=8, max_steps=200)
+    ga_state = ga.init(cpu)
+    erl = ERL(MLPPolicy.for_spec(pend.spec, hidden=(32,)), pend, pop_size=8,
+              max_steps=200)
+    erl_state, replay = erl.init(cpu)
+    opt = adamw(1e-3)
+    ostate = opt.init(erl.layout.unravel(erl_state["learner"]))
+
+    def es_gen():
+        nonlocal theta
+        theta, f, comm = es.step(theta, gen)
+        return float(f), comm
+
+    def ga_gen():
+        nonlocal ga_state
+        ga_state, f, comm = ga.step(ga_state, gen)
+        return float(f), comm
+
+    def erl_gen():
+        nonlocal erl_state, ostate
+        erl_state, ostate, fits = erl.step(erl_state, replay, gen, opt,
+                                           ostate, learner_updates=8)
+        return float(fits.mean()), None
+
+    for name, step, n in (("es", es_gen, 4), ("deep_ga", ga_gen, 4),
+                          ("erl", erl_gen, 3)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits = [step() for _ in range(n)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(math.isfinite(f) for f, _ in fits),
+              f"{name}: fitness {fits}")
+        runs[name] = {"generations": n, "fitness": [f for f, _ in fits],
+                      "comm_bytes": fits[-1][1], "wall_s": wall,
+                      "s_per_generation": wall / n, "card": card}
+        print("evolution " + json.dumps(dict(runs[name], method=name)))
+    check(bool(torch.isfinite(erl_state["pop"]).all()),
+          "erl: non-finite population")
+    return runs
 
 
 def dqn_sharded_path_agreement(env, R):
@@ -1573,15 +1874,19 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a card")
     card = phase_device()
     cases = phase_kernels()
+    bwd_rows = phase_flash_bwd_kernel()
     scan_rows = phase_scan_kernels()
     replay_row = phase_replay_kernel()
     shard_row = phase_shard_kernel()
     gmm_rows = phase_gmm_kernel()
     launches = phase_slice(card)
+    train_path = TRAIN_FLASH_CASES[0]
     train_launches = phase_training(
-        card, dict(scan_rows, prioritized_sample_c=replay_row))
+        card, dict(scan_rows, prioritized_sample_c=replay_row,
+                   **{n: r[train_path] for n, r in bwd_rows.items()}))
     shard_launches = phase_replay_training(card, shard_row)
     phase_path_agreement()
+    phase_evolution(card)
     phase_flash_guard()
     phase_cli()
     phase_gmm_guard()
@@ -1598,6 +1903,19 @@ def main():
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
         "launches": launches}, **{k: serve[k] for k in keys})]
+    # the training attention: the forward kernel writing lse, and its
+    # backward (no pallas_call of its own: the adjoint of the forward's)
+    for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):
+        row = bwd_rows[name][train_path]
+        kernels.append(dict({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      + ("flash_attention_bwd.cu" if name.endswith("bwd")
+                         else "flash_attention.cu"),
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:96"
+                        + (" (its backward; the reference has none)"
+                           if name.endswith("bwd") else ""),
+            "launches": train_launches[name]}, **{k: row[k] for k in keys}))
     replaces = {
         "discounted_return_tb": "src/repro/kernels/advantages/kernel.py:43",
         "discounted_return_adjoint_tb":

@@ -5,7 +5,11 @@ House ref/kernel/ops seam: the model-side grouped-query layout
 (kernels/flash_attention/ops.py) for CUDA tensors when `use_kernel` is
 on, and to the plain version (kernels/flash_attention/ref.py) for CPU
 tensors or with `use_kernel=False`. There is no fallback: a CUDA tensor
-with `use_kernel` launches the kernel or raises.
+with `use_kernel` launches the kernel or raises. Under grad the kernel
+path trains through its autograd Function (the forward kernel with each
+row's log-sum-exp, then the backward kernel, float32 with at most 32
+keys: the policy trunk's calls); elsewhere under grad it raises. A CPU
+tensor trains through the plain version's own autograd.
 """
 import torch
 

@@ -5,10 +5,17 @@ One Python loop advances B environments T steps: policy inference, env
 dynamics and auto-reset, all on the generator's device. Each step runs
 ONE policy forward (`sample_value` gives action, log-prob and value) and
 draws its noise and its resets from a `torch.Generator`.
+
+`episode_return` is the evolution methods' fitness: one greedy episode
+per population member, the members' params a leading dim and their envs
+one batch, which takes the place of the reference's `vmap`.
 """
 from __future__ import annotations
 
 import torch
+from torch.func import vmap
+
+from repro_torch.envs.api import tree_map
 
 TRAJ_KEYS = ("obs", "action", "logp", "value", "reward", "done",
              "next_obs")
@@ -41,3 +48,39 @@ def rollout_fresh(policy, params, env, generator, T, n):
     """Rollout from `n` freshly reset envs."""
     env_state = env.reset(generator, n)
     return rollout(policy, params, env, generator, env_state, T)
+
+
+def freeze_done(done, old, new):
+    """Per-env select of a state tree: `old` where the episode was over
+    already (its state frozen), else `new`."""
+    return tree_map(lambda a, b: torch.where(
+        done.reshape((-1,) + (1,) * (a.ndim - 1)), a, b), old, new)
+
+
+@torch.no_grad()
+def episode_return(policy, params, env, generator=None, max_steps=200,
+                   state=None):
+    """One deterministic episode return per population member (greedy
+    for a discrete head, the mean action for a continuous one, squashed
+    into the action box read off the env's spec): params with a leading
+    (P,) member dim; the P envs start from `state` (a batched env state)
+    or from `env.reset(generator, P)`. Rewards after an episode's end
+    are masked and its state frozen. Returns (P,) float32."""
+    P = next(iter(params.values())).shape[0]
+    if state is None:
+        state = env.reset(generator, P)
+    act = env.spec.action
+    done = torch.zeros((P,), dtype=torch.bool,
+                       device=next(iter(params.values())).device)
+    total = torch.zeros((P,), device=done.device)
+    for _ in range(max_steps):
+        pi, _ = vmap(policy.apply)(params, env.obs(state))
+        if policy.discrete:
+            action = torch.argmax(pi, dim=-1).to(torch.int32)
+        else:
+            action = act.midpoint + torch.tanh(pi) * act.half_range
+        nstate, _, reward, ndone = env.step(state, action)
+        total = total + torch.where(done, 0.0, reward)
+        state = freeze_done(done, state, nstate)
+        done = done | ndone
+    return total

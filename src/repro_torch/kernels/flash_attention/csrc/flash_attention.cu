@@ -111,7 +111,17 @@ struct Args {
   // element strides of the batch, head and sequence dims; the head dim
   // (last) is contiguous in every operand
   int64_t q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
+  // each row's log-sum-exp m + log l (of the scaled scores), f32
+  // (B, H, S) contiguous, written by the short-span kernels where set
+  // (the training forward; the backward kernel reads it); null to skip
+  float* lse;
 };
+
+// lse[b, h, qpos] = m + log l: -inf for a row with no key (m = -inf, l = 0)
+__device__ __forceinline__ void store_lse(const Args& a, int b, int h,
+                                          int qpos, float m, float l) {
+  a.lse[(int64_t(b) * a.H + h) * a.S + qpos] = m + logf(l);
+}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -374,7 +384,7 @@ __global__ void __launch_bounds__(kShortThreads)
   const float4* sQ4 = reinterpret_cast<const float4*>(sQ);
   const float4* sK4 = reinterpret_cast<const float4*>(sK);
   int gis[2], rrs[2];
-  float pr[2], l[2];
+  float pr[2], l[2], mxs[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     if (e >= ne) break;
@@ -399,6 +409,7 @@ __global__ void __launch_bounds__(kShortThreads)
     const float mx = warp_max(valid ? s : -INFINITY);
     pr[e] = valid ? expf(s - mx) : 0.f;
     l[e] = warp_sum(pr[e]);
+    mxs[e] = mx;
   }
   float acc[2][kPer];
 #pragma unroll
@@ -426,6 +437,8 @@ __global__ void __launch_bounds__(kShortThreads)
     const float inv = 1.f / fmaxf(l[e], 1e-30f);
 #pragma unroll
     for (int i = 0; i < kPer; ++i) orow[32 * i] = acc[e][i] * inv;
+    // every lane holds the row's max and sum after the butterflies
+    if (a.lse != nullptr && lane == 0) store_lse(a, b, h, qpos, mxs[e], l[e]);
   }
 }
 
@@ -539,6 +552,9 @@ __global__ void __launch_bounds__(kShortThreads)
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < kPer; ++i) orow[32 * i] = acc[i] * inv;
+    // the butterflies over the key lanes (xor 16, 8) leave the row's max
+    // and sum in every lane
+    if (a.lse != nullptr && lane == 0) store_lse(a, bs[e], hs[e], qps[e], mx, l);
   }
 }
 
@@ -907,25 +923,29 @@ struct FlashParams {
   int kind, B, H, KVH, S, D, causal, window, kv_end;
   float scale;
   int64_t q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
+  float* lse;
 };
-static_assert(sizeof(FlashParams) == 168, "FlashParams is packed");
+static_assert(sizeof(FlashParams) == 176, "FlashParams is packed");
 
 // kind, the caller's choice of kernel (kernel.py's `kernel_kind`): 0 =
 // float32 (flash_fwd<float>), 1 = bfloat16 (flash_fwd_tc, or flash_fwd in
 // bf16 for operands cp.async cannot read), 2 = float32 with kv_end <= 32
 // (flash_short_f32); scale is D^-0.5 as the caller rounds it to f32;
 // element strides of the batch, head and sequence dims (the head dim is
-// contiguous). Launches on `stream`, allocates nothing, and returns
+// contiguous); lse, where not null, (B, H, S) f32 for each row's
+// log-sum-exp (kind 2 only: the backward's f32 short spans). Launches on
+// `stream`, allocates nothing, and returns
 // cudaGetLastError() after the launch (or cudaErrorInvalidValue for a
 // head dim, kind or shape it does not take).
 int flash_attention_hsd(const FlashParams* p, void* stream) {
   if (p->B <= 0 || p->H <= 0 || p->KVH <= 0 || p->H % p->KVH != 0 ||
       p->S <= 0)
     return cudaErrorInvalidValue;
+  if (p->lse != nullptr && p->kind != 2) return cudaErrorInvalidValue;
   Args a{p->q,   p->k,   p->v,   p->o,   p->H,   p->KVH, p->S,
          p->kv_end, p->causal, p->window, p->scale, p->q_b, p->q_h,
          p->q_s, p->k_b, p->k_h, p->k_s, p->v_b, p->v_h, p->v_s,
-         p->o_b, p->o_h, p->o_s};
+         p->o_b, p->o_h, p->o_s, p->lse};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->kind == 0) return dispatch_d<float>(a, p->B, p->D, s);
   if (p->kind == 1)

@@ -1,10 +1,17 @@
-"""ctypes binding of the Hopper flash-attention kernel
-(csrc/flash_attention.cu), the port of the Pallas `flash_attention_hsd`.
+"""ctypes binding of the Hopper flash-attention kernels: the forward
+(csrc/flash_attention.cu), the port of the Pallas `flash_attention_hsd`,
+and its f32 short-span backward (csrc/flash_attention_bwd.cu), which the
+reference does not have (it trains through the jnp oracle).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the
-plain version (ref.py). `flash_attention_hsd.launches` counts kernel
-launches (both entries below), so a run can show that its main path went
-through the kernel.
+plain version (ref.py). Each wrapper counts its kernel launches, so a
+run can show that its main path went through the kernel:
+`flash_attention_hsd.launches` the forward's (both forward-only entries
+below), `flash_attention_fwd_lse.launches` the training forward's (the
+same kernel, writing each row's log-sum-exp) and
+`flash_attention_bwd.launches` the backward's. The two forward-only
+entries raise under grad; training goes through the autograd Function
+in ops.py, which launches the last two.
 
 The launch arguments go to the C side as one packed struct (the layout
 of `FlashParams` in the source): one ctypes argument instead of 27 cuts
@@ -19,13 +26,19 @@ import torch
 
 from repro_torch.kernels.common import (check_launch, launch_stream,
                                         load_kernels, on_device)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                    attention_lse_ref,
+                                                    attention_ref)
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # FlashParams: q, k, v, o; kind, B, H, KVH, S, D, causal, window, kv_end;
-# scale; the (b, h, s) element strides of q, k, v, o
-PARAMS = struct.Struct("<4Q9if12q")
+# scale; the (b, h, s) element strides of q, k, v, o; lse (0: none)
+PARAMS = struct.Struct("<4Q9if12qQ")
+# FlashBwdParams: q, k, v, o, dO, lse, dq, dk, dv; B, H, KVH, S, D,
+# causal, window, kv_end; scale (4 bytes of padding); the (b, h, s)
+# element strides of q, k, v, o, dO, dq, dk, dv
+BWD_PARAMS = struct.Struct("<9Q8if4x24q")
 SHORT_SPAN = 32     # the longest key range the short-span kernels take
 _SHORT_ROWS = 16    # rows of a block of it (flash_attention.cu kShortRows)
 _GRID_X = 2 ** 31 - 1
@@ -49,9 +62,9 @@ def kernel_kind(dt, kv_end, B, KVH, S, G):
 
 
 @functools.cache
-def _launcher():
+def _launcher(entry="flash_attention_hsd"):
     dll = load_kernels()
-    fn = dll.flash_attention_hsd
+    fn = getattr(dll, entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return dll, fn
@@ -63,11 +76,11 @@ def _no_grad(q, k, v):
         # the kernel writes through ctypes: its output has no grad_fn, so
         # running it here would train without an attention gradient
         raise RuntimeError(
-            "flash_attention_hsd: q, k or v requires grad, but the "
-            "flash-attention backward kernel is not ported yet (it comes "
-            "with --policy trunk training, ROADMAP queue 1 item 9); run "
-            "under torch.no_grad() / inference_mode, or use "
-            "use_kernels=False to train")
+            "flash_attention_hsd: q, k or v requires grad, and this entry "
+            "is forward-only (no backward): train through "
+            "repro_torch.kernels.flash_attention.ops.flash_attention, "
+            "whose autograd Function runs the backward kernel, or run "
+            "under torch.no_grad() / inference_mode")
 
 
 def _check_common(q, k, v, B, H, KVH, D, last_strides):
@@ -114,12 +127,15 @@ def _check(q, k, v, valid_len):
     return dt, kv_end
 
 
-def _launch(params, device):
-    dll, fn = _launcher()
+def _launch(params, device, wrapper=None, symbol="flash_attention_hsd"):
+    """Launch the C entry `symbol` and count the launch on `wrapper`
+    (flash_attention_hsd where not given)."""
+    wrapper = wrapper or flash_attention_hsd
+    dll, fn = _launcher(symbol)
     with on_device(device):
         code = fn(params, launch_stream(device))
-    flash_attention_hsd.launches += 1
-    check_launch(dll, code, "flash_attention_hsd")
+    wrapper.launches += 1
+    check_launch(dll, code, wrapper.__name__)
 
 
 def flash_attention_hsd(q, k, v, *, causal=True, window=0, valid_len=None):
@@ -140,11 +156,98 @@ def flash_attention_hsd(q, k, v, *, causal=True, window=0, valid_len=None):
         kernel_kind(dt, kv_end, B, KVH, S, H // KVH), B, H, KVH, S, D,
         int(causal), int(window), kv_end, D ** -0.5,
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-        S * H * D, D, H * D), q.device)
+        S * H * D, D, H * D, 0), q.device)
     return out.transpose(1, 2)
 
 
 flash_attention_hsd.launches = 0
+
+
+def _short_f32(name, dt, kv_end, B, KVH, S, G):
+    """Raise unless the call takes the f32 short-span kernels (the only
+    ones with a backward)."""
+    if kernel_kind(dt, kv_end, B, KVH, S, G) != 2:
+        raise ValueError(
+            f"{name}: the backward covers float32 with key spans <= "
+            f"{SHORT_SPAN} (got {'float32' if dt == 0 else 'bfloat16'}, "
+            f"{kv_end} keys, B={B}, KVH={KVH}); training elsewhere comes "
+            f"with LM training, ROADMAP queue 1 item 15")
+
+
+def flash_attention_fwd_lse(q, k, v, *, causal=True, window=0,
+                            valid_len=None):
+    """The training forward: flash_attention_hsd's kernel on float32
+    with key spans <= 32, also writing each row's log-sum-exp. q:
+    (B,H,S,D); k, v: (B,KVH,S,D), any strides with a contiguous head dim.
+    Returns (o, lse): o (B,H,S,D), a view of a (B,S,H,D) buffer, bitwise
+    flash_attention_hsd's; lse (B,H,S) float32, -inf for a row with no
+    key. No graph is recorded (the autograd Function in ops.py calls
+    it)."""
+    if not q.is_cuda:
+        return attention_lse_ref(q, k, v, causal=causal, window=window,
+                                 valid_len=valid_len)
+    dt, kv_end = _check(q, k, v, valid_len)
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    _short_f32("flash_attention_fwd_lse", dt, kv_end, B, KVH, S, H // KVH)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    _launch(PARAMS.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        2, B, H, KVH, S, D, int(causal), int(window), kv_end, D ** -0.5,
+        qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        S * H * D, D, H * D, lse.data_ptr()), q.device,
+        flash_attention_fwd_lse)
+    return out.transpose(1, 2), lse
+
+
+flash_attention_fwd_lse.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
+                        valid_len=None):
+    """The backward of flash_attention_fwd_lse on float32, key spans
+    <= 32: q, o, do (B,H,S,D), k, v (B,KVH,S,D), any strides with a
+    contiguous head dim, lse (B,H,S) as the forward wrote it. Returns
+    (dq, dk, dv): dq (B,H,S,D), a view of a (B,S,H,D) buffer, and dk, dv
+    (B,KVH,S,D), views of (B,S,KVH,D) buffers (the model layout needs no
+    copy). Deterministic: dk and dv are summed over each kv head's group
+    in one fixed order, without atomics."""
+    if not q.is_cuda:
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window, valid_len=valid_len)
+    dt, kv_end = _check(q, k, v, valid_len)
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    _short_f32("flash_attention_bwd", dt, kv_end, B, KVH, S, H // KVH)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != torch.float32 or \
+                t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd: {name} must be float32 "
+                             f"{tuple(q.shape)} on {q.device} with a "
+                             f"contiguous head dim")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous "
+                         f"float32 {(B, H, S)} on {q.device}")
+    dq = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, S, KVH, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    qs, ks, vs, os_, ds = (t.stride() for t in (q, k, v, o, do))
+    _launch(BWD_PARAMS.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, H, KVH, S, D, int(causal), int(window), kv_end,
+        D ** -0.5, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1],
+        vs[2], os_[0], os_[1], os_[2], ds[0], ds[1], ds[2],
+        S * H * D, D, H * D, S * KVH * D, D, KVH * D,
+        S * KVH * D, D, KVH * D), q.device, flash_attention_bwd,
+        "flash_attention_bwd")
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+flash_attention_bwd.launches = 0
 
 
 def grouped_params(qg, k, v, out, causal, window):
@@ -173,7 +276,7 @@ def grouped_params(qg, k, v, out, causal, window):
         kernel_kind(dt, S, B, KVH, S, G), B, H, KVH, S, D, int(causal),
         int(window), S, D ** -0.5,
         qs[0], q_h, qs[1], ks[0], ks[2], ks[1], vs[0], vs[2], vs[1],
-        S * H * D, D, H * D)
+        S * H * D, D, H * D, 0)
 
 
 def flash_attention_grouped(qg, k, v, *, causal=True, window=0):

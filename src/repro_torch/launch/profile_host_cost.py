@@ -44,7 +44,14 @@ only):
   argument);
 - `flash_attention` (ops.py, the policy trunk's entry) in f32 at the
   trunk's serving shape (B, H, KVH, S, D) = (32, 4, 2, 4, 64), causal,
-  with the same pieces as the bf16 rows.
+  with the same pieces as the bf16 rows;
+- the trunk's training attention at a full-width PPO minibatch
+  (B, H, KVH, S, D) = (256, 4, 2, 4, 64): the backward kernel's wrapper
+  `flash_attention_bwd`, the training forward `flash_attention_fwd_lse`,
+  the autograd backward of `flash_attention` (its Function) and of SDPA
+  on the same inputs, and the backward wrapper's pieces: the checks with
+  the packing of the arguments, the three output allocations and the
+  ctypes call itself (one packed argument).
 Prints one JSON line beside the card's name and power limit.
 
 With `--parent` (once or more), it measures nothing else: the whole
@@ -86,6 +93,7 @@ LM_FLASH = {"deepseek-moe-16b": (4, 16, 16, 32, 128),
 REPLAY = (20000, 12800, 64)
 SCAN = (32, 32)                 # (T, B) of the training path
 TRUNK_FLASH = (32, 4, 2, 4, 64)  # the policy trunk's serve shape, f32
+TRUNK_TRAIN = (256, 4, 2, 4, 64)  # a full-width ppo minibatch, f32
 # (B, T, H, N, chunk) of the rwkv6-1.6b serve path
 WKV = {"decode": (4, 1, 32, 64, 1), "prefill": (4, 32, 32, 64, 64)}
 ROUNDS = 5   # timings of each call in a process of a pair, in turns
@@ -164,6 +172,57 @@ def flash_costs(dev, shape, dtype=torch.bfloat16):
                 qg.shape, dtype=qg.dtype, device=dev)),
             "ctypes call (2 args)": per_call_us(
                 lambda: fn(params, launch_stream(dev)))}
+
+
+def flash_bwd_costs(dev, shape):
+    B, H, KVH, S, D = shape
+    G = H // KVH
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qg = torch.randn((B, S, KVH, G, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, S, KVH, D), generator=gen, device=dev)
+            for _ in range(2))
+    dout = torch.randn_like(qg)
+    q, kt, vt = (qg.reshape(B, S, H, D).transpose(1, 2), k.transpose(1, 2),
+                 v.transpose(1, 2))
+    o, lse = flash_kernel.flash_attention_fwd_lse(q, kt, vt)
+    do = dout.reshape(B, S, H, D).transpose(1, 2)
+    ins = [t.clone().requires_grad_() for t in (qg, k, v)]
+    out = flash_attention(*ins)
+    qc, kc, vc = (t.detach().contiguous().requires_grad_()
+                  for t in (q, kt, vt))
+    ref = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                         enable_gqa=True)
+    _, fn = flash_kernel._launcher("flash_attention_bwd")
+    dq, dk, dv = flash_kernel.flash_attention_bwd(q, kt, vt, o, lse, do)
+    qs, ks, vs, os_, ds = (t.stride()[:3] for t in (q, kt, vt, o, do))
+
+    def pack():
+        flash_kernel._check(q, kt, vt, None)
+        return flash_kernel.BWD_PARAMS.pack(
+            q.data_ptr(), kt.data_ptr(), vt.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, KVH, S, D, 1, 0, S, D ** -0.5, *qs, *ks,
+            *vs, *os_, *ds, S * H * D, D, H * D, S * KVH * D, D, KVH * D,
+            S * KVH * D, D, KVH * D)
+
+    params = pack()
+    return {
+        "flash_attention_bwd": per_call_us(
+            lambda: flash_kernel.flash_attention_bwd(q, kt, vt, o, lse, do)),
+        "flash_attention_fwd_lse": per_call_us(
+            lambda: flash_kernel.flash_attention_fwd_lse(q, kt, vt)),
+        "flash_attention autograd backward": per_call_us(
+            lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)),
+        "sdpa autograd backward": per_call_us(
+            lambda: torch.autograd.grad(ref, (qc, kc, vc), do,
+                                        retain_graph=True)),
+        "checks and packed arguments": per_call_us(pack),
+        "torch.empty x3": per_call_us(lambda: [
+            torch.empty((B, S, H, D), device=dev),
+            torch.empty((B, S, KVH, D), device=dev),
+            torch.empty((B, S, KVH, D), device=dev)]),
+        "ctypes call (2 args)": per_call_us(
+            lambda: fn(params, launch_stream(dev)))}
 
 
 def replay_costs(dev):
@@ -380,6 +439,8 @@ def main(argv=None):
     out["flash_attention_f32_trunk"] = {
         f"paper-drl-trunk {TRUNK_FLASH}": flash_costs(dev, TRUNK_FLASH,
                                                       torch.float32)}
+    out["flash_attention_bwd_trunk"] = {
+        f"paper-drl-trunk {TRUNK_TRAIN}": flash_bwd_costs(dev, TRUNK_TRAIN)}
     out["discounted_return"] = {f"{SCAN}": scan_costs(dev)}
     out["vtrace_tb"] = {f"{SCAN}": vtrace_costs(dev)}
     out["prioritized_sample_c"] = replay_costs(dev)

@@ -1,6 +1,8 @@
 """Device time of the port's small kernels beside the launch floor, on the
 card: the f32 flash-attention forward at the policy trunk's serving
-shapes, the discounted-return scan and its adjoint, and V-trace.
+shapes, its training forward (with each row's log-sum-exp) and its
+backward at the trunk's training shapes, the discounted-return scan and
+its adjoint, and V-trace.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_small_kernels \
         [--reps 2] [--ablate]
@@ -8,7 +10,12 @@ shapes, the discounted-return scan and its adjoint, and V-trace.
 The sweep: f32 flash attention through the model's entry
 (`ops.flash_attention`) at the trunk's serve buckets (B = 1, 4, 8, 16,
 32; H = 4 over KVH = 2, D = 64, causal; S = 4 for cartpole and 3 for
-pendulum) and `chip_smoke.KERNEL_CASES`' f32 rows, and the scans
+pendulum) and `chip_smoke.KERNEL_CASES`' f32 rows;
+`flash_attention_fwd_lse`, `flash_attention_hsd` (the same forward
+without lse) and `flash_attention_bwd` at the trunk's training shapes (`TRAIN`: H = 4 over KVH = 2, S = 4 (cartpole) and 3
+(pendulum), D = 32 (the reduced trunk, rl_train's default) and 64 (full
+width), B = the learner's batches: 64 (dqn), 256 (a ppo minibatch) and
+1024 (a3c and impala at 32 envs x 32 steps)); and the scans
 (`discounted_return_tb`, `discounted_return_adjoint_tb` with every
 gradient) and `vtrace_tb` at `chip_smoke.SCAN_SHAPES` and the adjoint
 with dinit alone (A3C's call) at (32, 32). For each: the kernels' device time per call
@@ -67,6 +74,9 @@ KERNEL_CASES = [(32, 4, 2, 4, 64, True, 0), (4, 16, 16, 32, 128, True, 0),
                 (1, 2, 1, 512, 256, True, 0)]
 SCAN_SHAPES = [(32, 32), (32, 4096), (2048, 128)]
 SERVE = (32, 4, 2, 4, 64, True, 0)
+# (B, H, KVH, S, D) of the trunk's training calls
+TRAIN = [(b, 4, 2, 4, d) for d in (32, 64) for b in (64, 256, 1024)] + \
+    [(256, 4, 2, 3, 64)]
 ABLATE_FLASH = [SERVE, (4, 16, 16, 32, 128, True, 0),
                 (4, 15, 5, 32, 64, True, 0)]
 ABLATE_SCANS = SCAN_SHAPES
@@ -92,7 +102,8 @@ _FLASH_SHORT = [  # flash_short_f32 and flash_short_reg_f32, both cut
     ("no_softmax", [("const float mx = warp_max(valid ? s : -INFINITY);\n"
                      "    pr[e] = valid ? expf(s - mx) : 0.f;\n"
                      "    l[e] = warp_sum(pr[e]);",
-                     "pr[e] = valid ? s : 0.f;\n    l[e] = pr[e];"),
+                     "const float mx = 0.f;\n    pr[e] = valid ? s : 0.f;"
+                     "\n    l[e] = pr[e];"),
                     ("#pragma unroll\n    for (int m = 16; m >= P; m >>= 1)"
                      "\n      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, m));"
                      "\n    const float pr = valid ? expf(s - mx) : 0.f;",
@@ -266,9 +277,34 @@ def vtrace_inputs(T, B, dev, seed=0):
             torch.randn((B,), generator=gen, device=dev))
 
 
+def train_inputs(case, dev, seed=0):
+    """(q, k, v, o, lse, do) of a trunk training call, (B,H,S,D) views of
+    the model layout as the autograd Function hands them over, o and lse
+    from the training forward."""
+    B, H, KVH, S, D = case
+    qg, k, v = flash_inputs((B, H, KVH, S, D, True, 0), dev, seed)
+    q, kt, vt = (qg.reshape(B, S, H, D).transpose(1, 2), k.transpose(1, 2),
+                 v.transpose(1, 2))
+    o, lse = flash_kernel.flash_attention_fwd_lse(q, kt, vt)
+    return q, kt, vt, o, lse, torch.randn_like(qg).reshape(
+        B, S, H, D).transpose(1, 2)
+
+
 def calls(dev):
     """{label: a call of a wrapper} for the sweep."""
     out = {}
+    # an older tree measured with this tool may have no training attention
+    train = TRAIN if hasattr(flash_kernel, "flash_attention_bwd") else []
+    for case in train:
+        q, k, v, o, lse, do = train_inputs(case, dev)
+        out[f"flash_attention_fwd_lse {case}"] = (
+            lambda a=(q, k, v): flash_kernel.flash_attention_fwd_lse(*a),
+            200)
+        out[f"flash_attention_hsd {case}"] = (   # the same, without lse
+            lambda a=(q, k, v): flash_kernel.flash_attention_hsd(*a), 200)
+        out[f"flash_attention_bwd {case}"] = (
+            lambda a=(q, k, v, o, lse, do):
+            flash_kernel.flash_attention_bwd(*a), 200)
     for case in dict.fromkeys(TRUNK + KERNEL_CASES):
         qg, k, v = flash_inputs(case, dev)
         causal, window = case[5], case[6]

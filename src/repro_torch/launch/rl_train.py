@@ -130,8 +130,7 @@ def main(argv=None):
 
     if args.env not in envs.available():
         ap.error(f"--env {args.env} not registered in the port; available: "
-                 f"{envs.available()} (the -norm/-repeat wrappers come "
-                 f"with the env-wrappers item, ROADMAP queue 1, item 2)")
+                 f"{envs.available()}")
     algo_kwargs = {"policy": args.policy}
     if args.algo == "impala":
         algo_kwargs["use_vtrace"] = not args.no_vtrace

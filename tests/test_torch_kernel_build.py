@@ -149,12 +149,13 @@ def test_replay_draw_sizing_and_limits_need_no_library(monkeypatch):
 
 @pytest.mark.parametrize("KVH,G", [(2, 3), (1, 4), (3, 1)])
 def test_flash_packed_arguments_index_the_model_layout(KVH, G):
-    """The flash kernel's packed arguments (`FlashParams`, 168 bytes) for
+    """The flash kernel's packed arguments (`FlashParams`, 176 bytes) for
     the model layout qg (B,S,KVH,G,D), k, v (B,S,KVH,D): pointers, dims,
     and (b, h, s) strides such that head h = kvh * G + g of q lies at
-    h * q_h, the kv heads at kvh * k_h, out contiguous (B,S,H,D)."""
+    h * q_h, the kv heads at kvh * k_h, out contiguous (B,S,H,D), and no
+    log-sum-exp output (a null `lse`: the serving forward)."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    assert fk.PARAMS.size == 168
+    assert fk.PARAMS.size == 176
     B, S, D = 2, 5, 32
     qg = torch.zeros((B, S, KVH, G, D), dtype=torch.bfloat16)
     k = torch.zeros((B, S, KVH + 1, D), dtype=torch.bfloat16)[:, :, 1:]
@@ -170,7 +171,7 @@ def test_flash_packed_arguments_index_the_model_layout(KVH, G):
     assert f[14:] == (qg.stride(0), q_h, qg.stride(1),
                       k.stride(0), k.stride(2), k.stride(1),
                       v.stride(0), v.stride(2), v.stride(1),
-                      S * H * D, D, H * D)
+                      S * H * D, D, H * D, 0)
     # (KVH, G) that do not fold into one head stride are refused
     if KVH > 1 and G > 1:
         odd = torch.zeros((B, S, G, KVH, D),

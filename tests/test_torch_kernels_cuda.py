@@ -1245,3 +1245,251 @@ def test_rwkv_layer_kernel_matches_plain(cuda):
     torch.testing.assert_close(gs["S"], ws["S"], **WKV_TOL)
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
                                atol=1e-2 * float(want.float().abs().max()))
+
+
+# ---- the flash-attention backward (f32, key spans <= 32) ----
+#
+# The backward kernel is held to attention_bwd_ref, the plain version fed
+# the kernel's own o and lse, within atol = rtol = 1e-4: dk and dv sum up
+# to S * G = 128 rows and dq up to 32 keys of f32 products, in another
+# order than the plain einsums. Repeats are bitwise (no atomics).
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def cuda_dev():
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def flash_bwd(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    fk.flash_attention_fwd_lse.launches = 0
+    fk.flash_attention_bwd.launches = 0
+    return fk
+
+
+def _bwd_case(fk, q, k, v, do, **mask):
+    """The kernel's (o, lse, dq, dk, dv) and the plain backward's on the
+    kernel's o and lse."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    o, lse = fk.flash_attention_fwd_lse(q, k, v, **mask)
+    got = fk.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    torch.cuda.synchronize()
+    want = attention_bwd_ref(q, k, v, o, lse, do, **mask)
+    return o, lse, got, want
+
+
+# every trunk training shape: S 3 (pendulum) and 4 (cartpole, gridworld),
+# 4 query heads over 2 kv heads, D 32 (reduced) and 64 (full width), B 1
+# up to the largest learner batch (the default fit's 32 x 32 steps)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32, 256, 1024])
+@pytest.mark.parametrize("S", [3, 4])
+@pytest.mark.parametrize("D", [32, 64])
+def test_flash_bwd_matches_plain_at_trunk_shapes(flash_bwd, B, S, D):
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    KVH, G = 2, 2
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda_dev(),
+                       B + S + D)
+    do = torch.randn_like(q)
+    o, lse, got, want = _bwd_case(flash_bwd, q, k, v, do)
+    assert (flash_bwd.flash_attention_fwd_lse.launches,
+            flash_bwd.flash_attention_bwd.launches) == (1, 1)
+    _, lse_ref = attention_lse_ref(q, k, v)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=2e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+    again = flash_bwd.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+# spans 5-32, ragged valid_len (a longer S cut to at most 32 keys: the key
+# rows past it get zero dk, dv), windows, non-causal, G 1-4, every head dim
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("S,G,causal,window,valid_len", [
+    (5, 2, True, 0, None), (9, 1, True, 4, 7), (17, 3, True, 0, None),
+    (20, 4, False, 0, 13), (32, 2, True, 8, None), (32, 1, False, 0, None),
+    (40, 2, True, 0, 32), (100, 3, False, 0, 20), (24, 4, True, 0, 19)])
+def test_flash_bwd_spans_masks_and_repeats(flash_bwd, D, S, G, causal,
+                                           window, valid_len):
+    B, KVH = 3, 2
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda_dev(),
+                       D + S + G)
+    do = torch.randn_like(q)
+    mask = dict(causal=causal, window=window, valid_len=valid_len)
+    o, lse, got, want = _bwd_case(flash_bwd, q, k, v, do, **mask)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+    if valid_len is not None:
+        assert bool((got[1][:, :, valid_len:] == 0).all())
+        assert bool((got[2][:, :, valid_len:] == 0).all())
+    again = flash_bwd.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_row_without_keys_gets_zero_gradients(flash_bwd):
+    B, KVH, G, S, D = 2, 2, 2, 6, 64
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda_dev(), 5)
+    do = torch.randn_like(q)
+    mask = dict(causal=True, window=1, valid_len=2)
+    o, lse, got, want = _bwd_case(flash_bwd, q, k, v, do, **mask)
+    assert bool(torch.isneginf(lse[:, :, 2:]).all())
+    assert bool((got[0][:, :, 2:] == 0).all())
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, **BWD_TOL)
+
+
+# strided operands and a strided dO (the model layout's views and a
+# cotangent autograd may hand over), head dim contiguous
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 256])
+@pytest.mark.parametrize("offset", [0, 4, 3])
+@pytest.mark.parametrize("S", [3, 4, 17])
+def test_flash_bwd_strided(flash_bwd, D, offset, S):
+    B, KVH, G = 5, 2, 2
+    rng = np.random.default_rng(D + offset + S)
+    H = KVH * G
+    base_q = torch.tensor(rng.standard_normal((B, S, H + 2, D + 8)).astype(
+        np.float32), device=cuda_dev())
+    base_kv = torch.tensor(rng.standard_normal(
+        (B, S, 2 * KVH + 1, D + 8)).astype(np.float32), device=cuda_dev())
+    q = base_q[:, :, 1:H + 1, offset:offset + D].transpose(1, 2)
+    k = base_kv[:, :, :KVH, offset:offset + D].transpose(1, 2)
+    v = base_kv[:, :, KVH + 1:, offset:offset + D].transpose(1, 2)
+    do = torch.tensor(rng.standard_normal((B, S, KVH * G, D + 5)).astype(
+        np.float32), device=cuda_dev())[..., 2:2 + D].transpose(1, 2)
+    assert not do.is_contiguous() and do.stride(-1) == 1
+    o, lse, got, want = _bwd_case(flash_bwd, q, k, v, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+    contig = flash_bwd.flash_attention_bwd(
+        *(t.contiguous() for t in (q, k, v, o)), lse, do.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(contig, got))
+
+
+# O with lse requested is bitwise O without it, through both short kernels
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 4, 5, 17, 32])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_fwd_lse_leaves_o_bitwise(flash_bwd, S, G, D):
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    B, KVH = 3, 2
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda_dev(),
+                       S + G + D)
+    o, lse = flash_bwd.flash_attention_fwd_lse(q, k, v)
+    assert torch.equal(o, flash_attention_hsd(q, k, v))
+    _, lse_ref = attention_lse_ref(q, k, v)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,S", [(torch.bfloat16, 4),
+                                     (torch.float32, 33)])
+def test_flash_attention_under_grad_refuses_what_the_backward_lacks(
+        flash_bwd, dtype, S):
+    """bf16, or a span past 32 keys, under grad raises (naming LM
+    training's item) instead of training through another path."""
+    qg = torch.randn((2, S, 2, 2, 64), device=cuda_dev(), dtype=dtype,
+                     requires_grad=True)
+    k = torch.randn((2, S, 2, 64), device=cuda_dev(), dtype=dtype)
+    with pytest.raises(RuntimeError, match="item 15"):
+        flash_attention(qg, k, k)
+    assert flash_bwd.flash_attention_fwd_lse.launches == 0
+    with torch.no_grad():
+        flash_attention(qg, k, k)
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_matches_plain_autograd(flash_bwd):
+    """flash_attention under grad on the model layout (the trunk's call):
+    one forward-with-lse and one backward launch, gradients within
+    BWD_TOL of autograd through the plain version, under
+    torch.use_deterministic_algorithms(True), bitwise on a repeat."""
+    from repro_torch.core.attention import attention
+    B, S, KVH, G, D = 256, 4, 2, 2, 64
+    qg, k, v = _f32_qkv((B, S, KVH, G, D), (B, S, KVH, D), cuda_dev(), 9)
+    dout = torch.randn_like(qg)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads = []
+        for _ in range(2):
+            ins = [t.clone().requires_grad_() for t in (qg, k, v)]
+            out = flash_attention(*ins)
+            grads.append(torch.autograd.grad(out, ins, dout))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert (flash_bwd.flash_attention_fwd_lse.launches,
+            flash_bwd.flash_attention_bwd.launches) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    ins = [t.clone().requires_grad_() for t in (qg, k, v)]
+    want = torch.autograd.grad(attention(*ins, use_kernel=False), ins, dout)
+    for g, w in zip(grads[0], want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+
+
+def _trunk_loss_fn(name, agent, traj, boot):
+    """(loss_fn over the learner params, params key filter) for one
+    learner step's loss of each algorithm on a trajectory."""
+    if name == "dqn":
+        from repro_torch.core.algos.dqn import prefixed
+        batch = {k: v[:64] for k, v in agent.transitions(traj).items()}
+        return lambda online, full: agent.dqn.loss(
+            {**full, **prefixed("online", online)}, batch)[0]
+    if name == "ppo":
+        batch = agent.algo.make_batch  # the minibatch is formed per params
+        return lambda params, full: agent.algo.loss(
+            params, {k: v[:256] for k, v in batch(params, traj,
+                                                  boot).items()})
+    return lambda params, full: agent.algo.loss(params, traj, boot)
+
+
+# one full-width trunk learner step per algorithm (4 layers, d_model 256,
+# 4 heads over 2 kv heads, D 64, S 4), kernels against use_kernels=False
+# on the same params and trajectory: the loss within 1e-5 relative and
+# each gradient within 1e-4 x the largest gradient entry (f32 through four
+# layers in another order); the step itself is finite and launches the
+# backward kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ppo", "a3c", "impala", "dqn"])
+def test_full_width_trunk_learner_step_kernel_matches_plain(flash_bwd,
+                                                            name):
+    import repro_torch.envs as envs
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.algos.dqn import sub
+    from repro_torch.core.rollout import rollout_fresh
+    env = envs.make("cartpole")
+    extra = {"warmup": 0} if name == "dqn" else {}
+    agents = [agent_api.make(name, env=env, policy="trunk", total_iters=10,
+                             trunk_kwargs={"reduced": False,
+                                           "use_kernels": uk}, **extra)
+              for uk in (True, False)]
+    state = agents[0].init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda_dev()).manual_seed(1)
+    traj, env_state = rollout_fresh(agents[0].policy,
+                                    agents[0].actor_policy(state, 0), env,
+                                    gen, 16, 16)
+    boot = env.obs(env_state)
+    params = sub(state.params, "online") if name == "dqn" else state.params
+    results = []
+    for ag in agents:
+        fn = _trunk_loss_fn(name, ag, traj, boot)
+        results.append(agent_api.value_and_grad(
+            lambda p: fn(p, state.params), params))
+    (lk, gk), (lp, gp) = results
+    # a layer's attention a differentiated forward: a3c also through its
+    # bootstrap value
+    assert flash_bwd.flash_attention_bwd.launches == (8 if name == "a3c"
+                                                      else 4)
+    torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)
+    scale = max(float(g.abs().max()) for g in gp.values())
+    for key in gp:
+        torch.testing.assert_close(gk[key], gp[key], rtol=0,
+                                   atol=1e-4 * scale)
+    new, m = agents[0].learner_step(state, traj, boot, gen)
+    assert bool(torch.isfinite(m["loss"]))
+    assert flash_bwd.flash_attention_bwd.launches > 4

@@ -8,7 +8,11 @@ agent,algos,trainer} and launch/rl_train) on the CPU:
       pendulum (a continuous head) against the JAX agent, from the same
       TrainState (`train_state_from_jax`), the same trajectory (a JAX
       rollout) and the same PPO permutations: params, optimizer moments,
-      ring and loss within 1e-5 (f32 sums in another order). A3C keeps
+      ring and loss within 1e-5 (f32 sums in another order); the same for
+      ppo, a3c, impala and dqn (its replay draw's noise from the JAX key,
+      through `learner_step_noise`) with a small transformer trunk as the
+      policy, `use_kernels=True` (the plain attention on CPU tensors, as
+      the reference's oracle off the TPU). A3C keeps
       the gradient through its n-step target into the bootstrap value;
   (c) exact episode accounting, the cases of tests/test_trainer.py;
   (d) fused and unfused fits bitwise equal;
@@ -30,8 +34,10 @@ import repro.envs as jenvs
 import repro_torch.envs as envs
 from repro.core import agent as jax_agents
 from repro.core.rollout import rollout_fresh as jax_rollout_fresh
-from repro_torch.checkpoint.convert import (params_from_jax,
+from repro.configs.base import ModelConfig as JaxModelConfig
+from repro_torch.checkpoint.convert import (params_from_jax, ring_from_jax,
                                             train_state_from_jax)
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core import agent as agent_api
 from repro_torch.core.distribution import DistPlan
 from repro_torch.core.rollout import rollout, rollout_fresh
@@ -40,6 +46,14 @@ from repro_torch.launch import rl_train
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 HIDDEN = (16, 16)
+# a small trunk (tests/test_torch_trunk.py's): 2 layers, d_model 32,
+# 4 query heads over 2 kv heads, head dim 8
+SMALL_TRUNK = dict(name="small-trunk", family="dense", n_layers=2,
+                   d_model=32, n_heads=4, n_kv_heads=2, d_ff=64, vocab=64,
+                   layer_pattern=(ATTN,))
+TRUNK = {"policy": "trunk"}
+DQN_KW = dict(replay_capacity=64, batch_size=16, warmup=0,
+              target_update=2, total_iters=10)
 
 
 def _np(tree):
@@ -82,6 +96,12 @@ def _step_pair(name, env_name, T=8, B=6, seed=0, algo_kwargs=None):
     """(JAX state after one learner_step, its loss, port state, loss)
     from one JAX init, rollout and key."""
     kw = dict(hidden=HIDDEN, **(algo_kwargs or {}))
+    tkw = dict(kw)
+    if kw.get("policy") == "trunk":
+        kw["trunk_kwargs"] = {"arch": JaxModelConfig(**SMALL_TRUNK),
+                              "reduced": False, "use_kernels": True}
+        tkw["trunk_kwargs"] = {"arch": ModelConfig(**SMALL_TRUNK),
+                               "reduced": False, "use_kernels": True}
     jenv = jenvs.make(env_name)
     jag = jax_agents.make(name, env=jenv, ring_size=2, **kw)
     key = jax.random.PRNGKey(seed)
@@ -92,10 +112,14 @@ def _step_pair(name, env_name, T=8, B=6, seed=0, algo_kwargs=None):
     jboot = jax.vmap(jenv.obs)(env_state)
     tstate = train_state_from_jax(_np(jstate))
     tag = agent_api.make(name, env=envs.make(env_name), ring_size=2,
-                         device="cpu", **kw)
+                         device="cpu", **tkw)
     traj, boot = _torch_traj(jtraj), torch.tensor(np.asarray(jboot))
     jnew, jm = jag.learner_step(jstate, jtraj, jboot, k_learn)
-    if name == "ppo":
+    if name == "dqn":  # the fused draw's Gumbel noise from JAX's key
+        noise = jax.random.gumbel(k_learn, (kw["replay_capacity"],))
+        tnew, tm = tag.learner_step_noise(tstate, traj, boot,
+                                          torch.tensor(np.asarray(noise)))
+    elif name == "ppo":
         keys = jax.random.split(k_learn, tag.n_epochs)
         perms = np.stack([np.asarray(jax.random.permutation(k, T * B))
                           for k in keys])
@@ -110,7 +134,10 @@ def _step_pair(name, env_name, T=8, B=6, seed=0, algo_kwargs=None):
     ("ppo", "cartpole", None), ("a3c", "cartpole", None),
     ("impala", "cartpole", None), ("ppo", "pendulum", None),
     ("impala", "cartpole", {"use_vtrace": False}),
-    ("impala", "pendulum", {"use_eps_correction": True})])
+    ("impala", "pendulum", {"use_eps_correction": True}),
+    ("ppo", "cartpole", TRUNK), ("a3c", "cartpole", TRUNK),
+    ("impala", "cartpole", TRUNK),
+    ("dqn", "cartpole", dict(TRUNK, **DQN_KW))])
 def test_learner_step_matches_jax(name, env_name, algo_kwargs):
     jnew, jloss, tnew, tloss = _step_pair(name, env_name,
                                           algo_kwargs=algo_kwargs)
@@ -125,7 +152,8 @@ def test_learner_step_matches_jax(name, env_name, algo_kwargs):
         for k, v in jm.items():
             np.testing.assert_allclose(tnew.opt_state[moment][k].numpy(),
                                        v.numpy(), **TOL, err_msg=k)
-    ring = params_from_jax(_np(jnew.ring))
+    ring = ring_from_jax(_np(jnew.ring))
+    assert set(ring) == set(tnew.ring)
     for k, v in ring.items():
         np.testing.assert_allclose(tnew.ring[k].numpy(), v.numpy(), **TOL)
     assert int(tnew.steps) == int(jnew.steps) == 1
@@ -301,7 +329,7 @@ def test_cli_prints_the_json_line(algo):
     (["--pipeline"], "pipeline"),
     (["--actors", "8,16"], "--actors"), (["--n-workers", "2"], "n-workers"),
     (["--sync", "asp", "--n-workers", "2"], "sync"),
-    (["--env", "pendulum-norm"], "registered")])
+    (["--env", "no-such-env"], "registered")])
 def test_cli_refuses_what_later_slices_bring(flags, frag, capsys):
     with pytest.raises(SystemExit) as exc:
         rl_train.main(["--device", "cpu"] + flags)
