@@ -79,6 +79,25 @@ Phases, in order; the script exits non-zero at the first failure:
      same plan through `Trainer` with `use_kernel=False` (params,
      optimizer state, the reassembled buffer, history), which is bitwise
      the flat plan's plain fit; finite losses;
+  4c. distribution: the plan's data positions on the one card, one
+     thread each (core/positions.py), through `rl_train`: impala, ppo and
+     a3c `--n-workers 4` at the default config (60 iterations, 32 envs
+     split 8 a position) and dqn for 20 (cut for time), each gated on W
+     times the flat run's kernel launches, finite losses and, but for
+     dqn, learning bars (ppo >= 60, a3c >= 25, impala >= 20: about half
+     of the JAX package's 4-worker fits); impala for 10 iterations under
+     `--n-workers 4`, `hosts=1 x workers=4` and `hosts=2 x workers=2`
+     all-allreduce plans, bitwise equal in params and history, `--topology
+     ps` within rel 1e-3 of allreduce on the last loss,
+     `hosts=2:allreduce:bsp,workers=2:gossip:asp` and `--sync ssp`
+     finite; a3c under `--actors 16,32` (superstep 5, 20 iterations) at
+     one and four workers, `actor_shards` following the schedule; dqn
+     under `workers=2 x replay=2` (2 x 20 `shard_topk_c` launches, the
+     flat buffer returned); the reduced trunk under impala at two
+     workers (twice the flat run's flash launches); and the 4-worker
+     impala fit against `use_kernel=False` (params within 1e-5); each
+     run's `train_run` line has its plan, W, ms an iteration and env
+     steps a second;
   5. path agreement: one learner_step per algorithm from one state and
      trajectory, kernels on against the plain versions, on the card; the
      dqn step with the kernel runs under
@@ -235,6 +254,17 @@ TRUNK_LAUNCHES = {"ppo": (16, 16), "a3c": (2, 2), "impala": (2, 1),
 # the trunk's learner gradients, kernels against use_kernels=False at full
 # width: x max|gradient| (f32 through four layers in another order)
 TRUNK_GRAD_TOL = 1e-4
+# the distribution phase: the data positions the slice's main path runs on
+# the one card, its fits' iterations (dqn cut from 60 for time) and the
+# learning bars on the mean of the last two logged returns, about half of
+# the JAX package's own 4-worker fits at seed 0 on a CPU (ppo 133.9, a3c
+# 57.5, impala 38.9 at iteration 59)
+DIST_W = 4
+DIST_ITERS = {"impala": 60, "ppo": 60, "a3c": 60, "dqn": 20}
+DIST_BARS = {"ppo": 60.0, "a3c": 25.0, "impala": 20.0}
+DIST_SHORT = 10       # the nested, mixed and kernel-vs-plain fits
+DIST_ELASTIC = ("16,32", 20, 5)   # actors schedule, iterations, superstep
+DIST_TOL = 1e-5       # kernel vs plain params: the path agreement's bound
 
 
 def fail(msg):
@@ -1054,6 +1084,147 @@ def phase_replay_training(card, shard_row):
             "last_returns": [h["episode_return"] for h in hist[-2:]],
             "history": hist, "card": card}))
     return total
+
+
+def phase_distribution(card, path_rows=None):
+    """Drive the slice's main path: plans with several data positions on
+    the one card through `rl_train`; returns the launch counts of its
+    runs."""
+    import torch
+    import repro_torch.envs as envs
+    from repro_torch.core.distribution import DistPlan
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.launch.rl_train import main as rl_main
+    counters = train_counters()
+    totals = dict.fromkeys(counters, 0)
+
+    def run(label, argv, per_iter, W, bar=None):
+        """One rl_train fit, counts at 0 just before and read just after;
+        gated on W x the flat run's launches and finite losses."""
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            trainer, state, hist = rl_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: f.launches for n, f in counters.items()}
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        iters, cfg = trainer.cfg.iters, trainer.cfg
+        want = {n: W * per_iter.get(n, 0) * iters for n in counters}
+        check(got == want, f"{label}: kernel launches {got}, expected "
+                           f"{want}")
+        check(trainer.n_positions == W, f"{label}: {trainer.n_positions} "
+                                        f"positions, expected {W}")
+        check(all(math.isfinite(h["loss"]) for h in hist),
+              f"{label}: non-finite loss in {hist}")
+        rets = [h["episode_return"] for h in hist[-2:]]
+        mean_ret = sum(rets) / len(rets)
+        if bar is not None:
+            check(mean_ret >= bar, f"{label}: mean of the last two logged "
+                                   f"returns {mean_ret} below the bar {bar}")
+        share = {n: got[n] * path_rows[n]["ms"] / (wall * 1e3)
+                 for n in counters if got[n] and path_rows
+                 and n in path_rows}
+        print("train_run " + json.dumps({
+            "run": label, "algo": cfg.algo, "env": "cartpole",
+            "plan": out["plan"], "W": W, "n_devices": out["n_devices"],
+            "iters": iters, "n_envs": cfg.n_envs, "unroll": cfg.unroll,
+            "wall_s": wall, "ms_per_iter": wall * 1e3 / iters,
+            "env_steps_per_s": iters * cfg.n_envs * cfg.unroll / wall,
+            "launches": got, "kernel_share_of_wall": share,
+            "actor_shards": out["actor_shards"], "last_returns": rets,
+            "mean_last": mean_ret, "bar": bar, "history": hist,
+            "card": card}))
+        for n in counters:
+            totals[n] += got[n]
+        return trainer, state, hist, out
+
+    workers = ["--n-workers", str(DIST_W)]
+    # 1. the main path at the default config
+    for algo in ("impala", "ppo", "a3c", "dqn"):
+        run(f"{algo}-w{DIST_W}", ["--algo", algo, "--env", "cartpole",
+                                  "--iters", str(DIST_ITERS[algo])] + workers,
+            ALGO_KERNELS[algo], DIST_W, DIST_BARS.get(algo))
+    # 2. nested all-allreduce plans: bitwise the flat plan
+    short = ["--algo", "impala", "--env", "cartpole", "--iters",
+             str(DIST_SHORT), "--log-every", "1"]
+    fits = {}
+    for label, flags in (
+            ("flat", workers),
+            ("1x4", ["--plan", "hosts=1:allreduce:bsp,workers=4:allreduce:"
+                     "bsp"]),
+            ("2x2", ["--plan", "hosts=2:allreduce:bsp,workers=2:allreduce:"
+                     "bsp"]),
+            ("ps", workers + ["--topology", "ps"])):
+        _, state, hist, _ = run(f"impala-{label}", short + flags,
+                                ALGO_KERNELS["impala"], DIST_W)
+        fits[label] = (state, hist)
+    flat_state, flat_hist = fits["flat"]
+    for label in ("1x4", "2x2"):
+        state, hist = fits[label]
+        check(tree_equal(state.params, flat_state.params)
+              and json.dumps(hist) == json.dumps(flat_hist),
+              f"impala {label}: not bitwise the flat 4-worker fit")
+    a, p = flat_hist[-1]["loss"], fits["ps"][1][-1]["loss"]
+    check(abs(p - a) <= 1e-3 * abs(a), f"impala ps last loss {p} against "
+                                       f"allreduce {a}: beyond rel 1e-3")
+    print(f"dist nested: flat, 1x4 and 2x2 bitwise; ps {p} vs allreduce {a}")
+    # 3. mixed topologies and sync
+    run("impala-2x2-allreduce-gossip-asp", short + [
+        "--plan", "hosts=2:allreduce:bsp,workers=2:gossip:asp"],
+        ALGO_KERNELS["impala"], DIST_W)
+    run("impala-ssp-w4", short + workers + ["--sync", "ssp"],
+        ALGO_KERNELS["impala"], DIST_W)
+    # 4. elastic actors= schedules (examples/es_cartpole.py's baseline)
+    actors, iters, superstep = DIST_ELASTIC
+    sched = [int(n) for n in actors.split(",")]
+    for W in (1, DIST_W):
+        trainer, _, _, out = run(
+            f"a3c-actors-w{W}", ["--algo", "a3c", "--env", "cartpole",
+                                 "--iters", str(iters), "--superstep",
+                                 str(superstep), "--actors", actors,
+                                 "--n-envs", str(sched[0]),
+                                 "--n-workers", str(W)],
+            ALGO_KERNELS["a3c"], W)
+        want = [sched[i % len(sched)] for i in range(iters // superstep)]
+        check(trainer.actor_shards == want, f"a3c actors W={W}: "
+              f"actor_shards {trainer.actor_shards}, expected {want}")
+    # 5. the replay service under two positions
+    spec = "workers=2:allreduce:bsp,replay=2:allreduce:bsp:replay"
+    _, state, _, out = run("dqn-w2-replay2", [
+        "--algo", "dqn", "--env", "cartpole", "--iters",
+        str(DIST_ITERS["dqn"]), "--plan", spec],
+        {"shard_topk_c": 1}, 2)
+    check(out["partition_replay"] == {
+        "axis": "replay", "n_shards": 2, "capacity": 20000, "chunk": 10000}
+        and out["n_devices"] == 4, f"dqn w2 x replay2: CLI line {out}")
+    check(state.extra["replay"]["prio"].shape == (20000,),
+          "dqn w2 x replay2: fit did not return the flat buffer")
+    # 6. the reduced trunk at two positions: twice the flat launches
+    run("impala-trunk-w2", ["--algo", "impala", "--env", "cartpole",
+                            "--policy", "trunk", "--iters", str(TRUNK_ITERS),
+                            "--superstep", str(TRUNK_ITERS), "--log-every",
+                            "1", "--n-workers", "2"],
+        trunk_launches("impala", 2), 2)
+    # 7. kernel path against use_kernel=False (not the main path)
+    cfg = TrainerConfig(algo="impala", iters=DIST_SHORT,
+                        plan=DistPlan.flat(DIST_W))
+    kern, _ = Trainer(envs.make("cartpole"), cfg).fit()
+    before = counters["vtrace_tb"].launches
+    plain, _ = Trainer(envs.make("cartpole"), dataclasses.replace(
+        cfg, algo_kwargs={"use_kernel": False})).fit()
+    check(counters["vtrace_tb"].launches == before,
+          "the use_kernel=False fit launched vtrace_tb")
+    err = max((kern.params[k] - plain.params[k]).abs().max().item()
+              for k in kern.params)
+    print(f"dist kernel vs plain: impala W={DIST_W} {DIST_SHORT}-iteration "
+          f"fit params max_abs_err {err:.3e}")
+    check(err <= DIST_TOL, f"impala W={DIST_W}: kernel vs plain params "
+                           f"max_abs_err {err} > {DIST_TOL}")
+    return totals
 
 
 def phase_path_agreement():
@@ -1885,6 +2056,14 @@ def main():
         card, dict(scan_rows, prioritized_sample_c=replay_row,
                    **{n: r[train_path] for n, r in bwd_rows.items()}))
     shard_launches = phase_replay_training(card, shard_row)
+    dist_launches = phase_distribution(card, dict(
+        scan_rows, prioritized_sample_c=replay_row, shard_topk_c=shard_row,
+        **{n: r[train_path] for n, r in bwd_rows.items()}))
+    for name, n in dist_launches.items():
+        if name == "shard_topk_c":
+            shard_launches += n
+        else:
+            train_launches[name] += n
     phase_path_agreement()
     phase_evolution(card)
     phase_flash_guard()

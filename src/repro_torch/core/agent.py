@@ -6,8 +6,14 @@ loop (`repro_torch.core.trainer.Trainer`) runs any of them:
     init(generator)               -> TrainState
     actor_policy(state, delay)    -> behavior params for the rollout,
                                      `delay` learner-updates old
-    learner_step(state, traj, boot_obs, generator)
+    learner_step(state, traj, boot_obs, generator,
+                 grad_tx=None, param_tx=None)
                                   -> (TrainState, metrics)
+
+`grad_tx` and `param_tx` are the Trainer's collectives for a plan with
+more than one data position (core/positions.py): `grad_tx` exchanges the
+gradients before the optimizer update, `param_tx` mixes the params after
+it (gossip). A one-position fit passes neither.
 
 Params are flat dicts of tensors named by the JAX key path; the policy
 lag is a ring of stacked actor params inside TrainState, slot 0 the
@@ -64,7 +70,8 @@ class Agent:
     def init(self, generator) -> TrainState:
         raise NotImplementedError
 
-    def learner_step(self, state, traj, boot_obs, generator):
+    def learner_step(self, state, traj, boot_obs, generator,
+                     grad_tx=None, param_tx=None):
         raise NotImplementedError
 
     def actor_policy(self, state: TrainState, delay=0):
@@ -101,11 +108,16 @@ class PolicyGradientAgent(Agent):
                           torch.zeros((), dtype=torch.int32,
                                       device=self.policy.device))
 
-    def learner_step(self, state, traj, boot_obs, generator=None):
+    def learner_step(self, state, traj, boot_obs, generator=None,
+                     grad_tx=None, param_tx=None):
         loss, grads = value_and_grad(self.algo.loss, state.params, traj,
                                      boot_obs)
+        if grad_tx is not None:
+            grads = grad_tx(grads)
         params, opt_state = self.opt.apply(state.params, state.opt_state,
                                            grads)
+        if param_tx is not None:
+            params = param_tx(params)
         return TrainState(params, opt_state, state.extra,
                           self._ring_push(state.ring, params),
                           state.steps + 1), {"loss": loss}

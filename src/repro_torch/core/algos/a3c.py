@@ -1,6 +1,12 @@
 """A3C (survey §3.1/Fig. 4c): advantage actor-critic on n-step returns
-(the port of src/repro/core/algos/a3c.py's loss and agent; the
-asynchronous rendering, `hogwild_update`, comes with the sync slice)."""
+(the port of src/repro/core/algos/a3c.py).
+
+The asynchronous actor-learner threads are modeled two ways, as in the
+reference: under the Trainer with an asp plan, each data position
+computes its gradients against a stale copy of the network (the delay
+schedule); and `A3C.hogwild_update` applies several threads' gradients,
+each taken against its own stale copy, one after another (the
+reproducible rendering of lock-free updates)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +14,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.advantages import nstep_return
-from repro_torch.core.agent import PolicyGradientAgent, register
+from repro_torch.core.agent import (PolicyGradientAgent, register,
+                                    value_and_grad)
 from repro_torch.core.networks import make_policy
 from repro_torch.optim import adamw, clip_by_global_norm
 
@@ -41,6 +48,20 @@ class A3C:
         return (-torch.mean(logp * adv)
                 + self.vf_coef * torch.mean(torch.square(v - ret))
                 - self.ent_coef * torch.mean(ent))
+
+    def hogwild_update(self, params, opt_state, trajs, boot_obs,
+                       delays_params, optimizer, n_threads):
+        """Apply n_threads gradient contributions in thread order; thread
+        i's gradient is taken against `delays_params` row i (its stale
+        copy) on its trajectory `trajs` row i and bootstrap `boot_obs`
+        row i. Every argument but the optimizer is a dict of tensors
+        with a leading thread dim where it has one."""
+        for i in range(n_threads):
+            row = lambda t: {k: v[i] for k, v in t.items()}
+            _, grads = value_and_grad(self.loss, row(delays_params),
+                                      row(trajs), boot_obs[i])
+            params, opt_state = optimizer.apply(params, opt_state, grads)
+        return params, opt_state
 
 
 class A3CAgent(PolicyGradientAgent):

@@ -228,12 +228,14 @@ class DQNAgent(Agent):
         return {**prefixed("net", self._ring_read(state.ring, delay)),
                 "eps": self.epsilon(state.steps)}
 
-    def learner_step(self, state, traj, boot_obs, generator):
+    def learner_step(self, state, traj, boot_obs, generator,
+                     grad_tx=None, param_tx=None):
         """Draws the replay's sampling noise from `generator` and runs
         `learner_step_noise`."""
         return self.learner_step_noise(
             state, traj, boot_obs,
-            self.replay.noise(generator, self.batch_size))
+            self.replay.noise(generator, self.batch_size), grad_tx,
+            param_tx)
 
     @staticmethod
     def transitions(traj):
@@ -247,9 +249,13 @@ class DQNAgent(Agent):
                 "next_obs": flat(traj["next_obs"]),
                 "done": flat(traj["done"])}
 
-    def learner_step_noise(self, state, traj, boot_obs, noise):
+    def learner_step_noise(self, state, traj, boot_obs, noise,
+                           grad_tx=None, param_tx=None):
         """The learner with the replay draw's noise given (the Gumbel
-        vector of the fused draw)."""
+        vector of the fused draw). `grad_tx` exchanges the online net's
+        gradients and `param_tx` mixes the online net after the update,
+        every step, warmup included (the warmup select comes after), so
+        every position makes the same collective calls."""
         replay = self.replay
         rstate = replay.add_batch(state.extra["replay"],
                                   self.transitions(traj))
@@ -266,8 +272,12 @@ class DQNAgent(Agent):
 
         (loss, td), grads = value_and_grad(
             loss_online, sub(state.params, "online"), has_aux=True)
+        if grad_tx is not None:
+            grads = grad_tx(grads)
         online, opt_state = self.opt.apply(sub(state.params, "online"),
                                            state.opt_state, grads)
+        if param_tx is not None:
+            online = param_tx(online)
         warm = state.steps >= self.warmup
         if self.dqn.prioritized:
             # keep the Ape-X max-priority inserts during warmup: |td| of

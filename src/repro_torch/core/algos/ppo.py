@@ -57,7 +57,9 @@ class PPO:
 class PPOAgent(PolicyGradientAgent):
     """PPO behind the unified protocol (shares init with the other
     policy-gradient agents; the learner is its own epoch/minibatch
-    loop)."""
+    loop). With more than one data position the Trainer's grad_tx
+    exchanges every minibatch gradient — DD-PPO's decentralized
+    synchronous exchange (survey §3.2)."""
 
     def __init__(self, env, ring_size=1, total_iters=None, lr=3e-4,
                  hidden=(64, 64), n_epochs=4, n_minibatch=4,
@@ -71,18 +73,23 @@ class PPOAgent(PolicyGradientAgent):
         self.n_minibatch = n_minibatch
         self.ring_size = ring_size
 
-    def learner_step(self, state, traj, boot_obs, generator):
+    def learner_step(self, state, traj, boot_obs, generator,
+                     grad_tx=None, param_tx=None):
         """Draws one minibatch permutation per epoch from `generator`
         and runs `learner_step_perms`."""
         n = traj["reward"].numel()
         perms = torch.rand((self.n_epochs, n), generator=generator,
                            device=generator.device).argsort(dim=-1,
                                                             stable=True)
-        return self.learner_step_perms(state, traj, boot_obs, perms)
+        return self.learner_step_perms(state, traj, boot_obs, perms,
+                                       grad_tx, param_tx)
 
-    def learner_step_perms(self, state, traj, boot_obs, perms):
+    def learner_step_perms(self, state, traj, boot_obs, perms,
+                           grad_tx=None, param_tx=None):
         """The learner with its (n_epochs, n) minibatch permutations
-        given: epoch e visits minibatch i as perms[e, i*mb:(i+1)*mb]."""
+        given: epoch e visits minibatch i as perms[e, i*mb:(i+1)*mb].
+        `grad_tx` exchanges every minibatch gradient, `param_tx` mixes
+        the params once after the epochs."""
         batch = self.algo.make_batch(state.params, traj, boot_obs)
         mb = perms.shape[1] // self.n_minibatch
         params, opt_state = state.params, state.opt_state
@@ -92,9 +99,13 @@ class PPOAgent(PolicyGradientAgent):
                 idx = perm[i * mb:(i + 1) * mb]
                 mbatch = {k: v[idx] for k, v in batch.items()}
                 loss, grads = value_and_grad(self.algo.loss, params, mbatch)
+                if grad_tx is not None:
+                    grads = grad_tx(grads)
                 params, opt_state = self.opt.apply(params, opt_state, grads)
                 losses.append(loss)
         loss = torch.stack(losses).reshape(len(perms), -1).mean(-1).mean()
+        if param_tx is not None:
+            params = param_tx(params)
         return TrainState(params, opt_state, state.extra,
                           self._ring_push(state.ring, params),
                           state.steps + 1), {"loss": loss}

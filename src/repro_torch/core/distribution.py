@@ -12,11 +12,14 @@ of its capacity per member, and replicates its data position's compute),
 plus an optional elastic ``actors=`` schedule. The grammar, validation
 messages, constructors and derived shapes are the reference's.
 
-The plan is pure config here. The mesh pieces (`build_mesh`,
-`validate_devices`, `linear_index`, `sim_index`, `compile_collectives`)
-need more than one device and come with the multi-device slice; the
-port's Trainer (core/trainer.py) runs the plans that fit one device.
-Delay schedules draw from an explicit torch.Generator (core/sync.py).
+Every position of the mesh lives on one device here (core/positions.py):
+`build_mesh` places all `n_devices` of them on the Trainer's device, and
+the per-axis collectives compile into the Trainer's `grad_tx`/`param_tx`
+hooks as pure functions over a leading (mesh...) position layout
+(`compile_collectives`). A position's indices (`linear_index`,
+`sim_index`) are functions of its mesh coordinates, where the reference
+traces `axis_index` sums. Delay schedules draw from an explicit
+torch.Generator (core/sync.py).
 """
 from __future__ import annotations
 
@@ -27,7 +30,10 @@ import torch
 
 from repro_torch.core.sync import (MECHANISMS, SyncConfig, make_delays,
                                    pipeline_depth as _sync_pipeline_depth)
-from repro_torch.core.topology import TOPOLOGIES
+from repro_torch.core.positions import Mesh
+from repro_torch.core.topology import (TOPOLOGIES, exchange_grads,
+                                       gossip_mix)
+from repro_torch.kernels.common import resolve_device
 
 _SYNC_EXTRA = {"bsp": lambda ax: 0,
                "asp": lambda ax: ax.max_delay,
@@ -373,6 +379,91 @@ class DistPlan:
         if self.actors is not None:
             s += ";actors=" + ",".join(map(str, self.actors))
         return s
+
+    # ---- positions on one device ---------------------------------------
+    def validate_devices(self, device="cuda") -> torch.device:
+        """Every one of the plan's `n_devices` positions lives on
+        `device`: one card holds them all, so any plan fits. Raises
+        RuntimeError where CUDA is asked for and this process has no
+        card, instead of running on the CPU."""
+        return resolve_device(device)
+
+    def build_mesh(self, device="cuda") -> Mesh:
+        """The plan's named axes with every position on `device`.
+        Positions are taken row-major: the one at mesh coordinates (i0,
+        i1, ...) is flat position ``linear_index(coords)``, the order the
+        flat plan uses, so nesting never permutes which envs and streams
+        a position owns."""
+        return Mesh(self.axis_names, self.mesh_shape,
+                    self.validate_devices(device))
+
+    def linear_index(self, coords) -> int:
+        """The flat position index of mesh coordinates `coords`
+        (outermost first), as the flat plan's worker index."""
+        idx = coords[0]
+        for a, i in zip(self.axes[1:], coords[1:]):
+            idx = idx * a.size + i
+        return idx
+
+    def sim_index(self, coords) -> int:
+        """The position's index over the env grid (`sim_shape`), its
+        stream id: like `linear_index`, but an ACTIVE replay axis
+        contributes nothing, so every member of a replay group draws its
+        data position's streams. On plans without an active replay axis
+        this is `linear_index` term for term."""
+        idx = 0
+        for a, i in zip(self.axes, coords):
+            if not (a.role == "replay" and a.size > 1):
+                idx = idx * a.size + i
+        return idx
+
+    def sim_coords(self):
+        """The mesh coordinates of the env grid's positions, in
+        `sim_index` order, each with the replay coordinate at 0."""
+        coords = [()]
+        for s in self.sim_shape:
+            coords = [c + (i,) for c in coords for i in range(s)]
+        return coords
+
+    def compile_collectives(self):
+        """(grad_tx, param_tx): the per-axis collectives, innermost axis
+        first, as functions of a tree whose leaves carry one leading dim
+        per mesh axis (an active replay axis may be collapsed to 1: it
+        is never reduced over). Consecutive allreduce axes fuse into one
+        mean over their dims (bitwise the flat all-reduce: the same
+        members summed in the same order); ps gathers and means each of
+        its axes on its own; gossip skips the gradient exchange and
+        ring-mixes params on its axis instead. grad_tx is None when no
+        axis exchanges gradients, param_tx when no axis gossips."""
+        steps = []  # innermost -> outermost: (kind, dims outermost first)
+        for k in reversed(range(len(self.axes))):
+            ax = self.axes[k]
+            if ax.role == "replay" and ax.size > 1:
+                # replay-group members compute identical gradients (same
+                # envs, streams and batch; only replay storage differs)
+                continue
+            if ax.collective == "allreduce":
+                if steps and steps[-1][0] == "allreduce":
+                    steps[-1] = ("allreduce", (k,) + steps[-1][1])
+                else:
+                    steps.append(("allreduce", (k,)))
+            elif ax.collective == "ps":
+                steps.append(("ps", (k,)))
+        gossip_dims = tuple(k for k in reversed(range(len(self.axes)))
+                            if self.axes[k].collective == "gossip")
+
+        def grad_tx(grads):
+            for kind, dims in steps:
+                grads = exchange_grads(grads, kind, dims)
+            return grads
+
+        def param_tx(params):
+            for k in gossip_dims:
+                params = gossip_mix(params, k)
+            return params
+
+        return ((grad_tx if steps else None),
+                (param_tx if gossip_dims else None))
 
     def make_delay_schedule(self, n_steps: int, generator):
         """(n_steps,) + mesh_shape int32 delays: per-axis §6 schedules

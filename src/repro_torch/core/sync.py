@@ -9,15 +9,20 @@ updates old:
 
 The draws come from an explicit torch.Generator. JAX's threefry draws
 cannot be reproduced, so the schedules agree with the reference in their
-laws (zeros, range, bound), not draw for draw. `train_with_staleness`
-and the sync cost model (the reference's fig6 benchmark) are not on the
-Trainer's path and are not ported.
+laws (zeros, range, bound), not draw for draw.
+
+Off the Trainer's path, the reference's fig6 harness: `train_with_
+staleness` (data-parallel SGD where worker w at step t takes its
+gradient against params `delays[t, w]` updates old) and `sync_cost_
+model` (the wall time of a step under straggling workers, §6.2); each
+takes its random draws as given tensors or from a generator.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 MECHANISMS = ("bsp", "asp", "ssp")
 
@@ -58,3 +63,59 @@ def make_delays(cfg: SyncConfig, n_steps: int, generator):
     if cfg.mechanism == "ssp":
         d = torch.clamp(d, max=cfg.staleness_bound)
     return d
+
+
+def train_with_staleness(loss_fn, params0, optimizer, batches, delays):
+    """Data-parallel training under a staleness schedule.
+
+    loss_fn(params, batch) -> scalar, params a dict of tensors;
+    batches: a dict (nested dicts allowed) of tensors with leading (T, W);
+    delays: (T, W) int tensor, delay d => the gradient is taken against
+    the params d updates old (clipped to the largest delay). Each step
+    applies the workers' mean gradient. Returns (final params, the
+    workers' mean loss at each step, (T,))."""
+    from repro_torch.core.agent import value_and_grad
+    from repro_torch.core.positions import tree_map
+    T, W = delays.shape
+    table = delays.tolist()
+    D = max((d for row in table for d in row), default=0)
+    hist = [params0] * (D + 1)          # hist[d]: the params d updates old
+    params, opt_state = params0, optimizer.init(params0)
+    losses = []
+    for t in range(T):
+        ls, gs = [], []
+        for w in range(W):
+            batch = tree_map(lambda a: a[t, w], batches)
+            loss, g = value_and_grad(loss_fn, hist[min(table[t][w], D)],
+                                     batch)
+            ls.append(loss)
+            gs.append(g)
+        g = {k: torch.stack([x[k] for x in gs]).mean(0) for k in gs[0]}
+        params, opt_state = optimizer.apply(params, opt_state, g)
+        hist = [params] + hist[:-1]
+        losses.append(torch.stack(ls).mean())
+    return params, torch.stack(losses)
+
+
+def sync_cost_model(cfg: SyncConfig, t_compute_mean, t_compute_std,
+                    n_steps, generator=None, draws=None):
+    """Analytic throughput model (survey §6.2 synchronization barrier):
+    the summed per-step wall time when worker step times are
+    N(mean, std), floored at 1e-3. BSP waits for the slowest worker;
+    ASP takes the mean; SSP runs `staleness_bound` - 1 free steps at the
+    mean and one barrier step at the window's max. The standard normal
+    draws (n_steps, n_workers) come as `draws`, else from `generator`."""
+    if draws is None:
+        draws = torch.randn((n_steps, cfg.n_workers), generator=generator,
+                            device=generator.device)
+    t = torch.clamp(t_compute_mean + t_compute_std * draws, min=1e-3)
+    if cfg.mechanism == "bsp":
+        return t.amax(dim=1).sum()
+    if cfg.mechanism == "asp":
+        return t.mean(dim=1).sum()
+    if cfg.mechanism != "ssp":
+        raise ValueError(cfg.mechanism)
+    b = max(cfg.staleness_bound, 1)
+    pad = (-n_steps) % b
+    tw = F.pad(t, (0, 0, 0, pad)).reshape(-1, b, cfg.n_workers)
+    return (tw.mean(dim=(1, 2)) * (b - 1) + tw.amax(dim=(1, 2))).sum()

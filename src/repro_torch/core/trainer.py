@@ -1,11 +1,10 @@
-"""Single-device Trainer (the port of src/repro/core/trainer.py for the
-plans that run on one device).
+"""The Trainer on one device (the port of src/repro/core/trainer.py).
 
 Each iteration is rollout -> learner_step -> lag-ring push over a batch
-of envs on one device. `fit(fused=True)` runs `superstep` iterations per
-dispatch with the metrics left on the device and read back once per
-superstep (one `.cpu()`); `fit(fused=False)` runs one iteration per
-dispatch. The loop is eager PyTorch.
+of envs. `fit(fused=True)` runs `superstep` iterations per dispatch with
+the metrics left on the device and read back once per superstep (one
+`.cpu()`); `fit(fused=False)` runs one iteration per dispatch. The loop
+is eager PyTorch.
 
 Randomness is a pure function of (seed, iteration): every iteration
 reseeds the device generator from a hash of the two before its rollout
@@ -13,19 +12,41 @@ and again before its learner step, as the reference's `_iter_key` folds
 the iteration into its base key. So fused and unfused fits are bitwise
 equal by construction.
 
-A `DistPlan` (core/distribution.py) runs here when it has one data
-position: every data axis of size 1, with any sync discipline (its delay
-schedule, drawn once per fit, feeds `actor_policy(state, delay)` each
-iteration), and at most a replay-role axis larger than 1. A replay axis
-turns the agent's prioritized buffer into the sharded replay service
-(core/replay_service.py), its R members held on the one device; they
-replicate the data position's rollout and learner, so the fit is bitwise
-the flat fit. Larger data axes, shard/zero3 axes, an elastic `actors=`
-schedule and the pipelined mode are later slices; the Trainer refuses
-them by name.
+A `DistPlan` (core/distribution.py) with W data positions (W =
+`plan.sim_devices`, the product of the env grid's axes) runs them all on
+the one device, one thread each (core/positions.py), as the reference's
+shard_map runs one program per device:
+
+  * the Trainer resets all `n_envs` envs from one stream and gives
+    position i the contiguous slice [i·per, (i+1)·per), row-major over
+    the mesh, as the reference's `_shard_sim`;
+  * position i draws its streams from `stream_seed(seed, it, stream,
+    sim_index)`, the reference's `fold_in(key, plan.sim_index())`, and
+    acts with its own delay `schedule[it][coords_i]`;
+  * the positions meet only in the learner's `grad_tx` / `param_tx`
+    hooks, the plan's collectives (`compile_collectives`), each reduced
+    in rank order;
+  * the metrics are averaged over the positions each iteration, in rank
+    order, and `fit` returns position 0's state.
+
+A plan with one data position runs without threads, hooks or a group,
+exactly as a planless fit does: any sync discipline (its delay schedule,
+drawn once per fit, feeds `actor_policy(state, delay)` each iteration),
+and a replay-role axis larger than 1. A replay axis turns the agent's
+prioritized buffer into the sharded replay service
+(core/replay_service.py), its R members held as a leading dimension; they
+replicate their data position's rollout and learner, so the fit is
+bitwise the flat fit. With W positions, each holds its own replay group.
+
+An elastic `actors=` schedule reshards the envs between supersteps, as
+the reference's `_reshard_envs`. The shard/zero3 roles larger than 1
+(ROADMAP queue 1, item 12) and the pipelined mode (item 11) are refused
+by name.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -35,10 +56,11 @@ import torch
 from repro_torch.core import agent as agent_api
 from repro_torch.core.distribution import DistPlan
 from repro_torch.core.networks import splitmix64
+from repro_torch.core.positions import PositionGroup, tree_map
 from repro_torch.core.replay import PrioritizedReplay
 from repro_torch.core.replay_service import ShardedPrioritizedReplay
 from repro_torch.core.rollout import rollout
-from repro_torch.kernels.common import resolve_device
+from repro_torch.core.topology import member_sum
 
 _M64 = (1 << 64) - 1
 
@@ -52,32 +74,20 @@ def stream_seed(seed: int, *ids: int) -> int:
     return int(x[0]) >> 1
 
 
-# the per-iteration streams, and the set-up streams (iteration -1)
-_ROLL, _LEARN, _INIT, _ENV, _DELAY = 0, 1, 2, 3, 4
-
-_MULTI_DEVICE = ("the multi-device distribution slice (ROADMAP queue 1, "
-                 "item 10)")
+# the per-iteration streams, and the set-up streams (iteration -1); an
+# elastic reshard's fresh envs draw from (-1, _RESHARD, superstep window)
+_ROLL, _LEARN, _INIT, _ENV, _DELAY, _RESHARD = 0, 1, 2, 3, 4, 5
 
 
-def plan_refusal(plan: DistPlan, n_envs: int) -> Optional[str]:
-    """Why this one-device Trainer cannot run `plan`, naming the slice
-    that ports it; None when it can."""
+def plan_refusal(plan: DistPlan) -> Optional[str]:
+    """Why this Trainer cannot run `plan`, naming the ROADMAP item that
+    ports it; None when it can."""
     for ax in plan.axes:
-        if ax.size == 1 or ax.role == "replay":
-            continue
-        if ax.role == "data":
-            return (f"data axis {ax.name!r} of size {ax.size} "
-                    f"({ax.collective} collective, {ax.sync} sync) is not "
-                    f"ported yet: data axes larger than 1 come with "
-                    f"{_MULTI_DEVICE}; this Trainer holds one data "
-                    f"position on one device")
-        return (f"{ax.role}-role axis {ax.name!r} of size {ax.size} is not "
-                f"ported yet: learner-state sharding comes with the "
-                f"sharded learner-state slice (ROADMAP queue 1, item 12)")
-    if plan.actors is not None and set(plan.actors) != {n_envs}:
-        return (f"actors= schedule {list(plan.actors)} is not ported yet: "
-                f"an elastic schedule that changes the env count from "
-                f"n_envs={n_envs} comes with {_MULTI_DEVICE}")
+        if ax.size > 1 and ax.role in ("shard", "zero3"):
+            return (f"{ax.role}-role axis {ax.name!r} of size {ax.size} "
+                    f"is not ported yet: learner-state sharding comes "
+                    f"with the sharded learner-state slice (ROADMAP "
+                    f"queue 1, item 12)")
     return None
 
 
@@ -86,7 +96,7 @@ class TrainerConfig:
     algo: str = "impala"
     iters: int = 60
     superstep: int = 10        # K iterations per dispatch (fused mode)
-    n_envs: int = 32           # envs on the one device
+    n_envs: int = 32           # total envs (split across data positions)
     unroll: int = 32           # rollout length T per iteration
     plan: Optional[DistPlan] = None  # distribution plan; None = 1 worker
     policy_lag: int = 0        # deterministic actor-param lag
@@ -108,14 +118,31 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Drives any registered Agent on one device; see module doc."""
+    """Drives any registered Agent under a DistPlan on one device; see
+    module doc."""
 
     def __init__(self, env, cfg: TrainerConfig, device="cuda"):
         plan = cfg.resolved_plan()
-        msg = plan_refusal(plan, cfg.n_envs)
+        msg = plan_refusal(plan)
         if msg is not None:
             raise ValueError(f"TrainerConfig.plan {plan.describe()!r}: {msg}")
-        self.device = resolve_device(device)
+        # envs shard over the env grid (an active replay axis replicates
+        # its data position's envs), so divisibility is against it
+        if cfg.n_envs % plan.sim_devices:
+            raise ValueError(f"n_envs={cfg.n_envs} must divide evenly "
+                             f"across the plan's {plan.sim_devices} "
+                             f"simulation devices (mesh "
+                             f"{plan.mesh_shape}, env grid "
+                             f"{plan.sim_shape})")
+        if plan.actors is not None:
+            bad = [n for n in plan.actors if n % plan.sim_devices]
+            if bad:
+                raise ValueError(
+                    f"actors= schedule entries {bad} must divide evenly "
+                    f"across the plan's {plan.sim_devices} simulation "
+                    f"devices")
+        # every position lives on this one device
+        self.device = plan.validate_devices(device)
         self.env = env
         self.cfg = cfg
         self.plan = plan
@@ -132,7 +159,21 @@ class Trainer:
             raise ValueError("TrainerConfig.pipeline: the decoupled "
                              "actor-learner pipeline is ported with the "
                              "pipeline slice (ROADMAP queue 1, item 11)")
-        self._gen = torch.Generator(device=self.device)
+        # the data positions: the env grid's, row-major (replay axis 0)
+        self.n_positions = plan.sim_devices
+        self._coords = plan.sim_coords()
+        self._stream_ids = [plan.sim_index(c) for c in self._coords]
+        self._collectives = (plan.compile_collectives()
+                             if self.n_positions > 1 else None)
+        # an agent per position: a policy runs its params through
+        # `functional_call`, which swaps them into the shared module for
+        # the call, so two threads must not share one (the copies hold
+        # meta-device templates and config, no weights)
+        self._agents = [self.agent] + [copy.deepcopy(self.agent)
+                                       for _ in range(1, self.n_positions)]
+        self._gens = [torch.Generator(device=self.device)
+                      for _ in range(self.n_positions)]
+        self._hooks = [(None, None)] * self.n_positions
         self.actor_shards = []   # env count per superstep dispatch
 
     def _swap_in_replay_service(self, rax):
@@ -174,9 +215,14 @@ class Trainer:
             "capacity": flat_replay.capacity,
             "chunk": self._replay_service.chunk}
 
-    def _generator(self, it: int, stream: int):
-        """The device generator, reseeded for (iteration, stream)."""
-        return self._gen.manual_seed(stream_seed(self.cfg.seed, it, stream))
+    def _generator(self, it: int, stream: int, rank: int = 0):
+        """Position `rank`'s device generator, reseeded for (iteration,
+        stream); with more than one position its stream id joins the
+        hash (the reference's fold_in of `sim_index`)."""
+        ids = ((it, stream) if self.n_positions == 1
+               else (it, stream, self._stream_ids[rank]))
+        return self._gens[rank].manual_seed(stream_seed(self.cfg.seed,
+                                                        *ids))
 
     # ---- episode accounting (carried across iterations) --------------
     @staticmethod
@@ -200,33 +246,45 @@ class Trainer:
         return run, ep_ret
 
     # ---- producer/consumer halves ------------------------------------
-    def _produce(self, state, env_state, it, delay=None):
+    def _produce(self, state, env_state, it, delay=None, rank=0):
         """One trajectory for iteration `it` plus its bootstrap
         observation, acting with the params `delay` updates old."""
         delay = self.cfg.policy_lag if delay is None else delay
-        gen = self._generator(it, _ROLL)
-        actor = self.agent.actor_policy(state, delay)
-        traj, env_state = rollout(self.agent.policy, actor, self.env, gen,
+        gen = self._generator(it, _ROLL, rank)
+        agent = self._agents[rank]
+        actor = agent.actor_policy(state, delay)
+        traj, env_state = rollout(agent.policy, actor, self.env, gen,
                                   env_state, self.cfg.unroll)
         return {"traj": traj, "boot": self.env.obs(env_state)}, env_state
 
-    def _consume(self, state, ep_run, ep_last, item, it):
-        """One learner_step on an item plus the episode accounting."""
-        gen = self._generator(it, _LEARN)
-        state, metrics = self.agent.learner_step(state, item["traj"],
-                                                 item["boot"], gen)
+    def _consume(self, state, ep_run, ep_last, item, it, rank=0):
+        """One learner_step on an item plus the episode accounting; with
+        more than one position the plan's collectives ride in the
+        learner's hooks."""
+        gen = self._generator(it, _LEARN, rank)
+        grad_tx, param_tx = self._hooks[rank]
+        agent = self._agents[rank]
+        if grad_tx is None and param_tx is None:
+            state, metrics = agent.learner_step(state, item["traj"],
+                                                item["boot"], gen)
+        else:
+            state, metrics = agent.learner_step(
+                state, item["traj"], item["boot"], gen, grad_tx=grad_tx,
+                param_tx=param_tx)
         ep_run, ep_ret = self._episode_stats(ep_run, ep_last, item["traj"])
         return state, ep_run, ep_ret, dict(metrics, episode_return=ep_ret)
 
-    def _iteration(self, state, sim, it, delay=None):
-        item, env_state = self._produce(state, sim["env"], it, delay)
+    def _iteration(self, state, sim, it, delay=None, rank=0):
+        item, env_state = self._produce(state, sim["env"], it, delay, rank)
         state, ep_run, ep_ret, metrics = self._consume(
-            state, sim["ep_run"], sim["ep_last"], item, it)
+            state, sim["ep_run"], sim["ep_last"], item, it, rank)
         return state, {"env": env_state, "ep_run": ep_run,
                        "ep_last": ep_ret}, metrics
 
     def _init_all(self):
+        """Every position's TrainState, sim carry and delay list."""
         cfg = self.cfg
+        W = self.n_positions
         init_gen = torch.Generator().manual_seed(
             stream_seed(cfg.seed, -1, _INIT))
         state = self.agent.init(init_gen)
@@ -235,20 +293,29 @@ class Trainer:
             service = self._replay_service
             state = self._swap_replay(
                 state, service.shard_state(state.extra["replay"]))
+        # the positions share the initial tensors: every update is
+        # functional, so each position's first step makes its own
+        states = [state] * W
+        # all n_envs from one stream, position r the r-th contiguous slice
+        env_state = self.env.reset(self._gens[0].manual_seed(
+            stream_seed(cfg.seed, -1, _ENV)), cfg.n_envs)
+        per = cfg.n_envs // W
         # ep_last starts NaN: no episode has finished yet
-        sim = {"env": self.env.reset(self._generator(-1, _ENV), cfg.n_envs),
-               "ep_run": torch.zeros((cfg.n_envs,), device=self.device),
-               "ep_last": torch.full((), float("nan"), device=self.device)}
-        # the plan's per-axis delays add; every member of the one data
-        # position (a replay group replicates it) acts with the same one,
-        # so it is read at mesh coordinates (0, ..., 0). A host list: the
-        # ring read takes a Python int
+        sims = [{"env": env_state if W == 1 else tree_map(
+                     lambda a, r=r: a[r * per:(r + 1) * per], env_state),
+                 "ep_run": torch.zeros((per,), device=self.device),
+                 "ep_last": torch.full((), float("nan"), device=self.device)}
+                for r in range(W)]
+        # the plan's per-axis delays add; position r acts with its own,
+        # at its mesh coordinates (a replay group's members share their
+        # data position's). Host lists: the ring read takes a Python int
         delay_gen = torch.Generator().manual_seed(
             stream_seed(cfg.seed, -1, _DELAY))
         schedule = self.plan.make_delay_schedule(cfg.iters, delay_gen)
-        delays = (schedule.reshape(cfg.iters, -1)[:, 0]
-                  + cfg.policy_lag).tolist()
-        return state, sim, delays
+        schedule = schedule.reshape(cfg.iters, -1)
+        delays = [(schedule[:, self.plan.linear_index(c)]
+                   + cfg.policy_lag).tolist() for c in self._coords]
+        return states, sims, delays
 
     @staticmethod
     def _swap_replay(state, rstate):
@@ -256,33 +323,115 @@ class Trainer:
                                     dict(state.extra, replay=rstate),
                                     state.ring, state.steps)
 
+    # ---- elastic actor shards (plan.actors) ---------------------------
+    def _reshard_envs(self, sims, n_total, s_idx):
+        """Grow or shrink every position's env count to n_total / W
+        between supersteps. Shrinking drops each position's trailing envs
+        (their in-flight episode sums with them); growing resets
+        (per_new - per_cur) · W fresh envs from the window's own stream
+        and gives position r the r-th contiguous slice of them, after its
+        own. The agents never see it: they only consume `traj`."""
+        W = len(sims)
+        per_new = n_total // W
+        per_cur = sims[0]["ep_run"].shape[0]
+        if per_new == per_cur:
+            return sims
+        if per_new < per_cur:
+            cut = lambda a: a[:per_new]
+            return [{"env": tree_map(cut, s["env"]),
+                     "ep_run": cut(s["ep_run"]), "ep_last": s["ep_last"]}
+                    for s in sims]
+        grow = per_new - per_cur
+        gen = torch.Generator(device=self.device).manual_seed(
+            stream_seed(self.cfg.seed, -1, _RESHARD, s_idx))
+        fresh = self.env.reset(gen, grow * W)
+        out = []
+        for r, s in enumerate(sims):
+            part = lambda a, r=r: a[r * grow:(r + 1) * grow]
+            out.append({
+                "env": tree_map(lambda a, b: torch.cat([a, part(b)]),
+                                s["env"], fresh),
+                "ep_run": torch.cat([s["ep_run"], torch.zeros(
+                    (grow,), device=self.device)]),
+                "ep_last": s["ep_last"]})
+        return out
+
     # ---- the loop ----------------------------------------------------
+    def _run(self, states, sims, delays, start, k, group):
+        """Iterations start .. start + k - 1 at every position, updating
+        `states` and `sims` in place; returns each position's list of
+        per-iteration metrics."""
+        def work(r):
+            state, sim, per = states[r], sims[r], []
+            for it in range(start, start + k):
+                state, sim, metrics = self._iteration(state, sim, it,
+                                                      delays[r][it], r)
+                per.append(metrics)
+            states[r], sims[r] = state, sim
+            return per
+
+        if group is None:
+            return [work(0)]
+        grad = torch.is_grad_enabled()
+
+        def in_thread(r):   # the caller's grad mode and current device
+            with torch.set_grad_enabled(grad), (
+                    torch.cuda.device(self.device)
+                    if self.device.type == "cuda"
+                    else contextlib.nullcontext()):
+                return work(r)
+
+        return group.run(in_thread)
+
     def fit(self, fused: bool = True):
-        """Train for cfg.iters iterations. Returns (TrainState, history)."""
+        """Train for cfg.iters iterations. Returns (TrainState, history);
+        with more than one data position, position 0's state."""
         cfg = self.cfg
-        state, sim, delays = self._init_all()
+        W = self.n_positions
+        states, sims, delays = self._init_all()
+        group = None
+        if W > 1:
+            group = PositionGroup(W)
+            grad_fn, param_fn = self._collectives
+            lead = self.plan.sim_shape
+            self._hooks = [
+                (grad_fn and group.hook(r, grad_fn, lead),
+                 param_fn and group.hook(r, param_fn, lead))
+                for r in range(W)]
         K = cfg.superstep if fused else 1
         history = []
         start = 0
         self.actor_shards = []
-        while start < cfg.iters:
-            k = min(K, cfg.iters - start)
-            self.actor_shards.append(cfg.n_envs)
-            per = []
-            for it in range(start, start + k):
-                state, sim, metrics = self._iteration(state, sim, it,
-                                                      delays[it])
-                per.append(metrics)
-            names = sorted(per[0])
-            values = torch.stack([torch.stack([m[n] for m in per])
-                                  for n in names]).cpu()  # ONE host sync
-            for j in range(k):
-                it = start + j
-                if it % cfg.log_every == 0 or it == cfg.iters - 1:
-                    history.append({"iter": it, **{
-                        n: round(float(values[i, j]), 4)
-                        for i, n in enumerate(names)}})
-            start += k
+        try:
+            while start < cfg.iters:
+                k = min(K, cfg.iters - start)
+                # the schedule's window is the cfg.superstep-iteration
+                # window, not the dispatch: fused and unfused fits
+                # reshard at the same iterations
+                s_idx = start // cfg.superstep
+                n_envs = self.plan.actor_schedule(s_idx, cfg.n_envs)
+                sims = self._reshard_envs(sims, n_envs, s_idx)
+                self.actor_shards.append(n_envs)
+                per = self._run(states, sims, delays, start, k, group)
+                names = sorted(per[0][0])
+                stacked = [torch.stack([torch.stack([m[n] for m in p])
+                                        for n in names]) for p in per]
+                # positions averaged each iteration, in rank order
+                values = (stacked[0] if W == 1
+                          else member_sum(torch.stack(stacked)) / W)
+                values = values.cpu()                  # ONE host sync
+                for j in range(k):
+                    it = start + j
+                    if it % cfg.log_every == 0 or it == cfg.iters - 1:
+                        history.append({"iter": it, **{
+                            n: round(float(values[i, j]), 4)
+                            for i, n in enumerate(names)}})
+                start += k
+        finally:
+            if group is not None:
+                group.close()
+                self._hooks = [(None, None)] * W
+        state = states[0]
         if self._replay_service is not None:
             # the flat buffer again: fit()'s result and checkpoints do
             # not depend on the plan

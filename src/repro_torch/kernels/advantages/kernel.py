@@ -19,8 +19,8 @@ import struct
 
 import torch
 
-from repro_torch.kernels.common import (check_launch, check_tb, launch_stream,
-                                        load_kernels, on_device)
+from repro_torch.kernels.common import (check_launch, check_tb, count_launch,
+                                        launch_stream, load_kernels, on_device)
 from repro_torch.kernels.advantages.ref import (
     discounted_return_adjoint_ref, discounted_return_ref)
 
@@ -84,7 +84,7 @@ def discounted_return_tb(base, coef, init):
     dll, fwd, _ = _launchers()
     with on_device(dev):
         code = fwd(params, launch_stream(dev))
-    discounted_return_tb.launches += 1
+    count_launch(discounted_return_tb)
     check_launch(dll, code, "discounted_return_tb")
     return out
 
@@ -110,7 +110,7 @@ def discounted_return_adjoint_tb(g, coef, out, init, need=(True, True,
     dll, _, adj = _launchers()
     with on_device(dev):
         code = adj(params, launch_stream(dev))
-    discounted_return_adjoint_tb.launches += 1
+    count_launch(discounted_return_adjoint_tb)
     check_launch(dll, code, "discounted_return_adjoint_tb")
     return dbase, dcoef, dinit
 

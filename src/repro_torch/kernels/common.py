@@ -9,16 +9,21 @@ at the repository root, and loads the library with ctypes. The library
 is rebuilt when the content hash of the sources, headers or flags
 changes. Nothing is downloaded and nothing outside the
 repository's sources is compiled.
+
+The build-and-load runs once per process under a lock, and every
+wrapper counts its launches through `count_launch`, also under a lock,
+so threads that launch kernels at once (the Trainer's data positions,
+core/positions.py) neither build twice nor lose a count.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -122,14 +127,35 @@ def build_kernels() -> tuple:
     return lib, "".join(log)
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+_DLL = None
+
+
 def load_kernels() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process."""
-    lib, _ = build_kernels()
-    dll = ctypes.CDLL(str(lib))
-    dll.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    dll.repro_cuda_error_string.restype = ctypes.c_char_p
-    return dll
+    """The built kernel library, built and loaded once per process: the
+    first caller builds under a lock while any other thread waits for
+    the same library."""
+    global _DLL
+    if _DLL is not None:
+        return _DLL
+    with _LOAD_LOCK:
+        if _DLL is None:
+            lib, _ = build_kernels()
+            dll = ctypes.CDLL(str(lib))
+            dll.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            dll.repro_cuda_error_string.restype = ctypes.c_char_p
+            _DLL = dll
+    return _DLL
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`: a read-modify-write, so it runs
+    under a lock, exact however many threads launch at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 NULL_KERNEL = "repro_null_kernel"  # the profiler's name for it, in part

@@ -24,8 +24,8 @@ import struct
 
 import torch
 
-from repro_torch.kernels.common import (check_launch, launch_stream,
-                                        load_kernels, on_device)
+from repro_torch.kernels.common import (check_launch, count_launch,
+                                        launch_stream, load_kernels, on_device)
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                     attention_lse_ref,
                                                     attention_ref)
@@ -134,7 +134,7 @@ def _launch(params, device, wrapper=None, symbol="flash_attention_hsd"):
     dll, fn = _launcher(symbol)
     with on_device(device):
         code = fn(params, launch_stream(device))
-    wrapper.launches += 1
+    count_launch(wrapper)
     check_launch(dll, code, wrapper.__name__)
 
 

@@ -10,8 +10,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import (check_launch, launch_stream,
-                                        load_kernels, on_device)
+from repro_torch.kernels.common import (check_launch, count_launch,
+                                        launch_stream, load_kernels, on_device)
 from repro_torch.kernels.gmm.ref import gmm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,7 +63,7 @@ def gmm_ecd(x, w):
         stream = launch_stream(x.device)
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   _DTYPES[x.dtype], E, C, d, f, stream)
-    gmm_ecd.launches += 1
+    count_launch(gmm_ecd)
     check_launch(dll, code, "gmm_ecd")
     return out
 

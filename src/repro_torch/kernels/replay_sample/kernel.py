@@ -15,8 +15,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import (check_launch, launch_stream,
-                                        load_kernels, on_device)
+from repro_torch.kernels.common import (check_launch, count_launch,
+                                        launch_stream, load_kernels, on_device)
 from repro_torch.kernels.replay_sample.ref import (
     prioritized_sample_ref, shard_gumbel_topk_stack_ref)
 
@@ -104,7 +104,7 @@ def prioritized_sample_c(prio, gumbel, size, n, alpha=0.6, beta=0.4,
     with on_device(prio.device):
         code = fn(*_args(prio, gumbel, size, n, alpha, beta, eps, buf),
                   launch_stream(prio.device))
-    prioritized_sample_c.launches += 1
+    count_launch(prioritized_sample_c)
     check_launch(dll, code, "prioritized_sample_c")
     return buf[:n], buf[n:2 * n].view(torch.float32)
 
@@ -163,7 +163,7 @@ def shard_topk_c(prio, gumbel, nvalid, k, alpha=0.6, eps=1e-6):
                                 float(eps),
                                 None if ws is None else ws.data_ptr(),
                                 scores.data_ptr(), idx.data_ptr(), stream)
-    shard_topk_c.launches += 1
+    count_launch(shard_topk_c)
     check_launch(dll, code, "shard_topk_c")
     return scores, idx
 

@@ -14,8 +14,8 @@ import ctypes
 import functools
 import struct
 
-from repro_torch.kernels.common import (check_launch, check_tb, launch_stream,
-                                        load_kernels, on_device)
+from repro_torch.kernels.common import (check_launch, check_tb, count_launch,
+                                        launch_stream, load_kernels, on_device)
 from repro_torch.kernels.vtrace.ref import vtrace_ref
 
 # VtraceParams: log_rhos, discounts, rewards, values, bootstrap, vs,
@@ -64,7 +64,7 @@ def vtrace_tb(log_rhos, discounts, rewards, values, bootstrap,
     dll, fn = _launcher()
     with on_device(dev):
         code = fn(params, launch_stream(dev))
-    vtrace_tb.launches += 1
+    count_launch(vtrace_tb)
     check_launch(dll, code, "vtrace_tb")
     return vs, adv
 

@@ -18,8 +18,8 @@ import struct
 
 import torch
 
-from repro_torch.kernels.common import (check_launch, launch_stream,
-                                        load_kernels, on_device)
+from repro_torch.kernels.common import (check_launch, count_launch,
+                                        launch_stream, load_kernels, on_device)
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 MAX_N = MAX_CHUNK = 64
@@ -144,7 +144,7 @@ def wkv6_btHN(r, k, v, logw, u, state=None, *, chunk=64):
     dll, fn = _launcher()
     with on_device(r.device):
         code = fn(params, launch_stream(r.device))
-    wkv6_btHN.launches += 1
+    count_launch(wkv6_btHN)
     check_launch(dll, code, "wkv6_btHN")
     return y, S
 

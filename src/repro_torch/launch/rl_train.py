@@ -1,29 +1,32 @@
-"""DRL launcher on one device: config parsing + ``Trainer.fit`` (the port
-of src/repro/launch/rl_train.py for the plans that fit one device).
+"""DRL launcher: config parsing + ``Trainer.fit`` on one device (the
+port of src/repro/launch/rl_train.py).
 
-  PYTHONPATH=src python -m repro_torch.launch.rl_train --algo dqn \\
-      --env cartpole --plan "workers=1:allreduce:bsp,replay=2:allreduce:bsp:replay"
+  PYTHONPATH=src python -m repro_torch.launch.rl_train --algo impala \\
+      --env cartpole --plan "hosts=2:allreduce:bsp,workers=2:gossip:asp"
 
   --algo      a3c | dqn | impala | ppo    (Agent registry)
   --env       a registered environment    (repro_torch.envs)
   --policy    mlp | trunk                 the policy network
   --plan      a DistPlan, comma-separated axes outermost first, each
               ``name=size[:collective[:sync[:role]]]`` (the reference's
-              grammar); runs with one data position: data axes of size
-              1 with any sync, and a ``replay`` axis (the sharded replay
-              service, DQN) of any size
+              grammar): collective in {ps, allreduce, gossip} (§3), sync
+              in {bsp, asp, ssp} (§6), role ``data`` or ``replay`` (the
+              sharded replay service, DQN)
+  --actors    elastic env-shard schedule, e.g. ``16,32``: the total env
+              count cycles through these values per superstep
   --device    the torch device (default: the card; raises without one)
 
 The legacy single-axis flags (``--n-workers``, ``--topology``,
 ``--sync``, ``--max-delay``, ``--staleness-bound``) lower onto
-``DistPlan.flat``, so ``--sync asp`` trains one worker under the asp
-delay schedule. Training runs as supersteps: ``--superstep K``
-iterations of rollout -> learner_step -> lag-ring push per dispatch,
-with the metrics read back once per dispatch; ``--unfused`` reads them
-back every iteration (the same numbers, bitwise). Plans that need more
-than one data position, shard/zero3 axes, an elastic ``--actors``
-schedule and ``--pipeline`` are refused with the slice that ports them.
-Prints one JSON line, the reference's, plus the device.
+``DistPlan.flat``. Every data position of the plan (``--n-workers 4``:
+four) runs on the one device, one thread each, meeting at the plan's
+collectives (core/positions.py). Training runs as supersteps:
+``--superstep K`` iterations of rollout -> learner_step -> lag-ring push
+per dispatch, with the metrics read back once per dispatch;
+``--unfused`` reads them back every iteration (the same numbers,
+bitwise). ``shard``/``zero3`` axes larger than 1 and ``--pipeline`` are
+refused with the ROADMAP item that ports them. Prints one JSON line, the
+reference's, plus the device.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ SYNC_CHOICES = ("bsp", "asp", "ssp")
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.rl_train",
-        description="Single-device DRL launcher (PyTorch port).")
+        description="DRL launcher on one device (PyTorch port).")
     ap.add_argument("--algo", default="impala", choices=ALGOS)
     ap.add_argument("--env", default="cartpole", metavar="ENV",
                     help="registered environment (repro_torch.envs)")
@@ -49,11 +52,14 @@ def build_parser():
     ap.add_argument("--n-envs", type=int, default=32)
     ap.add_argument("--unroll", type=int, default=32)
     ap.add_argument("--plan", default=None, metavar="PLAN",
-                    help="hierarchical DistPlan, e.g. 'workers=1:allreduce:"
-                         "bsp,replay=2:allreduce:bsp:replay'")
+                    help="hierarchical DistPlan, e.g. 'hosts=2:allreduce:"
+                         "bsp,workers=2:gossip:asp' or 'workers=2:"
+                         "allreduce:bsp,replay=2:allreduce:bsp:replay'; "
+                         "overrides --n-workers/--topology/--sync")
     ap.add_argument("--actors", default=None, metavar="N,N,...",
-                    help="elastic env-shard schedule (an elastic one comes "
-                         "with the distribution slice)")
+                    help="elastic env-shard schedule: total env counts "
+                         "cycled per superstep (each must divide across "
+                         "the plan's data positions)")
     ap.add_argument("--policy", default="mlp", choices=("mlp", "trunk"),
                     help="policy network: the house actor-critic MLP or "
                          "the transformer trunk (paper-drl-trunk)")
@@ -94,22 +100,13 @@ def plan_of(args):
 
 def refusal(args, plan):
     """The message refusing what this port does not run yet, naming the
-    flag and the slice that ports it, or None."""
+    flag and the ROADMAP item that ports it, or None."""
     from repro_torch.core.trainer import plan_refusal
     if args.pipeline:
         return ("--pipeline is not ported yet: it comes with the pipeline "
                 "slice (ROADMAP queue 1, item 11)")
-    msg = plan_refusal(plan, args.n_envs)
-    if msg is None:
-        return None
-    if msg.startswith("actors="):
-        flag = f"--actors {args.actors}"
-    elif args.plan is not None:
-        flag = f"--plan {args.plan}"
-    else:
-        flag = (f"--n-workers {args.n_workers} (the plan "
-                f"{plan.describe()})")
-    return f"{flag}: {msg}"
+    msg = plan_refusal(plan)
+    return None if msg is None else f"--plan {args.plan}: {msg}"
 
 
 def main(argv=None):
@@ -144,12 +141,13 @@ def main(argv=None):
     try:
         trainer = Trainer(env, cfg, device=args.device)
     except ValueError as e:  # e.g. a replay axis on an algorithm without
-        ap.error(str(e))     # a prioritized buffer
+        ap.error(str(e))     # a prioritized buffer, or n_envs that does
+        #                      not divide across the positions
     state, history = trainer.fit(fused=not args.unfused)
     print(json.dumps({
         "algo": args.algo, "env": args.env, "policy": args.policy,
-        # the reference's keys: the plan and its device count (a replay
-        # group's members share this one device)
+        # the reference's keys: the plan and its device count (every
+        # position, replay members included, shares this one device)
         "plan": plan.describe(), "n_devices": plan.n_devices,
         "fused": not args.unfused, "pipeline": False,
         "pipeline_depth": 0, "pipeline_capacity": None,

@@ -16,10 +16,12 @@ the CPU, against the JAX package where it has a counterpart:
   (c) the stacked collectives against JAX's `all_gather_shards`,
       `local_shard` and `psum_select` under vmap named axes, bitwise;
   (d) the Trainer's plan mode: the delay schedule feeds `actor_policy`,
-      and what it does not run yet is refused by name with its slice;
+      plans with several data positions, replay groups under them and an
+      elastic schedule run, and the shard/zero3 roles are refused by name
+      with their slice;
   (e) the CLI: `--plan` with a replay axis prints `partition_replay`,
-      `--sync asp|ssp` trains one worker, and a data axis larger than 1
-      is refused by name.
+      `--sync asp|ssp` trains one worker, several data positions train,
+      and a shard axis larger than 1 is refused by name.
 """
 import contextlib
 import io
@@ -445,18 +447,33 @@ def test_trainer_bsp_plan_is_the_planless_fit_bitwise():
 
 
 @pytest.mark.parametrize("plan,frag", [
-    (DistPlan.flat(2), "data axis 'workers' of size 2"),
-    (DistPlan.replay(2, 2), "data axis 'workers' of size 2"),
     (DistPlan.zero(1, 2), "shard-role axis 'shard'"),
     (DistPlan.zero3(1, 2), "zero3-role axis 'shard'"),
-    (DistPlan.flat(1, actors=(8, 16)), "actors= schedule [8, 16]")])
+    (DistPlan.zero(2, 2), "shard-role axis 'shard'")])
 def test_trainer_refuses_what_later_slices_port(plan, frag):
     with pytest.raises(ValueError) as e:
         Trainer(envs.make("cartpole"), TrainerConfig(algo="dqn", n_envs=8,
                                                      plan=plan),
                 device="cpu")
     msg = str(e.value)
-    assert frag in msg and "slice (ROADMAP queue 1, item 1" in msg, msg
+    assert frag in msg and "slice (ROADMAP queue 1, item 12)" in msg, msg
+
+
+@pytest.mark.parametrize("plan,positions,shards", [
+    (DistPlan.flat(2), 2, [8, 8]),
+    (DistPlan.replay(2, 2), 2, [8, 8]),
+    (DistPlan.flat(1, actors=(8, 16)), 1, [8, 16])])
+def test_trainer_runs_what_this_slice_ports(plan, positions, shards):
+    """The plans the one-position Trainer refused: two data positions,
+    two positions each with a replay group of two, an elastic schedule."""
+    cfg = TrainerConfig(algo="dqn", iters=4, superstep=2, n_envs=8,
+                        unroll=4, plan=plan, log_every=1,
+                        algo_kwargs={"hidden": (8,)})
+    tr = Trainer(envs.make("cartpole"), cfg, device="cpu")
+    state, hist = tr.fit()
+    assert tr.n_positions == positions and tr.actor_shards == shards
+    assert len(hist) == 4 and all(np.isfinite(h["loss"]) for h in hist)
+    assert state.extra["replay"]["prio"].shape == (20000,)
 
 
 def test_trainer_runs_a_constant_actor_schedule_and_size_one_axes():
@@ -501,11 +518,17 @@ def test_cli_sync_runs_one_worker(mech):
     assert all(np.isfinite(h["loss"]) for h in out["history"])
 
 
-@pytest.mark.parametrize("flags,frags", [
+@pytest.mark.parametrize("flags,n_devices", [
     (["--plan", "workers=2:allreduce:bsp,replay=2:allreduce:bsp:replay"],
-     ["--plan", "data axis 'workers' of size 2", "distribution slice"]),
-    (["--n-workers", "4", "--sync", "ssp"],
-     ["--n-workers 4", "data axis 'workers' of size 4"]),
+     4),
+    (["--n-workers", "4", "--sync", "ssp"], 4)])
+def test_cli_runs_multi_position_plans(flags, n_devices):
+    out = _run_cli(SMALL + ["--algo", "dqn"] + flags)
+    assert out["n_devices"] == n_devices and out["actor_shards"] == [4, 4]
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+
+
+@pytest.mark.parametrize("flags,frags", [
     (["--plan", "workers=1:allreduce:bsp,shard=2:allreduce:bsp:shard"],
      ["--plan", "shard-role axis 'shard'", "learner-state slice"]),
     (["--plan", "workers=1:allreduce:bsp,r=2:ps:bsp:replay"],

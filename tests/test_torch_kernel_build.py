@@ -213,3 +213,56 @@ def test_flash_f32_packed_arguments_name_the_kernel(S, kind):
     assert fk.kernel_kind(dt, kv_end, B, KVH, S, G) == kind
     _, kv_end = fk._check(q, k.transpose(1, 2), v.transpose(1, 2), 32)
     assert fk.kernel_kind(dt, kv_end, B, KVH, S, G) == 2
+
+
+# ---------------------------------- threads: one build, exact counts
+def _together(n, fn):
+    """`fn()` in n threads released at once; their results."""
+    import threading
+    start = threading.Barrier(n)
+    out = [None] * n
+
+    def run(i):
+        start.wait()
+        out[i] = fn()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def test_load_kernels_builds_once_under_threads(monkeypatch):
+    import time
+    calls = []
+
+    def build():
+        calls.append(1)
+        time.sleep(0.05)       # a slow build: the others arrive meanwhile
+        return "libkernels.so", ""
+
+    class FakeDLL:
+        def __init__(self, path):
+            self.repro_cuda_error_string = type("F", (), {})()
+
+    monkeypatch.setattr(common, "build_kernels", build)
+    monkeypatch.setattr(common.ctypes, "CDLL", FakeDLL)
+    monkeypatch.setattr(common, "_DLL", None)
+    dlls = _together(8, common.load_kernels)
+    assert len(calls) == 1
+    assert all(d is dlls[0] for d in dlls)
+
+
+def test_count_launch_is_exact_under_threads():
+    def wrapper():
+        pass
+    wrapper.launches = 0
+
+    def bump():
+        for _ in range(1000):
+            common.count_launch(wrapper)
+
+    _together(8, bump)
+    assert wrapper.launches == 8000

@@ -290,10 +290,19 @@ def test_fit_is_finite_and_learns(algo):
 
 def test_trainer_refuses_later_slices():
     env = envs.make("cartpole")
-    for kw, frag in (({"plan": DistPlan.flat(2)}, "distribution"),
+    for kw, frag in (({"plan": DistPlan.zero(1, 2)}, "item 12"),
                      ({"pipeline": True}, "pipeline")):
         with pytest.raises(ValueError, match=frag):
             Trainer(env, TrainerConfig(**kw), device="cpu")
+
+
+def test_trainer_runs_two_workers():
+    cfg = TrainerConfig(algo="ppo", iters=3, superstep=2, n_envs=8,
+                        unroll=8, plan=DistPlan.flat(2), log_every=1,
+                        algo_kwargs={"hidden": (8,)})
+    state, hist = Trainer(envs.make("cartpole"), cfg, device="cpu").fit()
+    assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
+    assert int(state.steps) == 3
 
 
 def test_trainer_defaults_to_the_card():
@@ -324,11 +333,23 @@ def test_cli_prints_the_json_line(algo):
     assert all(np.isfinite(h["loss"]) for h in out["history"])
 
 
+@pytest.mark.parametrize("flags,n_devices,shards", [
+    (["--plan", "workers=2:allreduce:bsp"], 2, [8, 8]),
+    (["--actors", "8,16"], 1, [8, 16]), (["--n-workers", "2"], 2, [8, 8]),
+    (["--sync", "asp", "--n-workers", "2"], 2, [8, 8])])
+def test_cli_runs_what_this_slice_brings(flags, n_devices, shards):
+    out = _run_cli(["--device", "cpu", "--algo", "a3c", "--iters", "4",
+                    "--superstep", "2", "--n-envs", "8", "--unroll", "8",
+                    "--log-every", "1"] + flags)
+    assert out["n_devices"] == n_devices and out["actor_shards"] == shards
+    assert len(out["history"]) == 4
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+
+
 @pytest.mark.parametrize("flags,frag", [
-    (["--plan", "workers=2:allreduce:bsp"], "--plan"),
-    (["--pipeline"], "pipeline"),
-    (["--actors", "8,16"], "--actors"), (["--n-workers", "2"], "n-workers"),
-    (["--sync", "asp", "--n-workers", "2"], "sync"),
+    (["--pipeline"], "item 11"),
+    (["--plan", "workers=1,shard=2:allreduce:bsp:shard"], "item 12"),
+    (["--plan", "workers=2,zero3=2:allreduce:bsp:zero3"], "item 12"),
     (["--env", "no-such-env"], "registered")])
 def test_cli_refuses_what_later_slices_bring(flags, frag, capsys):
     with pytest.raises(SystemExit) as exc:
