@@ -98,6 +98,32 @@ Phases, in order; the script exits non-zero at the first failure:
      impala fit against `use_kernel=False` (params within 1e-5); each
      run's `train_run` line has its plan, W, ms an iteration and env
      steps a second;
+  4d. pipeline and sharded learner states: `rl_train --sync ssp
+     --staleness-bound 1 --pipeline` (depth 1) for ppo, a3c and impala at
+     the default config (bars ppo >= 45, a3c >= 28, impala >= 22: about
+     half of the JAX package's own pipelined fits) and dqn for 20
+     iterations (cut for time), a3c under `--sync asp --max-delay 4
+     --pipeline` (depth 4, 20 iterations); impala and dqn for 10
+     iterations fused, pipelined at depth 0 (bitwise the fused fit) and
+     at depth 1 with supersteps of 2 and 10 (bitwise each other); one
+     cartpole step through `HostPipelined` (card -> host -> card) bitwise
+     the host's step, and a 10-iteration depth-1 impala fit on gridworld
+     through it bitwise the on-device env's fit; impala
+     under `workers=2 x shard=2` (ZeRO-2) and `x zero3=2` (ZeRO-3), each
+     bitwise the distribution phase's 10-iteration flat(4) fit (params,
+     the reassembled optimizer state, ring, history); dqn under
+     `workers=1 x zero3=2 x replay=2` bitwise `--n-workers 2` (20
+     iterations, the flat buffer returned); the full-width trunk under
+     impala at zero3(1, 2), layer-wise, bitwise flat(2) (3 iterations;
+     the training attention's launches twice the flat(1) run's); every
+     position's TrainState bytes after two full-width trunk iterations
+     at W = 4, flat / ZeRO-2 / ZeRO-3, exactly 16P / 10P / 4P in f32 plus
+     padding and counters (`max_memory_allocated` beside them, not
+     gated); a zero3 fit (MLP and full-width trunk) saved, then served
+     live, restored into a plain agent and through wrappers at 2 and 4
+     shards, bitwise; every run's launches exactly W x its algorithm's
+     per consumed iteration; each `train_run` line has its plan, W,
+     pipeline depth, ms an iteration, env steps a second and launches;
   5. path agreement: one learner_step per algorithm from one state and
      trajectory, kernels on against the plain versions, on the card; the
      dqn step with the kernel runs under
@@ -265,6 +291,16 @@ DIST_BARS = {"ppo": 60.0, "a3c": 25.0, "impala": 20.0}
 DIST_SHORT = 10       # the nested, mixed and kernel-vs-plain fits
 DIST_ELASTIC = ("16,32", 20, 5)   # actors schedule, iterations, superstep
 DIST_TOL = 1e-5       # kernel vs plain params: the path agreement's bound
+# the pipeline and sharded learner-state phase: the pipelined fits'
+# iterations (dqn cut from 60 for time) and their learning bars on the mean
+# of the last two logged returns, about half of the JAX package's own
+# `rl_train --sync ssp --staleness-bound 1 --pipeline` at seed 0 on a CPU
+# (ppo 89.5, a3c 56.4, impala 44.3 at iterations 50 and 59)
+PIPE_ITERS = {"ppo": 60, "a3c": 60, "impala": 60, "dqn": 20}
+PIPE_BARS = {"ppo": 45.0, "a3c": 28.0, "impala": 22.0}
+PIPE_ASP = ("a3c", 20, 4)   # algorithm, iterations, asp max_delay (= depth)
+ZERO_DQN_ITERS = 20          # dqn zero3 + replay against flat(2)
+ZERO_MEM_ITERS = 2           # the memory table's fits
 
 
 def fail(msg):
@@ -1017,7 +1053,9 @@ def phase_replay_training(card, shard_row):
     import torch
     import repro_torch.envs as envs
     from repro_torch.core.distribution import DistPlan
+    from repro_torch.core.positions import tree_leaves, tree_map
     from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.envs.host_env import HostPipelined
     from repro_torch.launch.rl_train import main as rl_main
     counters = train_counters()
     cfg = TrainerConfig(algo="dqn")          # the default config
@@ -1093,7 +1131,9 @@ def phase_distribution(card, path_rows=None):
     import torch
     import repro_torch.envs as envs
     from repro_torch.core.distribution import DistPlan
+    from repro_torch.core.positions import tree_leaves, tree_map
     from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.envs.host_env import HostPipelined
     from repro_torch.launch.rl_train import main as rl_main
     counters = train_counters()
     totals = dict.fromkeys(counters, 0)
@@ -1224,6 +1264,289 @@ def phase_distribution(card, path_rows=None):
           f"fit params max_abs_err {err:.3e}")
     check(err <= DIST_TOL, f"impala W={DIST_W}: kernel vs plain params "
                            f"max_abs_err {err} > {DIST_TOL}")
+    return totals, fits["flat"]
+
+
+def state_equal(a, b, parts=("params", "opt_state", "extra", "ring",
+                             "steps")):
+    """Bitwise equality of two TrainStates, part by part: the names of the
+    parts that differ."""
+    import torch
+    from repro_torch.core.positions import tree_leaves
+    bad = []
+    for part in parts:
+        la, lb = tree_leaves(getattr(a, part)), tree_leaves(getattr(b, part))
+        if len(la) != len(lb) or not all(
+                x.shape == y.shape and x.dtype == y.dtype
+                and torch.equal(x, y) for x, y in zip(la, lb)):
+            bad.append(part)
+    return bad
+
+
+def phase_pipeline_zero(card, path_rows, flat4):
+    """Drive the slice's main paths: the pipelined actor-learner and the
+    ZeRO-2/3 sharded learner states on the one card, through `rl_train`
+    where a flag reaches them; returns the launch counts of its runs.
+    `flat4` is the distribution phase's 10-iteration impala flat(4) fit
+    (state, history), which the ZeRO fits must equal bitwise."""
+    import torch
+    import repro_torch.envs as envs
+    from repro_torch.checkpoint import load_train_state, save_train_state
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.distribution import DistPlan
+    from repro_torch.core.serving import ParamStore, ServeEngine
+    from repro_torch.core.topology import ZeRO3Agent
+    from repro_torch.core.positions import tree_leaves, tree_map
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.envs.host_env import HostPipelined
+    from repro_torch.launch.rl_train import main as rl_main
+    counters = train_counters()
+    totals = dict.fromkeys(counters, 0)
+    hist_json = lambda h: json.dumps(h)      # NaN-safe equality
+
+    def drive(label, fit, per_iter, W, bar=None):
+        """One fit (`fit()` -> (trainer, state, history, CLI line or
+        None)), counts at 0 just before and read just after; gated on W
+        x `per_iter` launches per consumed iteration and finite losses."""
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, state, hist, out = fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: f.launches for n, f in counters.items()}
+        cfg = trainer.cfg
+        want = {n: W * per_iter.get(n, 0) * cfg.iters for n in counters}
+        check(got == want, f"{label}: kernel launches {got}, expected "
+                           f"{want}")
+        check(trainer.n_positions == W, f"{label}: {trainer.n_positions} "
+                                        f"positions, expected {W}")
+        check(all(math.isfinite(h["loss"]) for h in hist),
+              f"{label}: non-finite loss in {hist}")
+        if out is not None:
+            check(out["pipeline_depth"] == trainer.pipeline_depth
+                  and out["pipeline_capacity"] == trainer.pipeline_capacity
+                  and out["partition"] == trainer.partition
+                  and hist_json(out["history"]) == hist_json(hist[-5:]),
+                  f"{label}: CLI line {out}")
+        rets = [h["episode_return"] for h in hist[-2:]]
+        mean_ret = sum(rets) / len(rets)
+        if bar is not None:
+            check(mean_ret >= bar, f"{label}: mean of the last two logged "
+                                   f"returns {mean_ret} below the bar {bar}")
+        share = {n: got[n] * path_rows[n]["ms"] / (wall * 1e3)
+                 for n in counters if got[n] and n in path_rows}
+        print("train_run " + json.dumps({
+            "run": label, "algo": cfg.algo, "plan": trainer.plan.describe(),
+            "W": W, "pipeline": cfg.pipeline,
+            "pipeline_depth": trainer.pipeline_depth,
+            "partition": trainer.partition, "iters": cfg.iters,
+            "n_envs": cfg.n_envs, "unroll": cfg.unroll, "wall_s": wall,
+            "ms_per_iter": wall * 1e3 / cfg.iters,
+            "env_steps_per_s": cfg.iters * cfg.n_envs * cfg.unroll / wall,
+            "launches": got, "kernel_share_of_wall": share,
+            "state_bytes": trainer.state_bytes,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "last_returns": rets, "mean_last": mean_ret, "bar": bar,
+            "history": hist, "card": card}))
+        for n in counters:
+            totals[n] += got[n]
+        return trainer, state, hist
+
+    def cli(argv):
+        def fit():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                trainer, state, hist = rl_main(argv)
+            out = json.loads(buf.getvalue().strip().splitlines()[-1])
+            return trainer, state, hist, out
+        return fit
+
+    def trainer_fit(cfg, full_width=False, env="cartpole"):
+        def fit():
+            tr = Trainer(env if isinstance(env, envs.Env) else
+                         envs.make(env), cfg)
+            if full_width:
+                check(tr.agent.policy.lm.cfg.d_model == 256
+                      and tr.agent.policy.lm.cfg.n_layers == 4,
+                      "not the full-width trunk")
+            state, hist = tr.fit()
+            return tr, state, hist, None
+        return fit
+
+    def same(label, a, ha, b, hb, parts=("params", "opt_state", "extra",
+                                         "ring", "steps")):
+        bad = state_equal(a, b, parts)
+        check(not bad and hist_json(ha) == hist_json(hb),
+              f"{label}: not bitwise ({bad or 'history'})")
+
+    base = ["--env", "cartpole"]
+    ssp = ["--sync", "ssp", "--staleness-bound", "1", "--pipeline"]
+    # 1. the pipelined fits at ssp depth 1 (one position)
+    for algo in ("ppo", "a3c", "impala", "dqn"):
+        tr, _, _ = drive(f"{algo}-pipeline-ssp1", cli(
+            ["--algo", algo, "--iters", str(PIPE_ITERS[algo])] + base + ssp),
+            ALGO_KERNELS[algo], 1, PIPE_BARS.get(algo))
+        check((tr.pipeline_depth, tr.pipeline_capacity) == (1, 1),
+              f"{algo} ssp: depth {tr.pipeline_depth}")
+    algo, iters, depth = PIPE_ASP
+    tr, _, _ = drive(f"{algo}-pipeline-asp{depth}", cli(
+        ["--algo", algo, "--iters", str(iters), "--sync", "asp",
+         "--max-delay", str(depth), "--pipeline"] + base),
+        ALGO_KERNELS[algo], 1)
+    check((tr.pipeline_depth, tr.pipeline_capacity) == (depth, depth),
+          f"{algo} asp: depth {tr.pipeline_depth}")
+    # 2. depth 0 is the fused fit; chunking a depth-1 fit changes nothing
+    short = ["--iters", str(DIST_SHORT), "--log-every", "1"] + base
+    for algo in ("impala", "dqn"):
+        fits = {}
+        for label, flags in (
+                ("fused", []), ("pipeline-d0", ["--pipeline"]),
+                ("pipeline-ssp1-k2", ssp + ["--superstep", "2"]),
+                ("pipeline-ssp1-k10", ssp + ["--superstep", "10"])):
+            _, state, hist = drive(f"{algo}-{label}", cli(
+                ["--algo", algo] + short + flags), ALGO_KERNELS[algo], 1)
+            fits[label] = (state, hist)
+        same(f"{algo} depth 0 vs fused", *fits["fused"],
+             *fits["pipeline-d0"])
+        same(f"{algo} depth 1 k=2 vs k=10", *fits["pipeline-ssp1-k2"],
+             *fits["pipeline-ssp1-k10"])
+    print("pipe bitwise: depth 0 = fused, depth-1 k=2 = k=10 (impala, dqn)")
+    # 2b. HostPipelined: the env stepped on the host, the card's tensors
+    # crossing to it and back every step. One cartpole step comes back on
+    # the card holding the host's numbers bitwise; a depth-1 impala fit
+    # on gridworld (integer moves, correctly rounded obs: the same bits
+    # on either device) is bitwise the on-device env's fit
+    cart = envs.make("cartpole")
+    s0 = cart.reset(torch.Generator(device="cuda").manual_seed(3), 64)
+    act = torch.randint(0, 2, (64,), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(4))
+    got = HostPipelined(cart).step({"inner": s0, "wrap": {}}, act)
+    want = cart.step(tree_map(lambda a: a.cpu(), s0), act.cpu())
+    dev = cart.step(s0, act)
+    check(all(a.is_cuda and torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves(got[0]["inner"]) + list(got[1:]),
+        tree_leaves(want[0]) + list(want[1:]))),
+        "HostPipelined: a cartpole step is not the host's step, on the card")
+    print("host env step: " + json.dumps({
+        "bitwise_host": True, "max_abs_vs_device_step": float(
+            (got[1] - dev[1]).abs().max())}))
+    host_cfg = TrainerConfig(algo="impala", iters=DIST_SHORT, superstep=5,
+                             log_every=1, pipeline=True,
+                             plan=DistPlan.flat(1, sync="ssp",
+                                                staleness_bound=1,
+                                                max_delay=1))
+    fits = {label: drive(f"impala-gridworld-pipeline-ssp1-{label}",
+                         trainer_fit(host_cfg, env=env),
+                         ALGO_KERNELS["impala"], 1)[1:]
+            for label, env in (
+                ("device", "gridworld"),
+                ("host", HostPipelined(envs.make("gridworld"))))}
+    same("impala HostPipelined vs on-device gridworld, depth 1",
+         *fits["device"], *fits["host"])
+    print("pipe bitwise: HostPipelined = on-device env (impala, depth 1)")
+    # 3. ZeRO-2 and ZeRO-3: bitwise the distribution phase's flat(4)
+    flat_state, flat_hist = flat4
+    zero_fits = {}
+    for role in ("shard", "zero3"):
+        spec = f"workers=2:allreduce:bsp,shard=2:allreduce:bsp:{role}"
+        tr, state, hist = drive(f"impala-{role}-2x2", cli(
+            ["--algo", "impala", "--plan", spec] + short),
+            ALGO_KERNELS["impala"], 4)
+        same(f"impala {role}(2, 2) vs flat(4)", flat_state, flat_hist,
+             state, hist)
+        zero_fits[role] = (tr, state)
+    print("zero bitwise: impala zero(2, 2) and zero3(2, 2) = flat(4)")
+    # 4. dqn zero3 + replay against flat(2); the per-shard draw is bitwise
+    # the plain draw (the sharded-replay phase), the flat draw's kernel
+    # only within 1e-5 in its weights, so the flat fit runs plain
+    spec = ("workers=1:allreduce:bsp,shard=2:allreduce:bsp:zero3,"
+            "replay=2:allreduce:bsp:replay")
+    _, state, hist = drive("dqn-zero3-replay", cli(
+        ["--algo", "dqn", "--plan", spec, "--iters", str(ZERO_DQN_ITERS)]
+        + base), {"shard_topk_c": 1}, 2)
+    _, fstate, fhist = drive("dqn-w2-plain", trainer_fit(TrainerConfig(
+        algo="dqn", iters=ZERO_DQN_ITERS, plan=DistPlan.flat(2),
+        algo_kwargs={"use_kernel": False})), {}, 2)
+    same("dqn zero3 + replay vs flat(2) plain", fstate, fhist, state, hist)
+    check(state.extra["replay"]["prio"].shape == (20000,),
+          "dqn zero3 + replay: fit did not return the flat buffer")
+    # 5. the full-width trunk under impala, zero3(1, 2) layer-wise
+    trunk_cfg = TrainerConfig(
+        algo="impala", iters=TRUNK_ITERS, superstep=TRUNK_ITERS,
+        log_every=1, algo_kwargs={"policy": "trunk",
+                                  "trunk_kwargs": {"reduced": False}})
+    per_iter = trunk_launches("impala", 4)
+    _, tstate, thist = drive("impala-trunk-full-w2", trainer_fit(
+        dataclasses.replace(trunk_cfg, plan=DistPlan.flat(2)), True),
+        per_iter, 2)
+    ztr, zstate, zhist = drive("impala-trunk-full-zero3-1x2", trainer_fit(
+        dataclasses.replace(trunk_cfg, plan=DistPlan.zero3(1, 2)), True),
+        per_iter, 2)
+    check(ztr.partition["listwise"] and ztr.partition["entries"] == 5,
+          f"trunk zero3: partition {ztr.partition}")
+    same("trunk zero3(1, 2) vs flat(2)", tstate, thist, zstate, zhist)
+    # 6. memory: every position's TrainState at W = 4 after two iterations
+    mem = {}
+    for label, plan in (("flat4", DistPlan.flat(4)),
+                        ("zero2-1x4", DistPlan.zero(1, 4)),
+                        ("zero3-1x4", DistPlan.zero3(1, 4))):
+        tr, state, _ = drive(f"impala-trunk-full-{label}", trainer_fit(
+            dataclasses.replace(trunk_cfg, iters=ZERO_MEM_ITERS,
+                                superstep=ZERO_MEM_ITERS, plan=plan), True),
+            per_iter, 4)
+        P = sum(v.numel() for v in state.params.values())
+        mem[label] = (tr, P, tr.state_bytes,
+                      torch.cuda.max_memory_allocated())
+    P = mem["flat4"][1]
+    z2, z3 = mem["zero2-1x4"][0].partition, mem["zero3-1x4"][0].partition
+    check(z2["size"] == z3["size"] == P, f"partition sizes {z2} {z3} vs {P}")
+    # f32 params, ring (one slot), adamw m and v; int32 counters: steps
+    # and the optimizer's step (one per entry, layer-wise)
+    want = {"flat4": 4 * (4 * P * 4 + 8),
+            "zero2-1x4": 4 * (2 * P * 4 + 2 * z2["chunk"] * 4 + 8),
+            "zero3-1x4": 4 * (4 * z3["chunk"] * 4 + 4
+                              + 4 * z3["entries"])}
+    table = {label: {"P": P, "state_bytes": got, "predicted": want[label],
+                     "over_P_f32": got / (4 * P),
+                     "max_memory_allocated": peak}
+             for label, (_, _, got, peak) in mem.items()}
+    print("zero_memory " + json.dumps({"table": table, "card": card}))
+    for label, row in table.items():
+        check(row["state_bytes"] == row["predicted"],
+              f"memory {label}: {row['state_bytes']} bytes, predicted "
+              f"{row['predicted']}")
+    # 7. checkpoints: a zero3 fit served live, restored plain, and
+    # restored through wrappers at 2 and 4 shards, bitwise
+    env = envs.make("cartpole")
+    for label, (tr, state) in (("mlp", zero_fits["zero3"]),
+                               ("trunk", (ztr, zstate))):
+        path = save_train_state(os.path.join(
+            ROOT, "build", f"zero3_{label}.npz"), state)
+        kw = tr.cfg.algo_kwargs
+        make = lambda: agent_api.make("impala", env=env, ring_size=1,
+                                      total_iters=tr.cfg.iters, **kw)
+        stores = [ParamStore(), ParamStore()]
+        stores[0].publish_from_state(tr.agent, state)
+        stores[1].load_checkpoint(path, make())
+        for n in (2, 4):
+            wrapped = ZeRO3Agent(make(), "shard", n)
+            stores.append(ParamStore())
+            stores[-1].publish_from_state(
+                wrapped, wrapped.shard_state(load_train_state(path)))
+        obs = list(env.spec.observation.sample(
+            torch.Generator().manual_seed(7), 5).numpy())
+        outs = [ServeEngine(tr.agent.policy, env.spec.observation,
+                            buckets=(8,), store=st, seed=11).eval_bucket(
+            obs, list(range(5)), 8) for st in stores]
+        check(all(all(torch.equal(a, b) for a, b in zip(outs[0], o))
+                  for o in outs[1:]),
+              f"zero3 {label} checkpoint: served outputs differ")
+        os.remove(path)
+        print(f"zero3 checkpoint {label}: live, plain, 2 and 4 shards "
+              f"bitwise")
     return totals
 
 
@@ -2056,14 +2379,17 @@ def main():
         card, dict(scan_rows, prioritized_sample_c=replay_row,
                    **{n: r[train_path] for n, r in bwd_rows.items()}))
     shard_launches = phase_replay_training(card, shard_row)
-    dist_launches = phase_distribution(card, dict(
+    path_rows = dict(
         scan_rows, prioritized_sample_c=replay_row, shard_topk_c=shard_row,
-        **{n: r[train_path] for n, r in bwd_rows.items()}))
-    for name, n in dist_launches.items():
-        if name == "shard_topk_c":
-            shard_launches += n
-        else:
-            train_launches[name] += n
+        **{n: r[train_path] for n, r in bwd_rows.items()})
+    dist_launches, flat4 = phase_distribution(card, path_rows)
+    pipe_launches = phase_pipeline_zero(card, path_rows, flat4)
+    for launches_of in (dist_launches, pipe_launches):
+        for name, n in launches_of.items():
+            if name == "shard_topk_c":
+                shard_launches += n
+            else:
+                train_launches[name] += n
     phase_path_agreement()
     phase_evolution(card)
     phase_flash_guard()

@@ -67,6 +67,40 @@ def load_actor_policy(path, example, delay=0):
     return _match(params_from_jax(unflatten_tree(ring)), example)
 
 
+def _ring_to_jax(ring):
+    """The port's actor-param ring -> the reference's: each slot through
+    `params_to_jax` (restacking super-blocks), then restacked."""
+    n = next(iter(ring.values())).shape[0]
+    slots = [flatten_tree(params_to_jax({k: v[d] for k, v in ring.items()}))
+             for d in range(n)]
+    return {k: np.stack([s[k] for s in slots]) for k in slots[0]}
+
+
+def save_train_state(path, state):
+    """Write a TrainState in the reference Trainer's archive layout
+    (`.params/`, `.opt_state/`, `.extra/`, `.ring/` and `.steps`), the
+    inverse of `load_train_state`: a fit's plan-independent state, saved
+    here, restores into either package. Returns the path."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arr = lambda t: t.detach().cpu().numpy()
+    flat = {f".params/{k}": v
+            for k, v in flatten_tree(params_to_jax(state.params)).items()}
+    for name, v in (state.opt_state or {}).items():
+        if isinstance(v, dict):
+            flat.update({f".opt_state/{name}/{k}": a for k, a in
+                         flatten_tree(params_to_jax(v)).items()})
+        elif v is not None:
+            flat[f".opt_state/{name}"] = arr(v)
+    flat.update({f".extra/{k}": arr(v)
+                 for k, v in flatten_tree(state.extra or {}).items()
+                 if v is not None})
+    flat.update({f"{RING}{k}": v
+                 for k, v in _ring_to_jax(state.ring).items()})
+    flat[".steps"] = arr(state.steps)
+    np.savez(path, **flat)
+    return path
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

@@ -19,6 +19,12 @@ Params are flat dicts of tensors named by the JAX key path; the policy
 lag is a ring of stacked actor params inside TrainState, slot 0 the
 newest. Algorithms self-register by name when `repro_torch.core.algos` is
 imported; `make("impala", env=env, ...)` constructs one from config.
+
+The partition protocol serves ZeRO learner-state sharding
+(core/topology.py): `partition_spec` names the params the optimizer
+updates, `flatten_and_pad` turns them into one vector of equal chunks in
+the reference's `ravel_pytree` order, and `partition_list` splits them
+per transformer block for layer-wise ZeRO-3.
 """
 from __future__ import annotations
 
@@ -26,6 +32,63 @@ import dataclasses
 from typing import Any, Callable, Dict
 
 import torch
+
+
+class PartitionList(list):
+    """A per-block partition: the optimizer target split into entries
+    that shard on their own (layer-wise ZeRO-3), transformer blocks
+    first, the non-block remainder last."""
+
+
+def _ravel_key(key: str):
+    """The sort key that puts flat key paths in `ravel_pytree`'s leaf
+    order over the reference's tree: dict keys sorted, list items by
+    index, depth first. A per-block `stack/<r>` segment is the
+    reference's stacked leading dim, so block r of a leaf sorts after
+    its other segments (its blocks lie contiguous, in block order)."""
+    parts = key.split("/")
+    block = ()
+    for i in range(len(parts) - 1):
+        if parts[i] == "stack" and parts[i + 1].isdigit():
+            block = ((0, int(parts[i + 1]), ""),)
+            parts = parts[:i + 1] + parts[i + 2:]
+            break
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in parts) + block
+
+
+def flatten_and_pad(tree, n_shards: int):
+    """Flat params -> ONE 1-D vector zero-padded to a multiple of
+    `n_shards`, its leaves in the reference's `ravel_pytree` order, so
+    chunk r holds the coordinates the reference's chunk r holds.
+
+    Returns ``(vec, size, unravel)``: `vec` the padded vector, `size`
+    its unpadded length, and ``unravel(vec[:size])`` the dict again, in
+    `tree`'s own key order, each leaf in its own storage and dtype.
+    Mixed dtypes promote as `ravel_pytree` promotes them."""
+    order = sorted(tree, key=_ravel_key)
+    if not order or sum(tree[k].numel() for k in order) == 0:
+        raise ValueError("cannot shard an empty parameter pytree")
+    dtype = tree[order[0]].dtype
+    for k in order[1:]:
+        dtype = torch.promote_types(dtype, tree[k].dtype)
+    vec = torch.cat([tree[k].reshape(-1).to(dtype) for k in order])
+    size = vec.numel()
+    pad = (-size) % n_shards
+    if pad:
+        vec = torch.cat([vec, vec.new_zeros((pad,))])
+    offsets, off = {}, 0
+    for k in order:
+        offsets[k] = off
+        off += tree[k].numel()
+    spec = [(k, offsets[k], tuple(tree[k].shape), tree[k].numel(),
+             tree[k].dtype) for k in tree]
+
+    def unravel(flat):
+        return {k: flat[o:o + n].reshape(shape).to(dt).clone()
+                for k, o, shape, n, dt in spec}
+
+    return vec, size, unravel
 
 
 @dataclasses.dataclass
@@ -78,6 +141,33 @@ class Agent:
         """Behavior params `delay` learner-updates old (clipped to the
         ring depth)."""
         return self._ring_read(state.ring, delay)
+
+    # -- the partition protocol (ZeRO, core/topology.py) -----------------
+    def partition_spec(self, state: TrainState):
+        """The params the optimizer updates, what `opt_state` mirrors and
+        a shard-role axis partitions. Default: all of them (DQN: only the
+        online net)."""
+        return state.params
+
+    def replace_partition(self, params, sub):
+        """`params` with the partition replaced by `sub` (None: removed).
+        Default (the partition is all of params): `sub`."""
+        return sub
+
+    def partition_list(self, part):
+        """The partition `part` (or any tree keyed like it, such as a
+        ring slot) split per block for layer-wise ZeRO-3, through the
+        policy's `partition_list` hook; None where the policy has no
+        block structure (the whole-vector path)."""
+        split = getattr(self.policy, "partition_list", None)
+        if split is None:
+            return None
+        parts = split(part)
+        return None if parts is None else PartitionList(parts)
+
+    def merge_partition_list(self, entries):
+        """Inverse of `partition_list` (the policy's hook)."""
+        return self.policy.merge_partition_list(entries)
 
     # -- lag-ring helpers ----------------------------------------------
     def _ring_init(self, behavior_params):

@@ -224,6 +224,17 @@ class DQNAgent(Agent):
                            0.0, 1.0)
         return self.eps_start + frac * (self.eps_end - self.eps_start)
 
+    def partition_spec(self, state):
+        """Only the online net is optimizer-updated (opt_state mirrors
+        it); the target net and the update counter stay outside."""
+        return sub(state.params, "online")
+
+    def replace_partition(self, params, part):
+        rest = {k: v for k, v in params.items()
+                if not k.startswith("online/")}
+        return rest if part is None else {**prefixed("online", part),
+                                          **rest}
+
     def actor_policy(self, state, delay=0):
         return {**prefixed("net", self._ring_read(state.ring, delay)),
                 "eps": self.epsilon(state.steps)}

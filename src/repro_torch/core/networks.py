@@ -262,6 +262,35 @@ class TrunkPolicy(_ActorCritic):
             pi, v = pi[0], v[0]
         return pi, v
 
+    # -- layer-wise ZeRO-3 partition hooks -----------------------------
+    # The params already hold one entry per block (`lm/stack/<r>/...`),
+    # so an entry is one block's keys. The reference's lazy list form of
+    # the stack and its `_sequence_barrier` only keep XLA from hoisting
+    # every block's gather ahead of the loop; eager PyTorch runs in
+    # program order, so they have no counterpart here.
+    def partition_list(self, params):
+        """A params dict (or any dict keyed like it) split into per-block
+        ZeRO-3 entries: one per super-block of the stack, then the
+        remainder (embed, final_norm, heads, feat, log_std). None when
+        the trunk has no stack (repeats == 0)."""
+        if not self.lm.repeats:
+            return None
+        heads = [f"lm/stack/{r}/" for r in range(self.lm.repeats)]
+        blocks = [{k: v for k, v in params.items() if k.startswith(h)}
+                  for h in heads]
+        rest = {k: v for k, v in params.items()
+                if not k.startswith("lm/stack/")}
+        return blocks + [rest]
+
+    def merge_partition_list(self, entries):
+        """Inverse of `partition_list`: one dict again, blocks first. The
+        reference's `materialize` switch between its lazy list and its
+        stacked layout has no counterpart: the per-block keys are both."""
+        out = {}
+        for e in entries:
+            out.update(e)
+        return out
+
 
 def make_policy(spec, policy="mlp", hidden=(64, 64), device="cuda",
                 **trunk_kwargs):

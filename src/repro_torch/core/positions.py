@@ -178,6 +178,19 @@ class PositionGroup:
 
         return lambda tree: self.collective(rank, on_stack, tree)
 
+    def shard_gather(self, rank: int, members):
+        """Rank `rank`'s all-gather over its shard group, for a
+        `ShardAxis` (core/topology.py): `members[r]` lists rank r's group
+        in shard order. Each rank deposits a list of chunks and gets, for
+        each, its own concatenation of its group's chunks (a replica of
+        its own, as each device holds one)."""
+        def on_lists(trees):
+            return [[torch.cat([trees[m][e] for m in members[r]])
+                     for e in range(len(trees[r]))]
+                    for r in range(self.n)]
+
+        return lambda chunks: self.collective(rank, on_lists, chunks)
+
     # ---- running the ranks -------------------------------------------
     def fail(self, exc) -> None:
         """Record `exc` (the first one wins) and release every waiting

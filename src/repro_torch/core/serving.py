@@ -87,7 +87,10 @@ class ParamStore:
 
     def publish_from_state(self, agent, state, delay: int = 0) -> int:
         """Publish what `agent.actor_policy(state, delay)` serves the
-        rollout: the live actor-param ring view of a Trainer state."""
+        rollout: the live actor-param ring view of a Trainer state. A
+        ZeRO-3 wrapper's host-layout state goes through its `host_state`
+        first, so the published tree is the plan-independent one."""
+        state = getattr(agent, "host_state", lambda s: s)(state)
         return self.publish(agent.actor_policy(state, delay))
 
     def load_checkpoint(self, path, agent, example_state=None,
@@ -97,7 +100,9 @@ class ParamStore:
         (for DQN that includes the annealed `eps`). The agent must be
         built with the config (ring_size etc.) that produced the archive.
         The state goes to `example_state`'s device when one is given,
-        else to the agent's policy device."""
+        else to the agent's policy device. Archives hold the
+        plan-independent tree form, so a ZeRO-3 wrapper serves one
+        through its inner agent, at any shard count."""
         from repro_torch.checkpoint.ckpt import load_train_state
         device = (example_state.steps.device if example_state is not None
                   else agent.policy.device)

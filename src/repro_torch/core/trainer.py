@@ -39,9 +39,36 @@ replicate their data position's rollout and learner, so the fit is
 bitwise the flat fit. With W positions, each holds its own replay group.
 
 An elastic `actors=` schedule reshards the envs between supersteps, as
-the reference's `_reshard_envs`. The shard/zero3 roles larger than 1
-(ROADMAP queue 1, item 12) and the pipelined mode (item 11) are refused
-by name.
+the reference's `_reshard_envs`.
+
+Sharded learner states (survey §5's memory ceiling, ZeRO): a shard-role
+axis larger than 1 is a data axis whose members also split the learner
+state, each position's agent copy bound to its shard coordinate and to
+the all-gather over its shard group (`topology.ShardAxis`, a
+`PositionGroup` collective) for the length of a fit. Role `shard`
+(ZeRO-2) wraps the optimizer (`zero_sharded_optimizer`: its state 1/n
+per position, params whole); role `zero3` also wraps the agent
+(`ZeRO3Agent`: params and actor ring stored as chunks, gathered per use
+in the learner step and in every rollout's `actor_policy`). Position i
+on the shard axis holds chunk i. `fit` reassembles shard group 0's
+chunks, so it returns the plan-independent tree form, and a sharded fit
+is bitwise the flat fit of the same positions. A size-1 shard axis stays
+unwrapped, a data axis by construction.
+
+Pipelined mode (`TrainerConfig.pipeline=True`, the survey §2
+actor/learner split): each position's iteration is split at the
+trajectory seam into a rollout producer and a learner consumer joined by
+its own trajectory queue (core/pipeline.py). The depth is what the
+plan's sync disciplines admit (`DistPlan.pipeline_depth`: bsp 0, ssp
+staleness_bound, asp max_delay) and the producer acts at the constant
+`policy_lag`. At depth 0 the produced item goes straight to the
+consumer: the fused fit, bitwise. At depth d >= 1 a tick pops the item
+produced d ticks before, produces iteration it + d from the carry-in
+state, pushes it, then consumes the popped one; a prologue fills the
+queue with iterations 0 .. d - 1 and the queue persists across
+supersteps, so chunking changes nothing. On this eager loop the split
+gives the reference's structural staleness, not overlap: the producer
+and the consumer issue from one thread, in turn.
 """
 from __future__ import annotations
 
@@ -56,11 +83,13 @@ import torch
 from repro_torch.core import agent as agent_api
 from repro_torch.core.distribution import DistPlan
 from repro_torch.core.networks import splitmix64
-from repro_torch.core.positions import PositionGroup, tree_map
+from repro_torch.core.pipeline import queue_init, queue_pop, queue_push
+from repro_torch.core.positions import PositionGroup, tree_leaves, tree_map
 from repro_torch.core.replay import PrioritizedReplay
 from repro_torch.core.replay_service import ShardedPrioritizedReplay
 from repro_torch.core.rollout import rollout
-from repro_torch.core.topology import member_sum
+from repro_torch.core.topology import (ShardAxis, ZeRO3Agent, member_sum,
+                                       zero_sharded_optimizer)
 
 _M64 = (1 << 64) - 1
 
@@ -79,16 +108,17 @@ def stream_seed(seed: int, *ids: int) -> int:
 _ROLL, _LEARN, _INIT, _ENV, _DELAY, _RESHARD = 0, 1, 2, 3, 4, 5
 
 
-def plan_refusal(plan: DistPlan) -> Optional[str]:
-    """Why this Trainer cannot run `plan`, naming the ROADMAP item that
-    ports it; None when it can."""
-    for ax in plan.axes:
-        if ax.size > 1 and ax.role in ("shard", "zero3"):
-            return (f"{ax.role}-role axis {ax.name!r} of size {ax.size} "
-                    f"is not ported yet: learner-state sharding comes "
-                    f"with the sharded learner-state slice (ROADMAP "
-                    f"queue 1, item 12)")
-    return None
+def state_bytes(states) -> int:
+    """The bytes of every storage that the TrainStates hold, each storage
+    counted once (positions may share tensors)."""
+    seen = {}
+    for st in states:
+        for part in (st.params, st.opt_state, st.extra, st.ring, st.steps):
+            for t in tree_leaves(part):
+                if isinstance(t, torch.Tensor):
+                    store = t.untyped_storage()
+                    seen[store.data_ptr()] = store.nbytes()
+    return sum(seen.values())
 
 
 @dataclasses.dataclass
@@ -104,7 +134,7 @@ class TrainerConfig:
     log_every: int = 10
     donate: bool = True        # the reference's buffer donation; eager
     #                            PyTorch has none, so it changes nothing
-    pipeline: bool = False     # decoupled actor-learner: a later slice
+    pipeline: bool = False     # decoupled actor-learner trajectory queue
     algo_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def resolved_plan(self) -> DistPlan:
@@ -123,9 +153,6 @@ class Trainer:
 
     def __init__(self, env, cfg: TrainerConfig, device="cuda"):
         plan = cfg.resolved_plan()
-        msg = plan_refusal(plan)
-        if msg is not None:
-            raise ValueError(f"TrainerConfig.plan {plan.describe()!r}: {msg}")
         # envs shard over the env grid (an active replay axis replicates
         # its data position's envs), so divisibility is against it
         if cfg.n_envs % plan.sim_devices:
@@ -141,6 +168,14 @@ class Trainer:
                     f"actors= schedule entries {bad} must divide evenly "
                     f"across the plan's {plan.sim_devices} simulation "
                     f"devices")
+        if cfg.pipeline and plan.actors is not None \
+                and len(set(plan.actors)) > 1:
+            raise ValueError(
+                f"pipeline=True cannot combine with a varying elastic "
+                f"actors= schedule {plan.actors}: the trajectory queue's "
+                f"buffer shape is fixed per compile, so in-flight "
+                f"trajectories cannot be resharded — use a constant "
+                f"schedule or fused mode")
         # every position lives on this one device
         self.device = plan.validate_devices(device)
         self.env = env
@@ -150,18 +185,49 @@ class Trainer:
                                     ring_size=cfg.ring_size,
                                     total_iters=cfg.iters,
                                     device=self.device, **cfg.algo_kwargs)
+        shard = plan.shard_axis
+        self._sharded = (shard is not None and shard.size > 1
+                         and plan.n_devices > 1)
+        self._zero3 = self._sharded and shard.role == "zero3"
+        if self._zero3 and cfg.pipeline:
+            raise ValueError(
+                f"pipeline=True cannot combine with the zero3-role axis "
+                f"{shard.name!r}: the trajectory queue's item template "
+                f"is shape-traced outside the mesh program, where the "
+                f"gather-per-use actor params have no axis environment "
+                f"— use role 'shard' (ZeRO-2) or fused mode")
+        if self._sharded and not hasattr(self.agent, "opt"):
+            raise ValueError(
+                f"algorithm {cfg.algo!r} exposes no `.opt` optimizer — "
+                f"required to execute the shard-role axis "
+                f"{shard.name!r} (ZeRO learner-state sharding)")
         self._replay_service = None
         self.partition_replay = None
         rax = plan.replay_axis
         if rax is not None and rax.size > 1:
+            # on the raw agent, before the ZeRO-3 wrap: the wrapper
+            # forwards learner_step to it
             self._swap_in_replay_service(rax)
-        if cfg.pipeline:
-            raise ValueError("TrainerConfig.pipeline: the decoupled "
-                             "actor-learner pipeline is ported with the "
-                             "pipeline slice (ROADMAP queue 1, item 11)")
+        self.partition = None    # the shard axis's report, set by fit
+        self._geometry = None    # ZeRO-2's layout (zero3: the wrapper's)
+        if self._sharded:
+            axis = ShardAxis(shard.name, shard.size)
+            self.agent.opt = zero_sharded_optimizer(self.agent.opt, axis)
+            if self._zero3:
+                self.agent = ZeRO3Agent(self.agent, axis)
+        self.pipeline_depth = plan.pipeline_depth if cfg.pipeline else 0
         # the data positions: the env grid's, row-major (replay axis 0)
         self.n_positions = plan.sim_devices
         self._coords = plan.sim_coords()
+        if self._sharded:
+            # rank r's shard group: the ranks that differ from it only on
+            # the shard axis, in shard order (row-major: ascending)
+            self._shard_k = plan.axis_names.index(shard.name)
+            key = lambda c: c[:self._shard_k] + c[self._shard_k + 1:]
+            groups = {}
+            for r, c in enumerate(self._coords):
+                groups.setdefault(key(c), []).append(r)
+            self._shard_members = [groups[key(c)] for c in self._coords]
         self._stream_ids = [plan.sim_index(c) for c in self._coords]
         self._collectives = (plan.compile_collectives()
                              if self.n_positions > 1 else None)
@@ -175,6 +241,14 @@ class Trainer:
                       for _ in range(self.n_positions)]
         self._hooks = [(None, None)] * self.n_positions
         self.actor_shards = []   # env count per superstep dispatch
+        self.state_bytes = None  # every position's TrainState bytes, at
+        #                          the end of the last fit
+
+    @property
+    def pipeline_capacity(self) -> Optional[int]:
+        """The trajectory queue's capacity (None when fused): steady state
+        holds `pipeline_depth` items; depth 0 has one slot."""
+        return max(self.pipeline_depth, 1) if self.cfg.pipeline else None
 
     def _swap_in_replay_service(self, rax):
         """The agent's prioritized buffer becomes ONE logical buffer over
@@ -281,6 +355,40 @@ class Trainer:
         return state, {"env": env_state, "ep_run": ep_run,
                        "ep_last": ep_ret}, metrics
 
+    def _pipe_tick(self, state, sim, queue, it, rank=0):
+        """One pipelined tick consuming iteration `it` (depth >= 1): pop
+        the item produced `depth` ticks ago, produce iteration it + depth
+        from the carry-in state and push it, then consume the popped
+        item. Depth 0 is `_iteration`: no queue round trip."""
+        d = self.pipeline_depth
+        queue, item, ok = queue_pop(queue)
+        if not ok:
+            raise RuntimeError(f"position {rank}: the trajectory queue "
+                               f"was empty at iteration {it}")
+        produced, env_state = self._produce(state, sim["env"], it + d,
+                                            self.cfg.policy_lag, rank)
+        queue, ok = queue_push(queue, produced)
+        if not ok:
+            raise RuntimeError(f"position {rank}: the trajectory queue "
+                               f"was full at iteration {it}")
+        state, ep_run, ep_ret, metrics = self._consume(
+            state, sim["ep_run"], sim["ep_last"], item, it, rank)
+        return state, {"env": env_state, "ep_run": ep_run,
+                       "ep_last": ep_ret}, queue, metrics
+
+    def _fill_queue(self, state, sim, rank):
+        """The pipeline's prologue at one position: a queue holding
+        iterations 0 .. depth - 1, produced from the initial state (the
+        first item is also the queue's template)."""
+        env_state, queue = sim["env"], None
+        for it in range(self.pipeline_depth):
+            item, env_state = self._produce(state, env_state, it,
+                                            self.cfg.policy_lag, rank)
+            if queue is None:
+                queue = queue_init(item, self.pipeline_capacity)
+            queue, _ = queue_push(queue, item)
+        return dict(sim, env=env_state), queue
+
     def _init_all(self):
         """Every position's TrainState, sim carry and delay list."""
         cfg = self.cfg
@@ -288,6 +396,8 @@ class Trainer:
         init_gen = torch.Generator().manual_seed(
             stream_seed(cfg.seed, -1, _INIT))
         state = self.agent.init(init_gen)
+        if self._sharded:
+            self.partition = self._lay_out(state)
         if self._replay_service is not None:
             # the flat buffer the agent inits, sharded over the group
             service = self._replay_service
@@ -296,6 +406,11 @@ class Trainer:
         # the positions share the initial tensors: every update is
         # functional, so each position's first step makes its own
         states = [state] * W
+        if self._zero3:
+            # host layout dealt out: position i on the shard axis holds
+            # chunk i
+            k = self._shard_k
+            states = [self.agent.deal(state, c[k]) for c in self._coords]
         # all n_envs from one stream, position r the r-th contiguous slice
         env_state = self.env.reset(self._gens[0].manual_seed(
             stream_seed(cfg.seed, -1, _ENV)), cfg.n_envs)
@@ -322,6 +437,29 @@ class Trainer:
         return agent_api.TrainState(state.params, state.opt_state,
                                     dict(state.extra, replay=rstate),
                                     state.ring, state.steps)
+
+    # ---- sharded learner states (shard / zero3 axes) -------------------
+    def _lay_out(self, state):
+        """The shard axis's geometry and its `partition` report; under
+        zero3 every position's wrapper copy takes rank 0's."""
+        if self._zero3:
+            for other in self._agents[1:]:
+                other.adopt(self.agent.geometry)
+            return self.agent.partition
+        self._geometry = self.agent.opt.geometry(
+            self.agent.partition_spec(state))
+        return self._geometry.partition()
+
+    def _unshard(self, states):
+        """Shard group 0's states (rank 0 and its group) reassembled into
+        the plan-independent tree form: the optimizer-state chunks (under
+        zero3 the param and ring chunks too) concatenated in shard order
+        and unraveled; the rest from rank 0."""
+        group = [states[r] for r in self._shard_members[0]]
+        if self._zero3:
+            return self.agent.collect(group)
+        opt = self._geometry.collect_opt_state([s.opt_state for s in group])
+        return dataclasses.replace(states[0], opt_state=opt)
 
     # ---- elastic actor shards (plan.actors) ---------------------------
     def _reshard_envs(self, sims, n_total, s_idx):
@@ -357,17 +495,21 @@ class Trainer:
         return out
 
     # ---- the loop ----------------------------------------------------
-    def _run(self, states, sims, delays, start, k, group):
+    def _run(self, states, sims, queues, delays, start, k, group):
         """Iterations start .. start + k - 1 at every position, updating
-        `states` and `sims` in place; returns each position's list of
-        per-iteration metrics."""
+        `states`, `sims` and `queues` in place; returns each position's
+        list of per-iteration metrics."""
         def work(r):
-            state, sim, per = states[r], sims[r], []
+            state, sim, queue, per = states[r], sims[r], queues[r], []
             for it in range(start, start + k):
-                state, sim, metrics = self._iteration(state, sim, it,
-                                                      delays[r][it], r)
+                if queue is None:
+                    state, sim, metrics = self._iteration(
+                        state, sim, it, delays[r][it], r)
+                else:
+                    state, sim, queue, metrics = self._pipe_tick(
+                        state, sim, queue, it, r)
                 per.append(metrics)
-            states[r], sims[r] = state, sim
+            states[r], sims[r], queues[r] = state, sim, queue
             return per
 
         if group is None:
@@ -389,6 +531,20 @@ class Trainer:
         cfg = self.cfg
         W = self.n_positions
         states, sims, delays = self._init_all()
+        queues = [None] * W
+        if cfg.pipeline:
+            # the producer acts at the constant policy_lag: the queue's
+            # depth is the staleness, not a sampled delay
+            delays = [[cfg.policy_lag] * cfg.iters for _ in range(W)]
+            if self.pipeline_depth:
+                # the queue holds envs of the first window's size (a
+                # varying schedule is refused); then it persists across
+                # supersteps, no drain
+                sims = self._reshard_envs(
+                    sims, self.plan.actor_schedule(0, cfg.n_envs), 0)
+                for r in range(W):
+                    sims[r], queues[r] = self._fill_queue(states[r],
+                                                          sims[r], r)
         group = None
         if W > 1:
             group = PositionGroup(W)
@@ -398,6 +554,11 @@ class Trainer:
                 (grad_fn and group.hook(r, grad_fn, lead),
                  param_fn and group.hook(r, param_fn, lead))
                 for r in range(W)]
+            if self._sharded:
+                for r, a in enumerate(self._agents):
+                    a.opt.axis.bind(self._coords[r][self._shard_k],
+                                    group.shard_gather(
+                                        r, self._shard_members))
         K = cfg.superstep if fused else 1
         history = []
         start = 0
@@ -412,7 +573,8 @@ class Trainer:
                 n_envs = self.plan.actor_schedule(s_idx, cfg.n_envs)
                 sims = self._reshard_envs(sims, n_envs, s_idx)
                 self.actor_shards.append(n_envs)
-                per = self._run(states, sims, delays, start, k, group)
+                per = self._run(states, sims, queues, delays, start, k,
+                                group)
                 names = sorted(per[0][0])
                 stacked = [torch.stack([torch.stack([m[n] for m in p])
                                         for n in names]) for p in per]
@@ -431,7 +593,11 @@ class Trainer:
             if group is not None:
                 group.close()
                 self._hooks = [(None, None)] * W
-        state = states[0]
+                if self._sharded:
+                    for a in self._agents:
+                        a.opt.axis.unbind()
+        self.state_bytes = state_bytes(states)
+        state = self._unshard(states) if self._sharded else states[0]
         if self._replay_service is not None:
             # the flat buffer again: fit()'s result and checkpoints do
             # not depend on the plan

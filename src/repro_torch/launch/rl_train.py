@@ -10,8 +10,9 @@ port of src/repro/launch/rl_train.py).
   --plan      a DistPlan, comma-separated axes outermost first, each
               ``name=size[:collective[:sync[:role]]]`` (the reference's
               grammar): collective in {ps, allreduce, gossip} (§3), sync
-              in {bsp, asp, ssp} (§6), role ``data`` or ``replay`` (the
-              sharded replay service, DQN)
+              in {bsp, asp, ssp} (§6), role ``data``, ``shard``
+              (ZeRO-2), ``zero3`` (ZeRO-3) or ``replay`` (the sharded
+              replay service, DQN)
   --actors    elastic env-shard schedule, e.g. ``16,32``: the total env
               count cycles through these values per superstep
   --device    the torch device (default: the card; raises without one)
@@ -24,9 +25,10 @@ collectives (core/positions.py). Training runs as supersteps:
 ``--superstep K`` iterations of rollout -> learner_step -> lag-ring push
 per dispatch, with the metrics read back once per dispatch;
 ``--unfused`` reads them back every iteration (the same numbers,
-bitwise). ``shard``/``zero3`` axes larger than 1 and ``--pipeline`` are
-refused with the ROADMAP item that ports them. Prints one JSON line, the
-reference's, plus the device.
+bitwise). ``--pipeline`` splits each iteration into a rollout producer
+and a learner consumer joined by a trajectory queue as deep as the
+plan's sync disciplines admit (``--sync ssp --staleness-bound 1``: one).
+Prints one JSON line, the reference's, plus the device.
 """
 from __future__ import annotations
 
@@ -77,8 +79,8 @@ def build_parser():
     ap.add_argument("--unfused", action="store_true",
                     help="read metrics back every iteration")
     ap.add_argument("--pipeline", action="store_true",
-                    help="decoupled actor-learner pipeline (the pipeline "
-                         "slice)")
+                    help="decoupled actor-learner pipeline: a trajectory "
+                         "queue as deep as the plan's sync admits")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: the card)")
     return ap
@@ -98,17 +100,6 @@ def plan_of(args):
                          args.max_delay, args.staleness_bound, actors=actors)
 
 
-def refusal(args, plan):
-    """The message refusing what this port does not run yet, naming the
-    flag and the ROADMAP item that ports it, or None."""
-    from repro_torch.core.trainer import plan_refusal
-    if args.pipeline:
-        return ("--pipeline is not ported yet: it comes with the pipeline "
-                "slice (ROADMAP queue 1, item 11)")
-    msg = plan_refusal(plan)
-    return None if msg is None else f"--plan {args.plan}: {msg}"
-
-
 def main(argv=None):
     """Parse `argv`, train, print the JSON line; returns (trainer, final
     TrainState, full history) for callers that drive it in-process."""
@@ -118,9 +109,6 @@ def main(argv=None):
         plan = plan_of(args)
     except ValueError as e:
         ap.error(str(e))
-    msg = refusal(args, plan)
-    if msg is not None:
-        ap.error(msg)
 
     import repro_torch.envs as envs
     from repro_torch.core.trainer import Trainer, TrainerConfig
@@ -135,24 +123,28 @@ def main(argv=None):
         algo=args.algo, iters=args.iters, superstep=args.superstep,
         n_envs=args.n_envs, unroll=args.unroll, plan=plan,
         policy_lag=args.policy_lag, seed=args.seed,
-        log_every=args.log_every, algo_kwargs=algo_kwargs)
+        log_every=args.log_every, pipeline=args.pipeline,
+        algo_kwargs=algo_kwargs)
     env = envs.make(args.env)
     t0 = time.time()
     try:
         trainer = Trainer(env, cfg, device=args.device)
     except ValueError as e:  # e.g. a replay axis on an algorithm without
-        ap.error(str(e))     # a prioritized buffer, or n_envs that does
-        #                      not divide across the positions
+        ap.error(str(e))     # a prioritized buffer, n_envs that does not
+        #                      divide across the positions, or --pipeline
+        #                      with a zero3 or replay axis
     state, history = trainer.fit(fused=not args.unfused)
     print(json.dumps({
         "algo": args.algo, "env": args.env, "policy": args.policy,
         # the reference's keys: the plan and its device count (every
         # position, replay members included, shares this one device)
         "plan": plan.describe(), "n_devices": plan.n_devices,
-        "fused": not args.unfused, "pipeline": False,
-        "pipeline_depth": 0, "pipeline_capacity": None,
+        "fused": not args.unfused, "pipeline": args.pipeline,
+        "pipeline_depth": trainer.pipeline_depth,
+        "pipeline_capacity": trainer.pipeline_capacity,
         "actor_shards": trainer.actor_shards[-5:],
-        "partition": None,
+        # the shard axis's geometry (ZeRO); None without one larger than 1
+        "partition": trainer.partition,
         # the sharded replay service: axis, shard count, global and
         # per-shard slots; None without a replay axis larger than 1
         "partition_replay": trainer.partition_replay,

@@ -17,8 +17,12 @@ calls `run_blocks`), `prefill` (emits the cache) and `decode_step` (one
 token against it, updating the cache in place: an attention block
 writes the token's k, v into its slot, an RWKV block overwrites its
 state, and under `use_kernels` the WKV kernel writes the new S straight
-into the cache's buffer). The encoder, frontends, train-mode
-`forward`/`loss` and the ZeRO-3 list form are not ported yet.
+into the cache's buffer). The encoder, frontends and train-mode
+`forward`/`loss` are not ported yet. The reference's ZeRO-3 list form of
+the stack (`_run_seq` over a list of blocks, `_sequence_barrier`) has no
+counterpart: it only keeps XLA from hoisting every block's gather ahead
+of the loop, and eager PyTorch runs in program order
+(core/networks.py `TrunkPolicy.partition_list`).
 """
 from __future__ import annotations
 

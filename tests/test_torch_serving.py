@@ -373,3 +373,68 @@ def test_default_device_refuses_to_run_on_cpu():
         ServeEngine(policy, spec.observation)
     with pytest.raises(RuntimeError, match="CUDA"):
         _run_cli(["--train-iters", "0", "--quick"])
+
+
+# ------------------------------- ZeRO-3 checkpoint / serve round trip
+@pytest.mark.parametrize("kind", ["mlp", "trunk"])
+def test_zero3_checkpoint_serve_round_trip_bitwise(kind, tmp_path):
+    """Fit under zero3(2, 2), save the plan-independent state, then serve
+    it three ways: live through the wrapper's `publish_from_state`,
+    restored into a plain agent, and restored through ZeRO-3 wrappers at
+    2 and 4 shards (the archive dealt into each one's host layout and
+    reassembled by `host_state`). Every way serves the same actions,
+    log-probs and values, bitwise; the MLP archive also restores into the
+    reference's ParamStore, leaf for leaf."""
+    from repro_torch.checkpoint import load_train_state, save_train_state
+    from repro_torch.core import agent as agent_api
+    from repro_torch.core.distribution import DistPlan
+    from repro_torch.core.topology import ZeRO3Agent
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    env = envs.make("cartpole")
+    kw = ({"hidden": (16,)} if kind == "mlp" else
+          {"policy": "trunk", "trunk_kwargs": {"reduced": True}})
+    cfg = TrainerConfig(algo="impala", iters=2, superstep=2, n_envs=8,
+                        unroll=6, plan=DistPlan.zero3(2, 2), seed=0,
+                        algo_kwargs=kw)
+    trainer = Trainer(env, cfg, device="cpu")
+    state, _ = trainer.fit()
+    assert trainer.partition["listwise"] is (kind == "trunk")
+    path = save_train_state(str(tmp_path / f"zero3_{kind}.npz"), state)
+    make = lambda: agent_api.make("impala", env=env, ring_size=1,
+                                  total_iters=2, device="cpu", **kw)
+    stores = []
+    live = ParamStore()
+    live.publish_from_state(trainer.agent, state)
+    stores.append(live)
+    restored = ParamStore()
+    restored.load_checkpoint(path, make())
+    stores.append(restored)
+    for n in (2, 4):
+        wrapped = ZeRO3Agent(make(), "shard", n)
+        host = wrapped.shard_state(load_train_state(path, "cpu"))
+        assert host.params["zero3"][0].shape[0] == n
+        store = ParamStore()
+        store.publish_from_state(wrapped, host)
+        stores.append(store)
+    obs = _obs_rows(env, 5)
+    outs = []
+    for store in stores:
+        engine = ServeEngine(trainer.agent.policy, env.spec.observation,
+                             buckets=(8,), store=store, seed=11,
+                             device="cpu")
+        outs.append(engine.eval_bucket(obs, list(range(5)), 8))
+    for out in outs[1:]:
+        for a, b in zip(outs[0], out):
+            assert torch.equal(a, b)
+    if kind == "mlp":
+        from repro.core import agent as jax_agents
+        jagent = jax_agents.make("impala", env=jenvs.make("cartpole"),
+                                 ring_size=1, total_iters=2, hidden=(16,))
+        jstore = JaxStore()
+        jstore.load_checkpoint(path, jagent)
+        want = params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                      jstore.get()[1]))
+        got = live.get()[1]
+        assert sorted(want) == sorted(got)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k

@@ -289,11 +289,19 @@ def test_fit_is_finite_and_learns(algo):
 
 
 def test_trainer_refuses_later_slices():
+    """The ZeRO-2 plan and the pipelined mode this test once saw refused
+    (ROADMAP queue 1, items 12 and 11) now run."""
     env = envs.make("cartpole")
-    for kw, frag in (({"plan": DistPlan.zero(1, 2)}, "item 12"),
-                     ({"pipeline": True}, "pipeline")):
-        with pytest.raises(ValueError, match=frag):
-            Trainer(env, TrainerConfig(**kw), device="cpu")
+    small = dict(iters=2, superstep=2, n_envs=8, unroll=4,
+                 algo_kwargs={"hidden": (8,)})
+    tr = Trainer(env, TrainerConfig(plan=DistPlan.zero(1, 2), **small),
+                 device="cpu")
+    _, hist = tr.fit()
+    assert tr.partition["n_shards"] == 2 and np.isfinite(hist[-1]["loss"])
+    tr = Trainer(env, TrainerConfig(pipeline=True, **small), device="cpu")
+    _, hist = tr.fit()
+    assert (tr.pipeline_depth, tr.pipeline_capacity) == (0, 1)
+    assert np.isfinite(hist[-1]["loss"])
 
 
 def test_trainer_runs_two_workers():
@@ -336,7 +344,11 @@ def test_cli_prints_the_json_line(algo):
 @pytest.mark.parametrize("flags,n_devices,shards", [
     (["--plan", "workers=2:allreduce:bsp"], 2, [8, 8]),
     (["--actors", "8,16"], 1, [8, 16]), (["--n-workers", "2"], 2, [8, 8]),
-    (["--sync", "asp", "--n-workers", "2"], 2, [8, 8])])
+    (["--sync", "asp", "--n-workers", "2"], 2, [8, 8]),
+    # refused by name until the pipeline and sharded learner-state slices
+    (["--pipeline"], 1, [8, 8]),
+    (["--plan", "workers=1,shard=2:allreduce:bsp:shard"], 2, [8, 8]),
+    (["--plan", "workers=2,zero3=2:allreduce:bsp:zero3"], 4, [8, 8])])
 def test_cli_runs_what_this_slice_brings(flags, n_devices, shards):
     out = _run_cli(["--device", "cpu", "--algo", "a3c", "--iters", "4",
                     "--superstep", "2", "--n-envs", "8", "--unroll", "8",
@@ -344,12 +356,20 @@ def test_cli_runs_what_this_slice_brings(flags, n_devices, shards):
     assert out["n_devices"] == n_devices and out["actor_shards"] == shards
     assert len(out["history"]) == 4
     assert all(np.isfinite(h["loss"]) for h in out["history"])
+    assert out["pipeline"] is ("--pipeline" in flags)
+    assert (out["pipeline_depth"], out["pipeline_capacity"]) == (
+        (0, 1) if "--pipeline" in flags else (0, None))
+    role = flags[-1].rsplit(":", 1)[-1] if "--plan" in flags else "data"
+    if role in ("shard", "zero3"):
+        axis = flags[-1].split(",")[1].split("=")[0]
+        assert out["partition"]["axis"] == axis
+        assert out["partition"]["n_shards"] == 2
+        assert ("entries" in out["partition"]) is (role == "zero3")
+    else:
+        assert out["partition"] is None
 
 
 @pytest.mark.parametrize("flags,frag", [
-    (["--pipeline"], "item 11"),
-    (["--plan", "workers=1,shard=2:allreduce:bsp:shard"], "item 12"),
-    (["--plan", "workers=2,zero3=2:allreduce:bsp:zero3"], "item 12"),
     (["--env", "no-such-env"], "registered")])
 def test_cli_refuses_what_later_slices_bring(flags, frag, capsys):
     with pytest.raises(SystemExit) as exc:
