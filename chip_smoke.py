@@ -168,7 +168,20 @@ Phases, in order; the script exits non-zero at the first failure:
      and state, and its first decode output and state from its own
      prefill cache, within 1e-3 x max|plain|; end-to-end
      logits reported: this random model amplifies f32 rounding ~2x per
-     layer).
+     layer);
+ 12. LM zoo: `serve()` of gemma3-1b, stablelm-1.6b, minicpm3-4b,
+     whisper-base, paligemma-3b (the reference's stub frontends), and of
+     one whole period of jamba-v0.1-52b (8 of 32 layers) and of
+     llama4-maverick-400b-a17b (2 of 48; one 80 GB card holds no more),
+     at the published widths (checked), bf16, use_kernels, weights drawn
+     on the card from seed 0 (every leaf counted: `zoo_param_count`),
+     batch 4, prompt 32, 16 new tokens: the flash and grouped-matmul
+     launches exactly ZOO's (flash on the causal full-attention layers'
+     prefills only; local attention, MLA, the encoder, cross attention
+     and Mamba on the model's own path, as the reference routes them),
+     `generated_shape` [4, 16], and `lm_agreement` on each; the kernels
+     phases also hold the zoo's flash and grouped-matmul shapes in bf16
+     (ZOO_FLASH_CASES, ZOO_GMM_CASES) against their plain versions.
 It then prints the kernels' JSON line and, last, the device line.
 """
 import contextlib
@@ -196,6 +209,14 @@ KERNEL_CASES = [SERVE_CASE, *LM_FLASH_CASES,
                 (1, 4, 1, 256, 64, True, 64),
                 (2, 2, 2, 96, 32, False, 0),
                 (1, 2, 1, 512, 256, True, 0)]
+# bf16 only: the LM zoo's prefill attention at its serve shapes (batch 4,
+# prompt 32): gemma3 (D = 256, one kv head, the short-row branch),
+# stablelm (MHA), whisper's decoder, paligemma (256 patches + 32 tokens:
+# a ragged tail at D = 256, one kv head), jamba, llama4 (40 over 8 heads)
+ZOO_FLASH_CASES = [(4, 4, 1, 32, 256, True, 0), (4, 32, 32, 32, 64, True, 0),
+                   (4, 8, 8, 32, 64, True, 0), (4, 8, 1, 288, 256, True, 0),
+                   (4, 32, 8, 32, 128, True, 0),
+                   (4, 40, 8, 32, 128, True, 0)]
 # bf16 only: the LM models' heads at a 2048-token causal prefill, where
 # the tensor cores, not the host, set the time
 LONG_FLASH_CASES = [(1, 16, 16, 2048, 128, True, 0),  # deepseek-moe-16b
@@ -239,8 +260,46 @@ SYNC_ITERS = 20
 GMM_PATH = [(64, 8, 2048, 1408), (64, 8, 1408, 2048), (64, 15, 2048, 1408),
             (64, 15, 1408, 2048)]
 GMM_CASES = GMM_PATH + [(4, 70, 96, 130), (8, 16, 512, 64), (3, 3, 100, 37)]
+# bf16 only: the LM zoo's expert matmuls (batch 4, prompt 32), each C from
+# the reference's max(8, round(T·K/E·1.25)): jamba's prefill (T = 128,
+# C = 20) and decode (C = 8) wi/wg and wo, llama4's wi/wg and wo (C = 8
+# at prefill and decode; 10.7 GB of weights a call)
+ZOO_GMM_CASES = [(16, 20, 4096, 14336), (16, 20, 14336, 4096),
+                 (16, 8, 4096, 14336), (16, 8, 14336, 4096),
+                 (128, 8, 5120, 8192), (128, 8, 8192, 5120)]
 GMM_RTOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
 LM = dict(arch="deepseek-moe-16b", batch=4, prompt_len=32, gen_len=16)
+# the rest of the LM zoo, served like LM at full width: (arch, layers
+# served, the published widths checked, flash_attention_hsd and gmm_ecd
+# launches a serve()). jamba serves one whole period of its 32 layers (7
+# Mamba, 1 attention, 4 MoE: 13.3 B params, 26.5 GB in bf16; all 32
+# would be 103 GB), llama4 one of its 48 (a MoE layer then a dense one:
+# 18.6 B, 37.1 GB; all 48 would be 795 GB): one 80 GB card holds no more
+ZOO = [
+    ("gemma3-1b", 26, dict(d_model=1152, n_heads=4, n_kv_heads=1,
+                           head_dim=256, d_ff=6912, vocab=262144,
+                           window=512), 8, 0),
+    ("stablelm-1.6b", 24, dict(d_model=2048, n_heads=32, n_kv_heads=32,
+                               head_dim=64, d_ff=5632, vocab=100352,
+                               norm="layernorm"), 48, 0),
+    ("minicpm3-4b", 62, dict(d_model=2560, n_heads=40, head_dim=64,
+                             d_ff=6400, vocab=73448, q_lora_rank=768,
+                             kv_lora_rank=256, rope_head_dim=32), 0, 0),
+    ("whisper-base", 6, dict(d_model=512, n_heads=8, n_kv_heads=8,
+                             head_dim=64, d_ff=2048, vocab=51865,
+                             enc_layers=6, enc_tokens=1500), 12, 0),
+    ("paligemma-3b", 18, dict(d_model=2048, n_heads=8, n_kv_heads=1,
+                              head_dim=256, d_ff=16384, vocab=257216,
+                              frontend_tokens=256, frontend_dim=1152),
+     36, 0),
+    ("jamba-v0.1-52b", 8, dict(d_model=4096, n_heads=32, n_kv_heads=8,
+                               head_dim=128, d_ff=14336, vocab=65536,
+                               ssm_state=16, ssm_conv=4, ssm_expand=2,
+                               moe=(16, 2, 14336, 0, 2)), 2, 228),
+    ("llama4-maverick-400b-a17b", 2, dict(
+        d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128, d_ff=8192,
+        vocab=202048, moe=(128, 1, 8192, 1, 2)), 4, 57),
+]
 # kernel path against use_kernels=False on the same params (lm_agreement):
 # f32 end to end, x max|logit| (f32 sums in another order over 28 layers);
 # bf16 layer by layer, x max|plain output| (2^-6: a few bf16 roundings)
@@ -391,7 +450,7 @@ def phase_kernels():
     results = {}
     cases = [(c, "float32") for c in KERNEL_CASES] + [
         (c, "bfloat16") for c in (SERVE_CASE, *LM_FLASH_CASES,
-                                  *LONG_FLASH_CASES)]
+                                  *LONG_FLASH_CASES, *ZOO_FLASH_CASES)]
     for (B, H, KVH, S, D, causal, window), dname in cases:
         dt = getattr(torch, dname)
         G = H // KVH
@@ -1836,60 +1895,61 @@ def phase_gmm_kernel():
     from repro_torch.kernels.gmm.ref import gmm_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for dname in ("bfloat16", "float32"):
+    cases = [(c, dname) for dname in ("bfloat16", "float32")
+             for c in GMM_CASES] + [(c, "bfloat16") for c in ZOO_GMM_CASES]
+    for (E, C, d, f), dname in cases:
         dt = getattr(torch, dname)
-        for E, C, d, f in GMM_CASES:
-            x = torch.randn((E, C, d), generator=gen, device="cuda").to(dt)
-            w = (torch.randn((E, d, f), generator=gen, device="cuda")
-                 * d ** -0.5).to(dt)
+        x = torch.randn((E, C, d), generator=gen, device="cuda").to(dt)
+        w = (torch.randn((E, d, f), generator=gen, device="cuda")
+             * d ** -0.5).to(dt)
 
-            def kernel():
-                return gmm_ecd(x, w)
+        def kernel():
+            return gmm_ecd(x, w)
 
-            def plain():
-                return gmm_ref(x, w)
+        def plain():
+            return gmm_ref(x, w)
 
-            def library():
-                return torch.bmm(x, w)
+        def library():
+            return torch.bmm(x, w)
 
-            out = kernel()
-            torch.cuda.synchronize()
-            ref = gmm_ref(x.float(), w.float())
-            check(torch.isfinite(out.float()).all().item(),
-                  f"gmm_ecd non-finite at {(E, C, d, f)} {dname}")
-            scale = ref.abs().max().item()
-            err = (out.float() - ref).abs().max().item()
-            ok = ((out.float() - ref).abs()
-                  <= 1e-4 * scale + GMM_RTOL[dname] * ref.abs()).all()
-            check(bool(ok), f"gmm_ecd {dname} {(E, C, d, f)} outside rtol "
-                            f"{GMM_RTOL[dname]}, atol 1e-4 x {scale} "
-                            f"(max_abs_err {err})")
-            check(torch.equal(kernel(), out),
-                  f"gmm_ecd {(E, C, d, f)} {dname}: not bitwise repeatable")
-            big = E * d * f > 10 ** 8
-            ms = cuda_time_ms(kernel, 50 if big else 200)
-            plain_ms = cuda_time_ms(plain, 10 if big else 50, warmup=2)
-            library_ms = cuda_time_ms(library, 50 if big else 200)
-            dev_us, dev_kernels = device_us(kernel)
-            library_dev_us, _ = device_us(library)
-            es = torch.finfo(dt).bits // 8
-            nbytes = es * (E * C * d + E * d * f + E * C * f)
-            ops = 2 * E * C * d * f
-            t_bytes, t_ops = (nbytes / H100_BYTES_PER_S,
-                              ops / PEAK_OPS[dname])
-            row = {"name": "gmm_ecd", "shape": [E, C, d, f], "dtype": dname,
-                   "max_abs_err": err, "max_abs_ref": scale,
-                   "rtol": GMM_RTOL[dname], "ms": ms, "device_us": dev_us,
-                   "device_kernels": dev_kernels, "plain_ms": plain_ms,
-                   "library_ms": library_ms,
-                   "library_device_us": library_dev_us,
-                   "bound_ms": max(t_bytes, t_ops) * 1e3,
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "bytes": nbytes, "ops": ops,
-                   "gb_per_s": nbytes / ms / 1e6}
-            print("kernel_case " + json.dumps(row))
-            rows[((E, C, d, f), dname)] = row
-            del x, w, out, ref
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = gmm_ref(x.float(), w.float())
+        check(torch.isfinite(out.float()).all().item(),
+              f"gmm_ecd non-finite at {(E, C, d, f)} {dname}")
+        scale = ref.abs().max().item()
+        err = (out.float() - ref).abs().max().item()
+        ok = ((out.float() - ref).abs()
+              <= 1e-4 * scale + GMM_RTOL[dname] * ref.abs()).all()
+        check(bool(ok), f"gmm_ecd {dname} {(E, C, d, f)} outside rtol "
+                        f"{GMM_RTOL[dname]}, atol 1e-4 x {scale} "
+                        f"(max_abs_err {err})")
+        check(torch.equal(kernel(), out),
+              f"gmm_ecd {(E, C, d, f)} {dname}: not bitwise repeatable")
+        big = E * d * f > 10 ** 8
+        ms = cuda_time_ms(kernel, 50 if big else 200)
+        plain_ms = cuda_time_ms(plain, 10 if big else 50, warmup=2)
+        library_ms = cuda_time_ms(library, 50 if big else 200)
+        dev_us, dev_kernels = device_us(kernel)
+        library_dev_us, _ = device_us(library)
+        es = torch.finfo(dt).bits // 8
+        nbytes = es * (E * C * d + E * d * f + E * C * f)
+        ops = 2 * E * C * d * f
+        t_bytes, t_ops = (nbytes / H100_BYTES_PER_S,
+                          ops / PEAK_OPS[dname])
+        row = {"name": "gmm_ecd", "shape": [E, C, d, f], "dtype": dname,
+               "max_abs_err": err, "max_abs_ref": scale,
+               "rtol": GMM_RTOL[dname], "ms": ms, "device_us": dev_us,
+               "device_kernels": dev_kernels, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library_device_us": library_dev_us,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops,
+               "gb_per_s": nbytes / ms / 1e6}
+        print("kernel_case " + json.dumps(row))
+        rows[((E, C, d, f), dname)] = row
+        del x, w, out, ref
     torch.cuda.empty_cache()
     print("kernels_checked " + json.dumps({"kernels": ["gmm_ecd"]}))
     return rows
@@ -1973,7 +2033,7 @@ def phase_lm_serve(card):
     return launches
 
 
-def lm_agreement(model, params, prompts, capacity):
+def lm_agreement(model, params, prompts, capacity, frontend=None):
     """The kernel path against use_kernels=False on the same (bf16)
     params. bf16 compute end to end is dominated by rounding for this
     random-init model (the reference's fan-in of the (E, d, f) expert
@@ -1983,21 +2043,21 @@ def lm_agreement(model, params, prompts, capacity):
       * f32 compute on the same params (each bf16 weight cast to f32 at
         use), end to end: prefill and first decode-step logits, kernels
         (f32 gmm_ecd and flash) against plain, within LM_F32_TOL x
-        max|logit|;
+        max|logit|, all four paths' logits finite;
       * bf16 compute, layer by layer on the plain path's activations:
-        each layer's attention (flash vs blockwise) on the same input and
-        its FFN (gmm_ecd vs einsum) on the same input, within LM_BF16_TOL
-        x max|plain output|.
+        each causal full-attention layer's mixer (flash vs blockwise) on
+        the same input and each MoE layer's FFN (gmm_ecd vs einsum) on
+        the same input, within LM_BF16_TOL x max|plain output| (the other
+        mixers and FFNs run no kernel: they advance the activations).
     The bf16 end-to-end logits of both paths are reported against the f32
-    plain logits, ungated."""
+    plain logits, ungated. `frontend` is the model's stub input, if it
+    has one."""
     import torch
     from repro_torch.checkpoint.convert import unflatten_tree
     from repro_torch.configs.base import ATTN
-    from repro_torch.models.attention import gqa_seq
-    from repro_torch.models.layers import (apply_mlp, apply_norm,
-                                           embed_tokens)
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import apply_norm, apply_params
     from repro_torch.models.model import ModelOpts, build_model
-    from repro_torch.models.moe import apply_moe
     arch, cfg = model.cfg.name, model.cfg
     models = {(dt, k): build_model(cfg, ModelOpts(dtype=dt, use_kernels=k))
               for dt in ("float32", "bfloat16") for k in (False, True)}
@@ -2006,12 +2066,14 @@ def lm_agreement(model, params, prompts, capacity):
     tok = None
     with torch.inference_mode():
         for key, m in models.items():
-            lp, cache = m.prefill(params, prompts, capacity)
+            lp, cache = m.prefill(params, prompts, capacity,
+                                  frontend=frontend)
             if tok is None:  # every path decodes the f32 plain path's token
                 tok = torch.argmax(lp[:, -1].float(), dim=-1)[:, None]
-            ld, _ = m.decode_step(params, tok, cache, S)
+            ld, _ = m.decode_step(params, tok, cache, S + m.n_prefix)
             logits[key] = {"prefill": lp.float(), "decode": ld.float()}
             del cache
+            torch.cuda.empty_cache()
     out = {}
     for name in ("prefill", "decode"):
         ref = logits[("float32", False)][name]
@@ -2034,22 +2096,30 @@ def lm_agreement(model, params, prompts, capacity):
     kern, plain = models[("bfloat16", True)], models[("bfloat16", False)]
     worst = {"attention": 0.0, "ffn": 0.0}
     with torch.inference_mode():
-        x = embed_tokens(tree["embed"], prompts, cfg, torch.bfloat16)
+        x, enc_out = apply_params(plain, params, prompts, mode="inputs",
+                                  frontend=frontend)
         for name, blk in plain.layers():
             p = tree
             for part in name.split("/"):
                 p = p[int(part)] if part.isdigit() else p[part]
             h = apply_norm(p["norm1"], x)
-            ak, _ = gqa_seq(cfg, p["mixer"], h, 0, ATTN, kern.attn_opts)
-            ap, _ = gqa_seq(cfg, p["mixer"], h, 0, ATTN, plain.attn_opts)
+            ap, _ = blocks.mixer_seq(cfg, p, blk.kind, h, 0, plain.attn_opts)
+            pairs = []
+            if blk.kind == ATTN:
+                ak, _ = blocks.mixer_seq(cfg, p, blk.kind, h, 0,
+                                         kern.attn_opts)
+                pairs.append(("attention", ak, ap))
             x = x + ap
+            if enc_out is not None:
+                x = x + blocks.cross_seq(cfg, p, apply_norm(p["xnorm"], x),
+                                         enc_out, plain.attn_opts)[0]
             h2 = apply_norm(p["norm2"], x)
+            fp, _ = blocks.ffn(cfg, p, blk.is_moe, blk.gelu_mlp, h2,
+                               plain.attn_opts)
             if blk.is_moe:
-                fk, _ = apply_moe(cfg, p["ffn"], h2, use_kernels=True)
-                fp, _ = apply_moe(cfg, p["ffn"], h2, use_kernels=False)
-            else:
-                fk = fp = apply_mlp(p["ffn"], h2)
-            for part, a, b in (("attention", ak, ap), ("ffn", fk, fp)):
+                fk, _ = blocks.ffn(cfg, p, True, False, h2, kern.attn_opts)
+                pairs.append(("ffn", fk, fp))
+            for part, a, b in pairs:
                 rel = ((a.float() - b.float()).abs().max()
                        / b.float().abs().max()).item()
                 worst[part] = max(worst[part], rel)
@@ -2058,6 +2128,8 @@ def lm_agreement(model, params, prompts, capacity):
                       f"max_abs_err / max|plain| = {rel} > {LM_BF16_TOL}")
             x = x + fp
     out["bf16 per-layer worst max_abs_err / max|plain|"] = worst
+    del models
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2347,6 +2419,127 @@ def rwkv_agreement(model, params, prompts):
     return out
 
 
+def zoo_param_count(cfg):
+    """Exact leaf count of the port's (and the reference's) model of
+    `cfg`: `param_count` (the reference's) plus what it leaves out, less
+    what it counts that the model does not hold:
+      * the norms: norm1, norm2 (and a decoder block's xnorm) a layer,
+        two a whisper encoder block, the final norms; a layernorm holds a
+        scale and a bias;
+      * MLA's q_norm and kv_norm scales (q_lora_rank + kv_lora_rank);
+      * Mamba's conv_b, dt_proj, dt_bias, D (di each) and A_log (di·N),
+        where param_count counts 2·di for the dt projection, A and D;
+      * whisper's encoder position table (enc_tokens·d) and each decoder
+        block's cross attention (as many weights as its self attention),
+        less d·d_ff for each decoder and encoder block (a GELU MLP holds
+        two matrices where param_count counts SwiGLU's three); an encoder
+        block's attention holds what a decoder block's does, where
+        param_count counts 4·d² (the same at whisper's widths: MHA,
+        n_heads·head_dim = d);
+      * paligemma's projector (frontend_dim·d)."""
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    norm = 2 * d if cfg.norm == "layernorm" else d
+    kinds = cfg.pattern()
+    n = cfg.param_count()
+    n += (L * (3 if cfg.enc_layers else 2) + 1) * norm
+    n += kinds.count("mla") * (cfg.q_lora_rank + cfg.kv_lora_rank)
+    di = cfg.ssm_expand * d
+    n += kinds.count("mamba") * (2 * di + di * cfg.ssm_state)
+    if cfg.enc_layers:
+        attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+        n += (2 * cfg.enc_layers + 1) * norm + cfg.enc_tokens * d
+        n += L * attn + cfg.enc_layers * (attn - 4 * d * d)
+        n -= (L + cfg.enc_layers) * d * cfg.d_ff
+    if cfg.frontend == "vision_stub":
+        n += (cfg.frontend_dim or d) * d
+    return n
+
+
+def phase_lm_zoo(card):
+    """Serve the rest of the LM zoo (ZOO) at full width, bf16, with
+    use_kernels, through `repro_torch.launch.serve.serve` on weights
+    drawn on the card from seed 0 and the reference's stub frontends;
+    each config's launches exactly as ZOO says, then the kernel path
+    against use_kernels=False (`lm_agreement`). Returns the launches of
+    the seven serves, summed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_hsd
+    from repro_torch.kernels.gmm.kernel import gmm_ecd
+    from repro_torch.launch.serve import serve, stub_frontend
+    from repro_torch.models.model import ModelOpts, build_model
+    B, S, gen_len = (LM[k] for k in ("batch", "prompt_len", "gen_len"))
+    total = {"flash_attention_hsd": 0, "gmm_ecd": 0}
+    for arch, n_layers, widths, n_flash, n_gmm in ZOO:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        got = {k: getattr(cfg, k) for k in widths if k != "moe"}
+        if "moe" in widths:
+            m = cfg.moe
+            got["moe"] = (m.n_experts, m.top_k, m.d_ff, m.n_shared, m.every)
+        check(got == widths, f"{arch}: widths {got}, published {widths}")
+        check(n_layers <= full.n_layers and (
+            n_layers == full.n_layers
+            or n_layers % math.lcm(len(cfg.layer_pattern),
+                                   cfg.moe.every if cfg.moe else 1) == 0),
+              f"{arch}: {n_layers} layers is not whole periods")
+        n_attn = cfg.pattern().count("attn")
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(n_layers))
+        want = {"flash_attention_hsd": 2 * n_attn,
+                "gmm_ecd": 3 * n_moe * (2 + gen_len + 1)}
+        check(want == {"flash_attention_hsd": n_flash, "gmm_ecd": n_gmm},
+              f"{arch}: expected launch counts {want}")
+        model = build_model(cfg, ModelOpts(dtype="bfloat16",
+                                           use_kernels=True))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        weight_bytes = sum(v.numel() * v.element_size()
+                           for v in params.values())
+        n_params = sum(v.numel() for v in params.values())
+        check(n_params == zoo_param_count(cfg),
+              f"{arch}: {n_params} params, its config holds "
+              f"{zoo_param_count(cfg)}")
+        prompts = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(1))
+        torch.cuda.reset_peak_memory_stats()
+
+        # the main path: counts at 0 just before, read just after
+        flash_attention_hsd.launches = gmm_ecd.launches = 0
+        res = serve(cfg, reduced=False, batch=B, prompt_len=S,
+                    gen_len=gen_len, seed=0, dtype="bfloat16", device="cuda",
+                    use_kernels=True, params=params, prompts=prompts)
+        launches = {"flash_attention_hsd": flash_attention_hsd.launches,
+                    "gmm_ecd": gmm_ecd.launches}
+        check(launches == want, f"{arch} serve: launches {launches}, "
+                                f"expected {want}")
+        check(res["generated_shape"] == [B, gen_len],
+              f"{arch} serve: generated_shape {res['generated_shape']}")
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in launches.items():
+            total[k] += v
+
+        # checks below launch the kernels again; they are not the main path
+        agree = lm_agreement(model, params, prompts, S + gen_len,
+                             frontend=stub_frontend(cfg, B, "cuda"))
+        print("lm_zoo " + json.dumps(dict(
+            res, n_layers=n_layers, n_layers_config=full.n_layers,
+            init_s=init_s, weight_bytes=weight_bytes, n_params=n_params,
+            param_count=cfg.param_count(), init_peak_bytes=init_peak,
+            serve_peak_bytes=peak, launches=launches, agreement=agree,
+            card=card)))
+        del params, model
+        torch.cuda.empty_cache()
+    return total
+
+
 def phase_gmm_guard():
     import torch
     from repro_torch.kernels.gmm.kernel import gmm_ecd
@@ -2399,6 +2592,7 @@ def main():
     wkv_rows = phase_wkv6_kernel()
     phase_wkv6_guard()
     rwkv_launches = phase_rwkv_serve(card)
+    zoo_launches = phase_lm_zoo(card)
     serve = cases[(SERVE_CASE, "float32")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2407,7 +2601,8 @@ def main():
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-        "launches": launches}, **{k: serve[k] for k in keys})]
+        "launches": launches + zoo_launches["flash_attention_hsd"]},
+        **{k: serve[k] for k in keys})]
     # the training attention: the forward kernel writing lse, and its
     # backward (no pallas_call of its own: the adjoint of the forward's)
     for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):
@@ -2452,7 +2647,7 @@ def main():
         "name": "gmm_ecd", "route": "cuda",
         "source": "src/repro_torch/kernels/gmm/csrc/gmm.cu",
         "replaces": "src/repro/kernels/gmm/kernel.py:42",
-        "launches": lm_launches["gmm_ecd"]},
+        "launches": lm_launches["gmm_ecd"] + zoo_launches["gmm_ecd"]},
         **{k: gmm_row[k] for k in keys}))
     # the serve path hands the kernel bf16 r, k, v, u: its prefill row
     wkv_row = wkv_rows[(WKV_BF16_CASES[0], "bfloat16")]

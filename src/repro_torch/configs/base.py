@@ -1,9 +1,10 @@
-"""Config system: model configs and the architecture registry (the
-port's own copy of the parts of src/repro/configs/base.py that the
-policy trunk and the LM serving path need).
+"""Config system: model and shape configs and the architecture registry
+(the port's own copy of src/repro/configs/base.py).
 
-A model is a repeated "super-block" pattern of block kinds. Configs are
-plain frozen dataclasses, so they hash and compare.
+A model is a repeated "super-block" pattern of block kinds, which lets
+heterogeneous stacks (gemma3 5:1 local:global, jamba 1 attn : 7 mamba)
+run as repeats of one period. Configs are plain frozen dataclasses, so
+they hash and compare.
 """
 from __future__ import annotations
 
@@ -11,9 +12,13 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-ATTN = "attn"  # full (global) softmax attention
-RWKV = "rwkv6"  # RWKV-6 time mix + channel mix; the other kinds wait for
-#                 the LM zoo (ROADMAP queue 1, item 15)
+ATTN = "attn"            # full (global) softmax attention
+ATTN_LOCAL = "attn_local"  # sliding-window attention
+MLA = "mla"              # multi-head latent attention (MiniCPM3 style)
+RWKV = "rwkv6"           # RWKV-6 "Finch" token-mix block (attention-free)
+MAMBA = "mamba"          # Mamba selective-SSM block
+
+SUBQUADRATIC = frozenset({ATTN_LOCAL, RWKV, MAMBA})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,36 +81,64 @@ class ModelConfig:
             return False
         return (i - m.first_dense) % m.every == 0
 
-    def param_count(self) -> int:
-        """Parameters of the ATTN / RWKV / MoE / dense-FFN stack (the
-        reference's count for those kinds; for RWKV it is the reference's
-        approximation, which leaves out the low-rank mixers' true widths,
-        the decay and lerp constants and the head norms)."""
+    def subquadratic(self) -> bool:
+        """True if decode at very long context is feasible: no full
+        attention layer (ATTN or MLA) at all, or at most a quarter of the
+        layers (a hybrid whose few full-attention caches shard)."""
+        kinds = set(self.pattern())
+        if not {ATTN, MLA} & kinds:
+            return True
+        n_full = sum(1 for k in self.pattern() if k in (ATTN, MLA))
+        return n_full <= self.n_layers // 4
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's parameter count (for MODEL_FLOPS = 6·N·D): it
+        leaves out the norms' scales and biases, MLA's latent norms, the
+        encoder's position table, and it approximates RWKV's low-rank
+        mixers and Mamba's dt projection (rank 1) and A, D. With
+        `active_only` an MoE layer counts its top-k experts only."""
         d, hd = self.d_model, self.head_dim
         total = self.vocab * d  # embedding
         if not self.tie_embeddings:
             total += self.vocab * d
         for i, kind in enumerate(self.pattern()):
-            if kind == RWKV:
-                # r,k,v,g,o projections + decay/low-rank mixers (approx),
-                # then the built-in channel mix: k, v + receptance
+            # token mixer
+            if kind in (ATTN, ATTN_LOCAL):
+                total += (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                          + self.n_heads * hd * d)
+            elif kind == MLA:
+                rq = self.q_lora_rank or d
+                total += d * rq + rq * self.n_heads * (hd + self.rope_head_dim)
+                total += d * (self.kv_lora_rank + self.rope_head_dim)
+                total += self.kv_lora_rank * self.n_heads * 2 * hd
+                total += self.n_heads * hd * d
+            elif kind == RWKV:
+                # r,k,v,g,o projections + decay/low-rank mixers (approx)
                 total += 5 * d * d + 4 * d * 64
-                total += 2 * d * int(self.d_ff) + d * d
-                continue
-            if kind != ATTN:
-                raise NotImplementedError(f"param_count of kind {kind!r}")
-            total += 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-            if self.is_moe_layer(i):
+            elif kind == MAMBA:
+                di = self.ssm_expand * d
+                total += d * 2 * di + di * d        # in_proj, out_proj
+                total += di * self.ssm_conv          # conv
+                total += di * (2 * self.ssm_state)   # B,C proj
+                total += di * 2                      # dt proj (rank 1) + A,D
+            # channel mixer: RWKV's built-in channel mix, MoE or SwiGLU
+            if kind == RWKV:
+                total += 2 * d * int(self.d_ff) + d * d  # k,v + receptance
+            elif self.is_moe_layer(i):
                 m = self.moe
-                total += ((m.n_experts + m.n_shared) * 3 * d * m.d_ff
-                          + d * m.n_experts)  # + router
+                e = (m.top_k if active_only else m.n_experts) + m.n_shared
+                total += e * 3 * d * m.d_ff + d * m.n_experts  # + router
             else:
                 total += 3 * d * self.d_ff  # swiglu
+        # encoder (whisper): same-width layers, full attention + MLP
+        for _ in range(self.enc_layers):
+            total += 4 * d * d + 3 * d * self.d_ff
         return int(total)
 
     def reduced(self) -> "ModelConfig":
         """The narrow variant used by default for policy trunks and CPU
-        tests (the reference's `reduced`, MoE included)."""
+        tests (the reference's `reduced`): at least one whole period of
+        the pattern."""
         d = min(self.d_model, 128)
         n_heads = max(2, min(self.n_heads, 4))
         hd = max(8, d // n_heads)
@@ -131,6 +164,21 @@ class ModelConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
 _REGISTRY: dict = {}
 
 
@@ -145,6 +193,11 @@ def get_config(name: str) -> ModelConfig:
         _c.load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; the port has "
-                       f"{sorted(_REGISTRY)} (the LM zoo waits for ROADMAP "
-                       f"queue 1, item 15)")
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs():
+    from repro_torch import configs as _c
+    _c.load_all()
+    return sorted(_REGISTRY)

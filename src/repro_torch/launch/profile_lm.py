@@ -2,12 +2,15 @@
 
     python -m repro_torch.launch.profile_lm [--arch deepseek-moe-16b] [--plain]
     python -m repro_torch.launch.profile_lm --arch rwkv6-1.6b [--plain]
+    python -m repro_torch.launch.profile_lm --arch whisper-base [--plain]
 
 Builds the full-width model in bf16 with `use_kernels` (or without, with
 `--plain`), draws its weights on the card from seed 0, and serves at the
 shape of `chip_smoke.py`'s LM case: a batch of 4 prompts of 32 tokens
 into a cache of 32 + 16 slots, as `serve()` sizes it for 16 new tokens;
-the decode steps run at positions 32..47. Reports, as one JSON line, for
+the decode steps run at positions 32..47 (after a VLM's prefix; whisper
+and paligemma get the stub frontend input of `serve()`). Any LM that fits
+the card whole (jamba and llama4 do not). Reports, as one JSON line, for
 the prefill and for a decode step:
   * `wall_ms`: host wall time per call, ending in a device sync;
   * `issue_ms`: host time to enqueue the call, without the sync;
@@ -51,6 +54,7 @@ def main(argv=None):
         raise RuntimeError("profile_lm measures the card; torch sees no "
                            "CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.serve import stub_frontend
     from repro_torch.models.model import ModelOpts, build_model
 
     model = build_model(args.arch, ModelOpts(dtype="bfloat16",
@@ -61,15 +65,17 @@ def main(argv=None):
     prompts = torch.randint(0, model.cfg.vocab, (B, S), generator=gen,
                             device="cuda")
     tok = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    fe = stub_frontend(model.cfg, B, "cuda")
+    S0 = S + model.n_prefix
     with torch.inference_mode():
         def prefill():
-            return model.prefill(params, prompts, S + GEN_LEN)
+            return model.prefill(params, prompts, S + GEN_LEN, frontend=fe)
 
         _, cache = prefill()  # warmup (and the kernel build)
         step = [0]
 
         def decode():
-            model.decode_step(params, tok, cache, S + step[0] % GEN_LEN)
+            model.decode_step(params, tok, cache, S0 + step[0] % GEN_LEN)
             step[0] += 1
 
         decode()

@@ -1,5 +1,5 @@
 """Shared primitive layers: parameter templates and init, norms, RoPE,
-SwiGLU MLP, embeddings.
+SwiGLU and GELU MLPs, embeddings.
 
 Parameters live as shape templates on the meta device inside
 `nn.Module`s; their values are a flat dict of tensors named by the JAX
@@ -42,6 +42,16 @@ def const(value):
 
 
 ones, zeros = const(1.0), const(0.0)
+
+
+def normal(std):
+    """A leaf drawn from N(0, std²) in f32, stored in the model's dtype
+    (the whisper encoder's position table, which the reference casts to
+    the model's dtype at use)."""
+    def init(generator, shape, dtype):
+        t = torch.randn(shape, generator=generator, device=generator.device)
+        return t.mul_(std).to(dtype)
+    return init
 
 
 def add_param(module: nn.Module, name: str, shape, init) -> None:
@@ -135,6 +145,29 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+# -- activations ------------------------------------------------------------
+
+def sigmoid(x):
+    """jax.nn.sigmoid as the reference's compiled bf16 graph computes it,
+    1 / (1 + e^{-x}) with each step rounded to x's dtype: torch.sigmoid
+    rounds once, an ulp away on ~1/3 of bf16 inputs, which puts the bf16
+    RWKV and Mamba models outside the bf16 parity bounds of
+    tests/test_torch_rwkv.py and tests/test_torch_lm_serve.py
+    (ROADMAP.md §3)."""
+    return torch.reciprocal(torch.exp(-x) + 1)
+
+
+def silu(x):
+    """jax.nn.silu. In bf16 as the reference's compiled graph computes
+    it, x · `sigmoid`(x), each step and the product rounded (torch's silu
+    rounds once, an ulp away on many inputs, enough to flip a reduced
+    MoE's router in tests/test_torch_lm_serve.py); in f32 torch's silu,
+    so the f32 paths (the policy trunk's among them) keep their bits."""
+    if x.dtype == torch.float32:
+        return nn.functional.silu(x)
+    return x * sigmoid(x)
+
+
 # -- MLP --------------------------------------------------------------------
 
 def mlp_params(cfg, d_ff=None) -> Params:
@@ -148,8 +181,23 @@ def apply_mlp(params, x):
     """SwiGLU."""
     h = torch.einsum("...d,df->...f", x, params["wi"].to(x.dtype))
     g = torch.einsum("...d,df->...f", x, params["wg"].to(x.dtype))
-    h = nn.functional.silu(g) * h
+    h = silu(g) * h
     return torch.einsum("...f,fd->...d", h, params["wo"].to(x.dtype))
+
+
+def mlp_gelu_params(cfg, d_ff=None) -> Params:
+    """2-matrix GELU MLP (whisper-style)."""
+    d_ff = d_ff or cfg.d_ff
+    return Params(wi=((cfg.d_model, d_ff), dense()),
+                  wo=((d_ff, cfg.d_model), dense()))
+
+
+def apply_mlp_gelu(params, x):
+    """GELU in its tanh form, which is `jax.nn.gelu`'s default."""
+    h = torch.einsum("...d,df->...f", x, params["wi"].to(x.dtype))
+    return torch.einsum("...f,fd->...d",
+                        nn.functional.gelu(h, approximate="tanh"),
+                        params["wo"].to(x.dtype))
 
 
 # -- embeddings -------------------------------------------------------------

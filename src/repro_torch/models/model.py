@@ -1,6 +1,5 @@
 """LanguageModel: assembles blocks into the full architecture (the port
-of src/repro/models/model.py for the ATTN / RWKV / MoE / dense-FFN
-stack).
+of src/repro/models/model.py).
 
 The reference factors the layer list into [prefix | R × super-block |
 tail] — the prefix is MoE's leading dense layers, the super-block the
@@ -9,16 +8,25 @@ smallest repeating (kind, is_moe) period — and runs the R repeats as one
 names, and runs the repeats as a loop over a `ModuleList` of
 super-blocks; its params are split per block ("stack/<r>/t<t>/...", see
 checkpoint/convert.py), and so is its cache ("stack/<r>/t<t>/k" for an
-attention block's KV cache, "stack/<r>/t<t>/S", ".../shift_tm" and
-".../shift_cm" for an RWKV block's recurrent state).
+attention block's KV cache, ".../ckv" and ".../kr" for MLA's latents,
+".../S", ".../shift_tm" and ".../shift_cm" for an RWKV block's recurrent
+state, ".../conv" and ".../ssm" for a Mamba block's, and ".../ek",
+".../ev" for a whisper decoder block's cross keys and values).
+
+Audio (whisper) runs an encoder over stub frame embeddings, its blocks
+non-causal and its params under "enc/stack/<r>/..." (the reference
+stacks them with no super-block level), and its decoder blocks
+cross-attend the encoder's output; VLM (paligemma) projects stub patch
+embeddings and prepends them to the tokens, so its caches grow by the
+prefix and its decode positions start after it.
 
 Execution modes: the block stack alone (`_run_seq`; the policy trunk
 calls `run_blocks`), `prefill` (emits the cache) and `decode_step` (one
 token against it, updating the cache in place: an attention block
 writes the token's k, v into its slot, an RWKV block overwrites its
 state, and under `use_kernels` the WKV kernel writes the new S straight
-into the cache's buffer). The encoder, frontends and train-mode
-`forward`/`loss` are not ported yet. The reference's ZeRO-3 list form of
+into the cache's buffer). Train-mode `forward`/`loss` (LM training) are
+not ported yet. The reference's ZeRO-3 list form of
 the stack (`_run_seq` over a list of blocks, `_sequence_barrier`) has no
 counterpart: it only keeps XLA from hoisting every block's gather ahead
 of the loop, and eager PyTorch runs in program order
@@ -32,13 +40,24 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.configs.base import ATTN, ModelConfig, get_config
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.attention import AttnOpts, _not_ported
+from repro_torch.models.attention import AttnOpts
 from repro_torch.models.blocks import init_block, init_cache
-from repro_torch.models.layers import (apply_norm, apply_params,
-                                       embed_params, embed_tokens,
-                                       init_params, norm_params, unembed)
+from repro_torch.models.layers import (Params, add_param, apply_norm,
+                                       apply_params, dense, embed_params,
+                                       embed_tokens, init_params, normal,
+                                       norm_params, unembed)
+
+
+def _rounds_before(name):
+    """Whether the residual stream is rounded to the model's dtype before
+    layer `name`: a block returns its output sum in f32, unrounded, and
+    the next block of the same super-block reads it so, as the
+    reference's compiled graph does inside the unrolled body of its scan
+    over super-blocks; the scan's carry, the prefix and tail blocks and
+    the final norm see it rounded (blocks.py `_norm1`)."""
+    return not name.startswith("stack/") or name.endswith("/t0")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,14 +76,17 @@ class ModelOpts:
 class LanguageModel(nn.Module):
     def __init__(self, cfg: ModelConfig, opts: ModelOpts = ModelOpts()):
         super().__init__()
-        if cfg.enc_layers or cfg.frontend != "none":
-            raise _not_ported(f"{cfg.name} (encoder or frontend)")
         self.cfg = cfg
         self.opts = opts
         self.attn_opts = AttnOpts(dtype=opts.tdtype, block_k=opts.block_k,
                                   n_q_chunks=opts.n_q_chunks,
                                   use_kernels=opts.use_kernels,
                                   moe_local=opts.moe_local_dispatch)
+        self.gelu_mlp = cfg.family == "audio"
+        self.has_cross = cfg.enc_layers > 0
+        # tokens the vision frontend prepends (the decode offset)
+        self.n_prefix = (cfg.frontend_tokens if cfg.frontend == "vision_stub"
+                         else 0)
         pat = cfg.pattern()
         self.specs = [(pat[i], cfg.is_moe_layer(i))
                       for i in range(cfg.n_layers)]
@@ -81,11 +103,13 @@ class LanguageModel(nn.Module):
 
         # each block kind's cache keys, as init_cache makes them
         self.cache_keys = {kind: tuple(init_cache(cfg, kind, 1, 1,
-                                                  opts.tdtype, "meta"))
+                                                  opts.tdtype, "meta",
+                                                  self.has_cross))
                            for kind in set(pat)}
 
         def block(spec):
-            return init_block(cfg, spec[0], spec[1], self.attn_opts)
+            return init_block(cfg, spec[0], spec[1], self.attn_opts,
+                              self.has_cross, self.gelu_mlp)
 
         self.embed = embed_params(cfg)
         self.final_norm = norm_params(cfg)
@@ -100,6 +124,16 @@ class LanguageModel(nn.Module):
             base = self.prefix_len + self.repeats * self.period
             self.tail = nn.ModuleList(block(self.specs[base + i])
                                       for i in range(self.tail_len))
+        if cfg.enc_layers:
+            self.enc = Params(pos=((cfg.enc_tokens, cfg.d_model),
+                                   normal(0.02)))
+            self.enc.stack = nn.ModuleList(
+                init_block(cfg, ATTN, False, self.attn_opts, gelu_mlp=True,
+                           causal=False) for _ in range(cfg.enc_layers))
+            self.enc.final_norm = norm_params(cfg)
+        if cfg.frontend == "vision_stub":
+            add_param(self, "projector",
+                      (cfg.frontend_dim or cfg.d_model, cfg.d_model), dense())
 
     def init(self, generator, device="cuda") -> dict:
         """Fresh params (flat, JAX key paths) drawn leaf by leaf on
@@ -120,41 +154,84 @@ class LanguageModel(nn.Module):
         for i, blk in enumerate(getattr(self, "tail", ())):
             yield f"tail/{i}", blk
 
-    def run_blocks(self, x, pos0=0, cache_capacity=0):
+    def run_blocks(self, x, pos0=0, cache_capacity=0, enc_out=None):
         """The block stack over embedded inputs x: (B, S, d) (the policy
-        trunk calls it directly). Returns (x, cache as a flat dict keyed
-        like the params, the summed MoE aux loss: an f32 scalar tensor,
-        or 0.0 without MoE layers)."""
+        trunk calls it directly), cross-attending `enc_out` in a model
+        with an encoder. Returns (x, cache as a flat dict keyed like the
+        params, the summed MoE aux loss: an f32 scalar tensor, or 0.0
+        without MoE layers)."""
         aux = 0.0
         caches = {}
+        dt = x.dtype
         for name, blk in self.layers():
-            x, c, a = blk(x, pos0, cache_capacity)
+            if _rounds_before(name):
+                x = x.to(dt)
+            x, c, a = blk(x, pos0, cache_capacity, enc_out=enc_out)
             aux = aux + a
             caches.update({f"{name}/{k}": v for k, v in c.items()})
-        return x, caches, aux
+        return x.to(dt), caches, aux
+
+    def encode(self, frames):
+        """Whisper encoder over stub frame embeddings (B, Te, d): the
+        position table, the non-causal blocks, the final norm."""
+        dt = self.opts.tdtype
+        x = frames.to(dt) + self.enc.pos.to(dt)
+        for blk in self.enc.stack:
+            x = blk(x, 0)[0].to(dt)
+        return apply_norm(self.enc.final_norm, x)
+
+    def _prepend_frontend(self, x, frontend):
+        """VLM: project the patch embeddings (B, P, frontend_dim) and
+        prepend them to x."""
+        dt = self.opts.tdtype
+        fe = torch.einsum("bpd,de->bpe", frontend.to(dt),
+                          self.projector.to(dt))
+        return torch.cat([fe, x], dim=1)
+
+    def _inputs(self, tokens, frontend):
+        """Embedded tokens (with the projected prefix, VLM) and the
+        encoder's output (audio, else None)."""
+        cfg = self.cfg
+        if (cfg.enc_layers or self.n_prefix) and frontend is None:
+            raise ValueError(f"{cfg.name} needs its frontend input "
+                             f"({cfg.frontend}): launch/serve.stub_frontend")
+        x = embed_tokens(self.embed, tokens, cfg, self.opts.tdtype)
+        enc_out = self.encode(frontend) if cfg.enc_layers else None
+        if self.n_prefix:
+            x = self._prepend_frontend(x, frontend)
+        return x, enc_out
 
     def forward(self, x, pos0=0, *, mode="seq", cache=None, pos=None,
-                cache_capacity=0):
+                cache_capacity=0, frontend=None):
         """Runs under `apply_params` (explicit params):
           * "seq": the block stack over embedded x -> (x, cache, aux);
-          * "prefill": tokens x -> (last-token logits, cache);
+          * "inputs": tokens x and `frontend` -> (the embedded sequence,
+            the encoder's output or None), what "prefill" runs the stack
+            over;
+          * "prefill": tokens x (and `frontend`) -> (last-token logits,
+            cache);
           * "decode": token x (B,1) at position `pos` against `cache`
             -> (logits (B,1,V), cache updated in place)."""
-        cfg, dt = self.cfg, self.opts.tdtype
+        cfg = self.cfg
         if mode == "seq":
             return self.run_blocks(x, pos0, cache_capacity)
+        if mode == "inputs":
+            return self._inputs(x, frontend)
         if mode == "prefill":
-            h = embed_tokens(self.embed, x, cfg, dt)
-            h, cache, _ = self.run_blocks(h, 0, cache_capacity)
+            h, enc_out = self._inputs(x, frontend)
+            h, cache, _ = self.run_blocks(h, 0, cache_capacity, enc_out)
             h = apply_norm(self.final_norm, h[:, -1:])
             return unembed(self.embed, h, cfg), cache
         if mode == "decode":
-            h = embed_tokens(self.embed, x, cfg, dt)
+            h = embed_tokens(self.embed, x, cfg, self.opts.tdtype)
+            dt = h.dtype
             for name, blk in self.layers():
+                if _rounds_before(name):
+                    h = h.to(dt)
                 h, _, _ = blk(h, cache={k: cache[f"{name}/{k}"]
                                         for k in self.cache_keys[blk.kind]},
                               pos=pos)
-            h = apply_norm(self.final_norm, h)
+            h = apply_norm(self.final_norm, h.to(dt))
             return unembed(self.embed, h, cfg), cache
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -163,15 +240,22 @@ class LanguageModel(nn.Module):
         return apply_params(self, params, x, pos0, mode="seq",
                             cache_capacity=cache_capacity)
 
-    def prefill(self, params, tokens, cache_capacity=None):
-        """tokens (B,S) int -> (last-token logits (B,1,V), cache)."""
+    def prefill(self, params, tokens, cache_capacity=None, *,
+                frontend=None):
+        """tokens (B,S) int -> (last-token logits (B,1,V), cache). A model
+        with a frontend takes its input as `frontend`: the audio frames
+        (B, enc_tokens, d_model) or the patch embeddings (B,
+        frontend_tokens, frontend_dim); a VLM's cache grows by its
+        `n_prefix` prepended tokens."""
         cap = cache_capacity or tokens.shape[1] + 1  # one free slot
         return apply_params(self, params, tokens, mode="prefill",
-                            cache_capacity=cap)
+                            cache_capacity=cap + self.n_prefix,
+                            frontend=frontend)
 
     def decode_step(self, params, token, cache, pos: int):
-        """token: (B,1) int; pos: absolute position of this token. Returns
-        (logits (B,1,V), cache), the cache updated in place."""
+        """token: (B,1) int; pos: absolute position of this token (after a
+        VLM's prefix). Returns (logits (B,1,V), cache), the cache updated
+        in place."""
         return apply_params(self, params, token, mode="decode", cache=cache,
                             pos=pos)
 
@@ -179,7 +263,9 @@ class LanguageModel(nn.Module):
         """Zero cache with the keys decode_step expects."""
         return {f"{name}/{k}": v for name, blk in self.layers()
                 for k, v in init_cache(self.cfg, blk.kind, batch, capacity,
-                                       self.opts.tdtype, device).items()}
+                                       self.opts.tdtype, device,
+                                       self.has_cross,
+                                       self.cfg.enc_tokens).items()}
 
 
 def build_model(name_or_cfg, opts: ModelOpts = ModelOpts(),

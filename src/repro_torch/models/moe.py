@@ -15,7 +15,7 @@ written twice and no float atomic decides an order:
     to one spare slot);
   * the combine: each token sums its K weighted expert outputs in
     ascending expert order, the order in which the reference's
-    scatter-add meets them.
+    scatter-add meets them, in f32 as its compiled graph does.
 The router's top-k is a stable descending sort, so ties go to the lower
 expert index as in `jax.lax.top_k` (`torch.topk` promises no order).
 """
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Params, apply_mlp, dense
+from repro_torch.models.layers import Params, apply_mlp, dense, silu
 
 
 def init_moe(cfg) -> Params:
@@ -49,19 +49,24 @@ def _gmm(x, w, use_kernels):
     return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
 
 
-def _not_ported_local():
-    return NotImplementedError(
-        "moe_local_dispatch (row-local MoE dispatch) is not ported yet: it "
-        "comes with the sharded LM slice (ROADMAP queue 1, item 15)")
-
-
 def apply_moe(cfg, p, x, use_kernels=False, local_dispatch=False):
-    """x: (B,S,d) -> (out (B,S,d), aux_loss f32 scalar)."""
-    if local_dispatch:
-        raise _not_ported_local()
+    """x: (B,S,d) -> (out (B,S,d), aux_loss f32 scalar).
+
+    local_dispatch=True dispatches each batch row on its own (the
+    reference vmaps the dispatch over rows, so the sort and scatter stay
+    local to a data shard): each row's capacity comes from its S tokens,
+    its experts run on the model's own einsum (`use_kernels` is not
+    passed on, as in the reference), and aux is the mean over the rows.
+    The global path sorts all B·S tokens together."""
     B, S, d = x.shape
-    out, aux = _dispatch_tokens(cfg, p, x.reshape(B * S, d), use_kernels)
-    out = out.reshape(B, S, d)
+    if local_dispatch:
+        outs, auxs = zip(*(_dispatch_tokens(cfg, p, x[b], False)
+                           for b in range(B)))
+        out, aux = torch.stack(outs), torch.stack(auxs).mean()
+    else:
+        out, aux = _dispatch_tokens(cfg, p, x.reshape(B * S, d),
+                                    use_kernels)
+        out = out.reshape(B, S, d)
     if cfg.moe.n_shared:
         out = out + apply_mlp(p["shared"], x)
     return out, aux
@@ -71,8 +76,13 @@ def _route(cfg, p, xt):
     """Router gates (T,E) f32 and the top-k (weights renormalized, expert
     indices), ties to the lower index."""
     m = cfg.moe
-    logits = torch.einsum("td,de->te", xt, p["router"].to(xt.dtype))
-    gates = torch.softmax(logits.float(), dim=-1)
+    # the logits are read in f32 only: the reference's compiled graph
+    # folds that convert into the product, which leaves the f32
+    # accumulator unrounded, so the port multiplies the (exact) f32
+    # values of the model-dtype operands
+    logits = torch.einsum("td,de->te", xt.float(),
+                          p["router"].to(xt.dtype).float())
+    gates = torch.softmax(logits, dim=-1)
     topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :m.top_k], topi[:, :m.top_k]
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
@@ -114,7 +124,7 @@ def _dispatch_tokens(cfg, p, xt, use_kernels):
 
     h = _gmm(eb, p["wi"], use_kernels)
     g = _gmm(eb, p["wg"], use_kernels)
-    o = _gmm(nn.functional.silu(g) * h, p["wo"], use_kernels)  # (E,C,d)
+    o = _gmm(silu(g) * h, p["wo"], use_kernels)  # (E,C,d)
 
     o_flat = o.reshape(E * C, d)
     gathered = torch.where(keep[:, None],
@@ -123,14 +133,16 @@ def _dispatch_tokens(cfg, p, xt, use_kernels):
     w_sorted = topv.reshape(-1)[order][:, None].to(dt)
     contrib = gathered * w_sorted                              # sorted order
 
-    # combine: each token's K entries in ascending expert (= sorted) order
+    # combine: each token's K entries in ascending expert (= sorted)
+    # order, summed in f32 and rounded once, as the reference's compiled
+    # scatter-add does
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * K, device=dev)
     at = torch.sort(inv.reshape(T, K), dim=1).values           # (T, K)
-    out = torch.zeros((T, d), dtype=dt, device=dev)
+    out = torch.zeros((T, d), dtype=torch.float32, device=dev)
     for j in range(K):
         out = out + contrib[at[:, j]]
-    return out, aux
+    return out.to(dt), aux
 
 
 def apply_moe_dense_oracle(cfg, p, x):
@@ -146,7 +158,7 @@ def apply_moe_dense_oracle(cfg, p, x):
     comb.scatter_add_(1, topi, topv)
     h = torch.einsum("td,edf->tef", xt, p["wi"].to(dt))
     g = torch.einsum("td,edf->tef", xt, p["wg"].to(dt))
-    o = torch.einsum("tef,efd->ted", nn.functional.silu(g) * h,
+    o = torch.einsum("tef,efd->ted", silu(g) * h,
                      p["wo"].to(dt))
     out = torch.einsum("ted,te->td", o.float(), comb).to(dt)
     if m.n_shared:

@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Params, const, dense, ones, zeros
+from repro_torch.models.layers import (Params, const, dense, ones, sigmoid,
+                                       zeros)
 
 LORA_RANK = 64      # the decay LoRA's rank
 MIX_RANK = 32       # the token-shift lerp LoRA's rank (per mix)
@@ -72,15 +73,6 @@ def _ddlerp(p, x, prev):
     return xs.unbind(2)
 
 
-def _sigmoid(x):
-    """jax.nn.sigmoid as the reference's compiled bf16 graph computes it,
-    1 / (1 + e^{-x}) with each step rounded to x's dtype: torch.sigmoid
-    rounds once, an ulp away on ~1/3 of bf16 inputs, which puts the bf16
-    model outside the bf16 parity bounds of tests/test_torch_rwkv.py and
-    tests/test_torch_lm_serve.py (PERF.md §6)."""
-    return torch.reciprocal(torch.exp(-x) + 1)
-
-
 def _rkvwg(cfg, p, x, prev):
     dt = x.dtype
     xr, xk, xv, xw, xg = _ddlerp(p, x, prev)
@@ -94,7 +86,7 @@ def _rkvwg(cfg, p, x, prev):
     k = proj(xk, "wk").reshape(B, T, H, N)
     v = proj(xv, "wv").reshape(B, T, H, N)
     g = proj(xg, "wg")
-    g = g * _sigmoid(g)                            # jax.nn.silu
+    g = g * sigmoid(g)                            # jax.nn.silu
     logw = -torch.exp(
         p["w0"].float()
         + torch.einsum("btd,dr->btr", torch.tanh(xw).float(),
@@ -172,5 +164,5 @@ def rwkv_channel_mix(cfg, p, x, shift_state):
     kk = torch.square(torch.relu(
         torch.einsum("btd,df->btf", xk, p["cm_k"].to(dt))))
     vv = torch.einsum("btf,fd->btd", kk, p["cm_v"].to(dt))
-    rr = _sigmoid(torch.einsum("btd,de->bte", xr, p["cm_r"].to(dt)))
+    rr = sigmoid(torch.einsum("btd,de->bte", xr, p["cm_r"].to(dt)))
     return rr * vv, new_shift

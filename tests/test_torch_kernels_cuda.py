@@ -91,6 +91,35 @@ def test_flash_attention_matches_plain(cuda, B, KVH, G, S, D, causal,
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+# (B, KVH, G, S, D) of the LM zoo's prefills (batch 4, prompt 32): gemma3
+# (D = 256, one kv head), stablelm (MHA), whisper's decoder, paligemma's
+# 288 tokens (256 patches + 32: a ragged tail at D = 256, one kv head),
+# jamba, llama4 (40 query heads over 8)
+ZOO_FLASH = [(4, 1, 4, 32, 256), (4, 32, 1, 32, 64), (4, 8, 1, 32, 64),
+             (4, 1, 8, 288, 256), (4, 8, 4, 32, 128), (4, 8, 5, 32, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("B,KVH,G,S,D", ZOO_FLASH)
+def test_flash_attention_zoo_prefill_shapes(cuda, B, KVH, G, S, D, dtype,
+                                            tol):
+    rng = np.random.default_rng(S + D + G)
+    qg, k, v = (torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                             device=cuda).to(getattr(torch, dtype))
+                for shape in ((B, S, KVH, G, D), (B, S, KVH, D),
+                              (B, S, KVH, D)))
+    out = flash_attention(qg, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_hsd.launches == 1
+    q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)
+    ref = attention_ref(q, k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    ref = ref.transpose(1, 2).reshape(B, S, KVH, G, D)
+    assert out.dtype == qg.dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(flash_attention(qg, k, v, causal=True), out)
+
+
 @pytest.mark.cuda
 def test_flash_attention_valid_len_and_strides(cuda):
     """`valid_len` masks keys at or past it; q, k, v may be strided views
@@ -916,11 +945,13 @@ def test_sharded_dqn_learner_step_kernel_matches_plain(cuda, R):
 
 
 # (E, C, d, f): the LM serving path's (deepseek-moe-16b, batch 4, prompt
-# 32: decode C = 8, prefill C = 15), ragged on every axis, and C below
-# the smallest C-tile
+# 32: decode C = 8, prefill C = 15), ragged on every axis, C below the
+# smallest C-tile, and the zoo's expert counts at narrow widths (jamba's
+# 16 experts at its prefill C = 20 and decode C = 8, llama4's 128 at C = 8)
 GMM_SHAPES = [(64, 8, 2048, 1408), (64, 8, 1408, 2048), (64, 15, 2048, 1408),
               (64, 15, 1408, 2048), (4, 70, 96, 130), (8, 16, 512, 64),
-              (3, 3, 100, 37), (2, 40, 33, 7)]
+              (3, 3, 100, 37), (2, 40, 33, 7), (16, 20, 256, 896),
+              (16, 8, 896, 256), (128, 8, 320, 512), (128, 8, 512, 320)]
 
 
 def _gmm_inputs(E, C, d, f, dtype, device, seed=11):

@@ -1,9 +1,17 @@
 """The port's LM serving path against the JAX package on the CPU, for
-deepseek-moe-16b.reduced() (a dense layer 0 in the prefix, then one MoE
-super-block), smollm-360m.reduced() (dense, tied embeddings) and
-rwkv6-1.6b.reduced() (two RWKV-6 blocks, a recurrent cache), in f32 and
-in bf16, on weights carried across by
-checkpoint.convert.params_from_jax:
+the reduced() variant of each of the ten LMs: deepseek-moe-16b (a dense
+layer 0 in the prefix, then one MoE super-block), smollm-360m (dense,
+tied embeddings), rwkv6-1.6b (two RWKV-6 blocks, a recurrent cache),
+gemma3-1b (five local layers, window 64, then a global one; one kv
+head), stablelm-1.6b (layernorm, MHA), minicpm3-4b (MLA: a latent
+cache), whisper-base (a two-layer encoder over the stub frames, decoder
+blocks with cross attention and a GELU MLP), paligemma-3b (16 projected
+stub patches prepended: the cache grows by them and decode positions
+start after them), jamba-v0.1-52b (seven Mamba layers and one attention
+layer, MoE on every other) and llama4-maverick-400b-a17b (a MoE layer
+with a shared expert, then a dense one), in f32 and in bf16, on weights
+carried across by checkpoint.convert.params_from_jax, with the
+reference's stub frontend inputs:
 
   * prefill logits and the cache it emits (each entry in the reference's
     dtype for its key: an RWKV state S stays f32 under bf16);
@@ -21,6 +29,7 @@ Tolerance: f32 rtol = 2e-5, atol = 1e-5 x max|reference| (the same math
 summed in another order; the reduced MoE's expert outputs reach ~10^2,
 see tests/test_torch_moe.py), f32 tokens exact; bf16 below."""
 import contextlib
+import functools
 import io
 import json
 import os
@@ -46,7 +55,9 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models.model import ModelOpts, build_model
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["deepseek-moe-16b", "smollm-360m", "rwkv6-1.6b"]
+ARCHS = ["deepseek-moe-16b", "smollm-360m", "rwkv6-1.6b", "gemma3-1b",
+         "stablelm-1.6b", "minicpm3-4b", "whisper-base", "paligemma-3b",
+         "jamba-v0.1-52b", "llama4-maverick-400b-a17b"]
 B, S, GEN = 2, 6, 5
 # bf16 against the reference's bf16 model, x max|reference|: logits
 # 2^-5 (the two packages round and sum in different orders; measured up
@@ -65,22 +76,50 @@ def _close(got, want):
                                atol=1e-5 * float(np.abs(want).max()))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_params(arch):
+    """The reference's seed-0 weights of the reduced arch (its init reads
+    only the config), made once for every test of the file."""
+    jm = jax_build_model(arch, JaxOpts(remat=False), reduced=True)
+    return jm.init(jax.random.PRNGKey(0))
+
+
+@functools.lru_cache(maxsize=None)
 def _pair(arch, use_kernels, dtype="float32"):
     """The two models on the same weights; the port's params are stored
     as its own init stores them (bf16 matrices, f32 norm scales under
-    bf16), the reference's in f32, cast at use."""
+    bf16), the reference's in f32, cast at use. Made once per arguments
+    (the tests only read the models and the params)."""
     jm = jax_build_model(arch, JaxOpts(dtype=dtype, remat=False,
                                        use_kernels=use_kernels),
                          reduced=True)
     tm = build_model(arch, ModelOpts(dtype=dtype, use_kernels=use_kernels),
                      reduced=True)
-    jparams = jm.init(jax.random.PRNGKey(0))
+    jparams = _jax_params(arch)
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     template = tm.init(torch.Generator(), "cpu")
     assert sorted(template) == sorted(tparams)
     assert all(template[k].shape == tparams[k].shape for k in template)
     return jm, tm, jparams, {k: v.to(template[k].dtype)
                              for k, v in tparams.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _jprefill(jm, cap):
+    """The reference's jitted prefill into `cap` slots, compiled once."""
+    return jax.jit(lambda p, t, f: jm.prefill(p, t, f, cache_capacity=cap))
+
+
+@functools.lru_cache(maxsize=None)
+def _jdecode(jm):
+    return jax.jit(jm.decode_step)
+
+
+def _frontend(tm):
+    """The stub frontend input, as the port's serve() makes it and as
+    numpy for the reference (None without a frontend)."""
+    fe = tserve.stub_frontend(tm.cfg, B, "cpu")
+    return fe, (None if fe is None else jnp.asarray(fe.numpy()))
 
 
 def _prompts(vocab, seed=7):
@@ -109,13 +148,14 @@ def _assert_cache_dtypes(cache, jcache):
 def test_prefill_and_decode_match_jax(arch, use_kernels):
     jm, tm, jparams, tparams = _pair(arch, use_kernels)
     prompts = _prompts(tm.cfg.vocab)
-    cap = S + GEN
-    jlogits, jcache = jax.jit(lambda p, t: jm.prefill(
-        p, t, cache_capacity=cap))(jparams, jnp.asarray(prompts))
+    fe, jfe = _frontend(tm)
+    cap, P = S + GEN, tm.n_prefix
+    jlogits, jcache = _jprefill(jm, cap)(jparams, jnp.asarray(prompts), jfe)
     flash_attention_hsd.launches = gmm_ecd.launches = 0
     wkv6_btHN.launches = 0
     with torch.inference_mode():
-        logits, cache = tm.prefill(tparams, torch.tensor(prompts), cap)
+        logits, cache = tm.prefill(tparams, torch.tensor(prompts), cap,
+                                   frontend=fe)
     assert logits.shape == (B, 1, tm.cfg.vocab)
     _close(logits, jlogits)
     want = _jax_cache(jcache)
@@ -124,17 +164,17 @@ def test_prefill_and_decode_match_jax(arch, use_kernels):
     for k in want:
         _close(cache[k], want[k])
 
-    # teacher-forced decode over a cache with S + i of its cap slots
+    # teacher-forced decode over a cache with P + S + i of its slots
     # written: the zero slots are attended too, in both packages
     forced = np.random.default_rng(8).integers(
         0, tm.cfg.vocab, (GEN, B, 1)).astype(np.int32)
-    jdecode = jax.jit(jm.decode_step)
+    jdecode = _jdecode(jm)
     for i in range(GEN):
         jlogits, jcache = jdecode(jparams, jnp.asarray(forced[i]), jcache,
-                                  jnp.int32(S + i))
+                                  jnp.int32(P + S + i))
         with torch.inference_mode():
             logits, cache = tm.decode_step(tparams, torch.tensor(forced[i]),
-                                           cache, S + i)
+                                           cache, P + S + i)
         _close(logits, jlogits)
     want = _jax_cache(jcache)
     for k in want:
@@ -147,17 +187,20 @@ def test_prefill_and_decode_match_jax(arch, use_kernels):
 def test_greedy_tokens_match_jax(arch):
     jm, tm, jparams, tparams = _pair(arch, True)
     prompts = _prompts(tm.cfg.vocab, seed=9)
+    fe, jfe = _frontend(tm)
     gen = 8
-    jlogits, jcache = jax.jit(lambda p, t: jm.prefill(
-        p, t, cache_capacity=S + gen))(jparams, jnp.asarray(prompts))
-    jdecode = jax.jit(jm.decode_step)
+    jlogits, jcache = _jprefill(jm, S + gen)(jparams, jnp.asarray(prompts),
+                                             jfe)
+    jdecode = _jdecode(jm)
     tok = jnp.argmax(jlogits[:, -1], axis=-1)[:, None]
     want = []
     for i in range(gen):
-        jlogits, jcache = jdecode(jparams, tok, jcache, jnp.int32(S + i))
+        jlogits, jcache = jdecode(jparams, tok, jcache,
+                                  jnp.int32(tm.n_prefix + S + i))
         tok = jnp.argmax(jlogits[:, -1], axis=-1)[:, None]
         want.append(np.asarray(tok))
-    got = tserve.generate(tm, tparams, torch.tensor(prompts), gen)
+    got = tserve.generate(tm, tparams, torch.tensor(prompts), gen,
+                          frontend=fe)
     assert np.array_equal(got["tokens"].numpy(), np.concatenate(want, 1))
 
 
@@ -186,11 +229,12 @@ def test_bf16_prefill_and_decode_match_jax(arch, use_kernels):
     steps, logits and cache."""
     jm, tm, jparams, tparams = _pair(arch, use_kernels, "bfloat16")
     prompts = _prompts(tm.cfg.vocab)
-    cap = S + GEN
-    jlogits, jcache = jax.jit(lambda p, t: jm.prefill(
-        p, t, cache_capacity=cap))(jparams, jnp.asarray(prompts))
+    fe, jfe = _frontend(tm)
+    cap, P = S + GEN, tm.n_prefix
+    jlogits, jcache = _jprefill(jm, cap)(jparams, jnp.asarray(prompts), jfe)
     with torch.inference_mode():
-        logits, cache = tm.prefill(tparams, torch.tensor(prompts), cap)
+        logits, cache = tm.prefill(tparams, torch.tensor(prompts), cap,
+                                   frontend=fe)
     assert logits.dtype == torch.bfloat16
     _bf16_close(logits, jlogits, BF16_LOGIT_TOL)
     _near_best(logits[:, -1].float().argmax(-1).numpy(), jlogits)
@@ -200,13 +244,13 @@ def test_bf16_prefill_and_decode_match_jax(arch, use_kernels):
         _bf16_close(cache[k], want[k], BF16_CACHE_TOL)
     forced = np.random.default_rng(8).integers(
         0, tm.cfg.vocab, (GEN, B, 1)).astype(np.int32)
-    jdecode = jax.jit(jm.decode_step)
+    jdecode = _jdecode(jm)
     for i in range(GEN):
         jlogits, jcache = jdecode(jparams, jnp.asarray(forced[i]), jcache,
-                                  jnp.int32(S + i))
+                                  jnp.int32(P + S + i))
         with torch.inference_mode():
             logits, cache = tm.decode_step(tparams, torch.tensor(forced[i]),
-                                           cache, S + i)
+                                           cache, P + S + i)
         _bf16_close(logits, jlogits, BF16_LOGIT_TOL)
         _near_best(logits[:, -1].float().argmax(-1).numpy(), jlogits)
     want = _jax_cache(jcache)
@@ -238,16 +282,19 @@ def test_bf16_greedy_tokens_are_the_references_best(arch, monkeypatch):
 
     monkeypatch.setattr(tmoe, "_route", recording_route)
     prompts = _prompts(tm.cfg.vocab, seed=9)
+    fe, jfe = _frontend(tm)
     gen = 8
-    got = tserve.generate(tm, tparams, torch.tensor(prompts), gen)["tokens"]
+    got = tserve.generate(tm, tparams, torch.tensor(prompts), gen,
+                          frontend=fe)["tokens"]
     n_moe = sum(map(tm.cfg.is_moe_layer, range(tm.cfg.n_layers)))
     assert len(margins) == n_moe * (gen + 1)
     with torch.inference_mode():  # the token fed to the first decode step
-        first = tm.prefill(tparams, torch.tensor(prompts), S + gen)[0]
+        first = tm.prefill(tparams, torch.tensor(prompts), S + gen,
+                           frontend=fe)[0]
     fed = torch.cat([first[:, -1].float().argmax(-1)[:, None], got], 1)
-    jlogits, jcache = jax.jit(lambda p, t: jm.prefill(
-        p, t, cache_capacity=S + gen))(jparams, jnp.asarray(prompts))
-    jdecode = jax.jit(jm.decode_step)
+    jlogits, jcache = _jprefill(jm, S + gen)(jparams, jnp.asarray(prompts),
+                                             jfe)
+    jdecode = _jdecode(jm)
     flips = 0
     for i in range(gen + 1):
         tie = min(margins[i * n_moe:(i + 1) * n_moe], default=1.0)
@@ -258,7 +305,7 @@ def test_bf16_greedy_tokens_are_the_references_best(arch, monkeypatch):
         if i < gen:
             jlogits, jcache = jdecode(jparams,
                                       jnp.asarray(fed[:, i:i + 1].numpy()),
-                                      jcache, jnp.int32(S + i))
+                                      jcache, jnp.int32(tm.n_prefix + S + i))
     assert 2 * flips < gen + 1  # most steps are held
 
 
@@ -284,7 +331,7 @@ def test_make_cache_matches_jax_and_decodes_from_empty(arch, dtype):
         return
     jcache = jm.make_cache(B, cap)
     tokens = _prompts(tm.cfg.vocab, seed=10)[:, :3, None]
-    jdecode = jax.jit(jm.decode_step)
+    jdecode = _jdecode(jm)
     for i in range(3):
         jlogits, jcache = jdecode(jparams, jnp.asarray(tokens[:, i]),
                                   jcache, jnp.int32(i))

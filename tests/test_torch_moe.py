@@ -134,8 +134,19 @@ def test_router_ties_go_to_the_lower_expert():
 
 
 def test_local_dispatch_is_refused_by_name():
-    _, tcfg = _cfgs()
-    _, tp = _params(_cfgs()[0])
-    with pytest.raises(NotImplementedError, match="moe_local_dispatch"):
-        tmoe.apply_moe(tcfg, tp, torch.zeros((1, 2, tcfg.d_model)),
-                       local_dispatch=True)
+    """Row-local dispatch (`local_dispatch=True`) runs, as the reference's
+    does: each row dispatched on its own capacity (C = 8 for 12 tokens,
+    so the leaning rows drop tokens), on the model's einsum whatever
+    `use_kernels`, aux the mean over the rows."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(jcfg, seed=6)
+    lean = np.asarray(jp["router"])[:, 0]
+    x = _x((3, 12, tcfg.d_model), seed=7) + lean / np.linalg.norm(lean)
+    want, waux = jmoe.apply_moe(jcfg, jp, jnp.asarray(x),
+                                local_dispatch=True)
+    gmm_ecd.launches = 0
+    got, aux = tmoe.apply_moe(tcfg, tp, torch.tensor(x), use_kernels=True,
+                              local_dispatch=True)
+    assert gmm_ecd.launches == 0 and got.shape == x.shape
+    _close(got.numpy(), want)
+    _close(aux.item(), float(waux))

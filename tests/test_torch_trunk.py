@@ -68,8 +68,11 @@ def test_paper_drl_trunk_config_matches_jax():
 
 
 def test_unknown_arch_names_the_roadmap_item():
-    with pytest.raises(KeyError, match="item 15"):
-        get_config("gemma3-1b")
+    """An unknown name raises, listing the architectures the port has
+    (the whole LM zoo now: gemma3-1b among them resolves)."""
+    with pytest.raises(KeyError, match="gemma3-1b"):
+        get_config("gemma3-2b")
+    assert get_config("gemma3-1b").name == "gemma3-1b"
 
 
 # ----------------------------------------------------------------- layers
