@@ -181,7 +181,20 @@ Phases, in order; the script exits non-zero at the first failure:
      and Mamba on the model's own path, as the reference routes them),
      `generated_shape` [4, 16], and `lm_agreement` on each; the kernels
      phases also hold the zoo's flash and grouped-matmul shapes in bf16
-     (ZOO_FLASH_CASES, ZOO_GMM_CASES) against their plain versions.
+     (ZOO_FLASH_CASES, ZOO_GMM_CASES) against their plain versions;
+ 13. LM training: `repro_torch.launch.train.train` (use_kernels=False,
+     as the reference trains) of smollm-360m at full width, batch 16,
+     seq 128, 20 steps, in f32, in bf16 on f32 master weights (every
+     param and moment leaf still f32 after) and in f32 with remat (its
+     first 5 CEs the f32 run's within rtol 1e-6, its peak allocation
+     below the f32 run's); each CE finite, the last below the first; ms
+     a step and peak bytes. Then whisper-base, gemma3-1b, rwkv6-1.6b,
+     stablelm-1.6b and paligemma-3b at full width for 3 steps in bf16
+     with remat (finite CE), and the learning bars at
+     examples/train_lm.py's settings (reduced, f32, 300 steps, batch 16,
+     seq 64, lr 3e-3): smollm-360m, deepseek-moe-16b, rwkv6-1.6b and
+     jamba-v0.1-52b end within 0.25 of `optimal_ce`. Every kernel's
+     launch count is the same after the phase as before it.
 It then prints the kernels' JSON line and, last, the device line.
 """
 import contextlib
@@ -305,6 +318,28 @@ ZOO = [
 # bf16 layer by layer, x max|plain output| (2^-6: a few bf16 roundings)
 LM_F32_TOL = 1e-3
 LM_BF16_TOL = 2.0 ** -6
+# LM training (phase lm_train) through repro_torch.launch.train.train:
+# the launcher's default arch at full width, batch 16, seq 128, 20 steps
+# (cut from 200 for time), in f32, in bf16 on f32 master weights and in
+# f32 with remat; the first REMAT_MATCH losses of the remat run against
+# the f32 run's, bitwise or within rtol 1e-6
+LM_TRAIN = dict(arch="smollm-360m", batch=16, seq=128, steps=20, lr=3e-4)
+REMAT_MATCH = 5
+# the other configs whose f32 params, gradients and two AdamW moments
+# (16 bytes a param) fit the card, 3 steps in bf16 with remat at batch 16,
+# seq 128 (paligemma's rows are its 256 stub patches + 128 tokens); the
+# rest (minicpm3-4b 68.2 GB, deepseek-moe-16b 262, jamba-v0.1-52b 823,
+# llama4 6363) train reduced only
+LM_TRAIN_FULL = ("whisper-base", "gemma3-1b", "rwkv6-1.6b", "stablelm-1.6b",
+                 "paligemma-3b")
+LM_TRAIN_FULL_STEPS = 3
+# learning bars at examples/train_lm.py's settings (reduced, f32): the
+# final CE within LM_BAR_MARGIN of the stream's optimal_ce (the
+# reference's gap on a CPU is 0.04-0.11; its stream draws differ)
+LM_BARS = dict(archs=("smollm-360m", "deepseek-moe-16b", "rwkv6-1.6b",
+                      "jamba-v0.1-52b"), steps=300, batch=16, seq=64,
+               lr=3e-3, seed=0)
+LM_BAR_MARGIN = 0.25
 # (B, T, H, N, chunk) of the chunked WKV: the rwkv6-1.6b serve prefill,
 # a prompt of eight chunks, the decode step, then the reference's sweep
 # shapes (ragged last chunks)
@@ -1966,7 +2001,8 @@ def phase_lm_serve(card):
     from repro_torch.models.model import ModelOpts, build_model
     arch, B, S, gen_len = (LM[k] for k in ("arch", "batch", "prompt_len",
                                            "gen_len"))
-    model = build_model(arch, ModelOpts(dtype="bfloat16", use_kernels=True))
+    model = build_model(arch, ModelOpts(dtype="bfloat16", remat=False,
+                                        use_kernels=True))
     cfg = model.cfg
     check((cfg.n_layers, cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff)
           == (28, 2048, 64, 1408), f"{arch}: not the full-width config")
@@ -2059,7 +2095,8 @@ def lm_agreement(model, params, prompts, capacity, frontend=None):
     from repro_torch.models.layers import apply_norm, apply_params
     from repro_torch.models.model import ModelOpts, build_model
     arch, cfg = model.cfg.name, model.cfg
-    models = {(dt, k): build_model(cfg, ModelOpts(dtype=dt, use_kernels=k))
+    models = {(dt, k): build_model(cfg, ModelOpts(dtype=dt, remat=False,
+                                                  use_kernels=k))
               for dt in ("float32", "bfloat16") for k in (False, True)}
     S = prompts.shape[1]
     logits = {}
@@ -2275,7 +2312,8 @@ def phase_rwkv_serve(card):
     from repro_torch.models.model import ModelOpts, build_model
     arch, B, S, gen_len = (RWKV[k] for k in ("arch", "batch", "prompt_len",
                                              "gen_len"))
-    model = build_model(arch, ModelOpts(dtype="bfloat16", use_kernels=True))
+    model = build_model(arch, ModelOpts(dtype="bfloat16", remat=False,
+                                        use_kernels=True))
     cfg = model.cfg
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
            cfg.vocab) == (24, 2048, 32, 64, 7168, 65536),
@@ -2381,7 +2419,8 @@ def rwkv_agreement(model, params, prompts):
     from repro_torch.models.model import ModelOpts, build_model
     cfg = model.cfg
     out = {}
-    models = {(dt, k): build_model(cfg, ModelOpts(dtype=dt, use_kernels=k))
+    models = {(dt, k): build_model(cfg, ModelOpts(dtype=dt, remat=False,
+                                                  use_kernels=k))
               for dt in ("float32", "bfloat16") for k in (False, True)}
     for S in RWKV["agree_prompts"]:
         toks = prompts
@@ -2490,7 +2529,7 @@ def phase_lm_zoo(card):
                 "gmm_ecd": 3 * n_moe * (2 + gen_len + 1)}
         check(want == {"flash_attention_hsd": n_flash, "gmm_ecd": n_gmm},
               f"{arch}: expected launch counts {want}")
-        model = build_model(cfg, ModelOpts(dtype="bfloat16",
+        model = build_model(cfg, ModelOpts(dtype="bfloat16", remat=False,
                                            use_kernels=True))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2538,6 +2577,103 @@ def phase_lm_zoo(card):
         del params, model
         torch.cuda.empty_cache()
     return total
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by name (each counts its own
+    launches)."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_hsd
+    from repro_torch.kernels.gmm.kernel import gmm_ecd
+    from repro_torch.kernels.wkv6.kernel import wkv6_btHN
+    return dict(train_counters(), flash_attention_hsd=flash_attention_hsd,
+                gmm_ecd=gmm_ecd, wkv6_btHN=wkv6_btHN)
+
+
+def lm_train_run(arch, **kw):
+    """One `train` on the card from an empty cache: the result, the step
+    ms (the mean over the logged steps after the first two, every step
+    logged and synced by reading its CE; the log lines are kept out of
+    this script's output) and the peak bytes allocated."""
+    import torch
+    from repro_torch.launch.train import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train(arch, reduced=kw.pop("reduced", False), log_every=1,
+                    device="cuda", **kw)
+    torch.cuda.synchronize()
+    h = out["history"]
+    ces = [r["ce"] for r in h]
+    check(all(math.isfinite(c) for c in ces), f"{arch} train: CE {ces}")
+    ms = 1e3 * (h[-1]["elapsed_s"] - h[1]["elapsed_s"]) / (len(h) - 2)
+    return out, ces, ms, torch.cuda.max_memory_allocated()
+
+
+def phase_lm_train(card):
+    """LM training on the card through repro_torch.launch.train.train
+    (use_kernels=False, as the reference trains): smollm-360m at full
+    width in f32, in bf16 on f32 master weights and with remat; the other
+    configs that fit the card for a few steps; the learning bars. No
+    kernel launches in the phase: training takes the model's path."""
+    import torch
+    counters = kernel_counters()
+    before = {n: f.launches for n, f in counters.items()}
+    t_phase = time.perf_counter()
+    arch = LM_TRAIN["arch"]
+    kw = {k: v for k, v in LM_TRAIN.items() if k != "arch"}
+    runs = {}
+    for name, dtype, remat in (("f32", "float32", False),
+                               ("bf16", "bfloat16", False),
+                               ("remat", "float32", True)):
+        out, ces, ms, peak = lm_train_run(arch, dtype=dtype, remat=remat,
+                                          return_state=True, **kw)
+        check(ces[-1] < ces[0], f"{arch} {name}: CE {ces[0]} -> {ces[-1]}")
+        if name == "bf16":
+            check(all(v.dtype == torch.float32 for tree in (
+                out["params"], out["opt_state"]["m"], out["opt_state"]["v"])
+                for v in tree.values()),
+                f"{arch} bf16: a master or moment leaf is not f32")
+        runs[name] = dict(ces=ces, ms=ms, peak=peak,
+                          n_params=out["n_params"])
+        print("lm_train " + json.dumps(dict(
+            arch=arch, run=name, dtype=dtype, remat=remat, ce=ces,
+            ms_per_step=ms, peak_bytes=peak, n_params=out["n_params"],
+            optimal_ce=out["optimal_ce"], card=card)))
+        del out
+    a, b = runs["f32"]["ces"][:REMAT_MATCH], runs["remat"]["ces"][
+        :REMAT_MATCH]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(b, a))
+    check(rel <= 1e-6, f"{arch}: remat CE {b} against {a}")
+    check(runs["remat"]["peak"] < runs["f32"]["peak"],
+          f"{arch}: remat peak {runs['remat']['peak']} not below "
+          f"{runs['f32']['peak']}")
+    print("lm_train remat " + json.dumps(dict(
+        bitwise=a == b, max_rel=rel, peak_bytes=runs["remat"]["peak"],
+        plain_peak_bytes=runs["f32"]["peak"], card=card)))
+    for arch in LM_TRAIN_FULL:
+        out, ces, ms, peak = lm_train_run(
+            arch, steps=LM_TRAIN_FULL_STEPS, batch=LM_TRAIN["batch"],
+            seq=LM_TRAIN["seq"], lr=LM_TRAIN["lr"], dtype="bfloat16",
+            remat=True)
+        print("lm_train " + json.dumps(dict(
+            arch=arch, run="full_bf16_remat", ce=ces, ms_per_step=ms,
+            peak_bytes=peak, n_params=out["n_params"], card=card)))
+        del out
+    bars = {}
+    for arch in LM_BARS["archs"]:
+        kw = {k: v for k, v in LM_BARS.items() if k != "archs"}
+        out, ces, ms, peak = lm_train_run(arch, reduced=True, **kw)
+        bars[arch] = dict(first=ces[0], final=ces[-1],
+                          optimal_ce=out["optimal_ce"], ms_per_step=ms)
+        check(ces[-1] <= out["optimal_ce"] + LM_BAR_MARGIN,
+              f"{arch}: final CE {ces[-1]} above optimal "
+              f"{out['optimal_ce']} + {LM_BAR_MARGIN}")
+    print("lm_train bars " + json.dumps(dict(bars, card=card)))
+    after = {n: f.launches for n, f in counters.items()}
+    check(after == before, f"lm_train launched kernels: {before} -> {after}")
+    print(f"lm_train: no kernel launches; "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_gmm_guard():
@@ -2593,6 +2729,7 @@ def main():
     phase_wkv6_guard()
     rwkv_launches = phase_rwkv_serve(card)
     zoo_launches = phase_lm_zoo(card)
+    phase_lm_train(card)
     serve = cases[(SERVE_CASE, "float32")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

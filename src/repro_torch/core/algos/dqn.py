@@ -119,6 +119,61 @@ class DQN:
         w = torch.ones_like(td) if is_weights is None else is_weights
         return torch.mean(w * torch.square(td)), td.detach()
 
+    def update(self, params, opt_state, batch, is_weights, optimizer,
+               grad_tx=None, param_tx=None):
+        """One TD step on a drawn batch: the online net's gradient
+        (exchanged by `grad_tx`), the optimizer, `param_tx` on the new
+        online net, the update counter and the target sync. Returns
+        (params, opt_state, loss, td)."""
+        def loss_online(online):
+            return self.loss({**params, **prefixed("online", online)},
+                             batch, is_weights)
+
+        (loss, td), grads = value_and_grad(
+            loss_online, sub(params, "online"), has_aux=True)
+        if grad_tx is not None:
+            grads = grad_tx(grads)
+        online, opt_state = optimizer.apply(sub(params, "online"),
+                                            opt_state, grads)
+        if param_tx is not None:
+            online = param_tx(online)
+        steps = params["steps"] + 1
+        sync = steps % self.target_update == 0
+        target = {k: torch.where(sync, online[k], t)
+                  for k, t in sub(params, "target").items()}
+        return {**prefixed("online", online), **prefixed("target", target),
+                "steps": steps}, opt_state, loss, td
+
+    def learner_step(self, params, opt_state, replay_state, noise,
+                     optimizer, batch_size=64):
+        """The reference's learner step on a filled replay, with the
+        draw's noise given in place of the key (`replay.noise`: the
+        Gumbel vector, or the uniform draw's uniforms): draw, `update`,
+        and write the |td| priorities back. Returns (params, opt_state,
+        replay_state, loss)."""
+        replay = self.replay
+        if self.prioritized:
+            batch, idx, w = replay.sample_with(replay_state, noise,
+                                               batch_size)
+        else:
+            batch, idx = replay.sample_with(replay_state, noise, batch_size)
+            w = None
+        params, opt_state, loss, td = self.update(params, opt_state, batch,
+                                                  w, optimizer)
+        if self.prioritized:
+            replay_state = replay.update_priorities(replay_state, idx, td)
+        return params, opt_state, replay_state, loss
+
+    def act(self, params, obs, noise, epsilon):
+        """ε-greedy over the online net's q, with the draws given in place
+        of the key: `noise` is (random actions, uniforms), each shaped as
+        the batch; a uniform below `epsilon` takes its random action."""
+        rand, u = noise
+        greedy = torch.argmax(self.q_values(sub(params, "online"), obs),
+                              dim=-1)
+        return torch.where(u < epsilon, rand.to(greedy.dtype),
+                           greedy).to(torch.int32)
+
 
 class _QPolicy:
     """A DQN net behind the rollout's policy interface: behavior params
@@ -276,19 +331,9 @@ class DQNAgent(Agent):
         else:
             batch, idx = replay.sample_with(rstate, noise, self.batch_size)
             w = None
-
-        def loss_online(online):
-            return self.dqn.loss({**state.params,
-                                  **prefixed("online", online)}, batch, w)
-
-        (loss, td), grads = value_and_grad(
-            loss_online, sub(state.params, "online"), has_aux=True)
-        if grad_tx is not None:
-            grads = grad_tx(grads)
-        online, opt_state = self.opt.apply(sub(state.params, "online"),
-                                           state.opt_state, grads)
-        if param_tx is not None:
-            online = param_tx(online)
+        new_params, opt_state, loss, td = self.dqn.update(
+            state.params, state.opt_state, batch, w, self.opt, grad_tx,
+            param_tx)
         warm = state.steps >= self.warmup
         if self.dqn.prioritized:
             # keep the Ape-X max-priority inserts during warmup: |td| of
@@ -296,12 +341,6 @@ class DQNAgent(Agent):
             updated = replay.update_priorities(rstate, idx, td)
             rstate = dict(rstate, prio=torch.where(warm, updated["prio"],
                                                    rstate["prio"]))
-        qsteps = state.params["steps"] + 1
-        sync = qsteps % self.dqn.target_update == 0
-        target = {k: torch.where(sync, online[k], t)
-                  for k, t in sub(state.params, "target").items()}
-        new_params = {**prefixed("online", online),
-                      **prefixed("target", target), "steps": qsteps}
         # pure-collection warmup: keep filling the replay, hold the params
         params = select(warm, new_params, state.params)
         opt_state = select(warm, opt_state, state.opt_state)

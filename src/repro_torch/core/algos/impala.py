@@ -13,7 +13,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.advantages import discounted_return
-from repro_torch.core.agent import PolicyGradientAgent, register
+from repro_torch.core.agent import (PolicyGradientAgent, register,
+                                    value_and_grad)
 from repro_torch.core.networks import make_policy
 from repro_torch.core.vtrace import epsilon_correction, vtrace
 from repro_torch.optim import adamw, clip_by_global_norm
@@ -67,6 +68,13 @@ class IMPALA:
         vf_loss = torch.mean(torch.square(v_t - vs))
         return pg_loss + self.vf_coef * vf_loss \
             - self.ent_coef * torch.mean(ent)
+
+    def learner_step(self, params, opt_state, traj, bootstrap_obs,
+                     optimizer):
+        """One gradient step of `loss` -> (params, opt_state, loss)."""
+        loss, grads = value_and_grad(self.loss, params, traj, bootstrap_obs)
+        params, opt_state = optimizer.apply(params, opt_state, grads)
+        return params, opt_state, loss
 
 
 class IMPALAAgent(PolicyGradientAgent):

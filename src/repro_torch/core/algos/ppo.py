@@ -53,6 +53,31 @@ class PPO:
                 "logp": flat(traj["logp"]), "adv": flat(adv),
                 "ret": flat(ret)}
 
+    def update(self, params, opt_state, batch, perms, optimizer,
+               n_epochs=4, n_minibatch=4, grad_tx=None):
+        """The reference's epoch/minibatch loop over a flattened batch,
+        with its (n_epochs, n) minibatch permutations given in place of
+        the key: epoch e visits minibatch i as perms[e, i*mb:(i+1)*mb].
+        `grad_tx` exchanges every minibatch gradient. Returns (params,
+        opt_state, the mean loss)."""
+        if perms.shape[0] != n_epochs:
+            raise ValueError(f"perms has {perms.shape[0]} rows for "
+                             f"{n_epochs} epochs")
+        mb = perms.shape[1] // n_minibatch
+        losses = []
+        for perm in perms:
+            for i in range(n_minibatch):
+                idx = perm[i * mb:(i + 1) * mb]
+                mbatch = {k: v[idx] for k, v in batch.items()}
+                loss, grads = value_and_grad(self.loss, params, mbatch)
+                if grad_tx is not None:
+                    grads = grad_tx(grads)
+                params, opt_state = optimizer.apply(params, opt_state,
+                                                    grads)
+                losses.append(loss)
+        loss = torch.stack(losses).reshape(n_epochs, -1).mean(-1).mean()
+        return params, opt_state, loss
+
 
 class PPOAgent(PolicyGradientAgent):
     """PPO behind the unified protocol (shares init with the other
@@ -91,19 +116,9 @@ class PPOAgent(PolicyGradientAgent):
         `grad_tx` exchanges every minibatch gradient, `param_tx` mixes
         the params once after the epochs."""
         batch = self.algo.make_batch(state.params, traj, boot_obs)
-        mb = perms.shape[1] // self.n_minibatch
-        params, opt_state = state.params, state.opt_state
-        losses = []
-        for perm in perms:
-            for i in range(self.n_minibatch):
-                idx = perm[i * mb:(i + 1) * mb]
-                mbatch = {k: v[idx] for k, v in batch.items()}
-                loss, grads = value_and_grad(self.algo.loss, params, mbatch)
-                if grad_tx is not None:
-                    grads = grad_tx(grads)
-                params, opt_state = self.opt.apply(params, opt_state, grads)
-                losses.append(loss)
-        loss = torch.stack(losses).reshape(len(perms), -1).mean(-1).mean()
+        params, opt_state, loss = self.algo.update(
+            state.params, state.opt_state, batch, perms, self.opt,
+            len(perms), self.n_minibatch, grad_tx)
         if param_tx is not None:
             params = param_tx(params)
         return TrainState(params, opt_state, state.extra,

@@ -37,6 +37,15 @@ def splitmix64(x):
     return x ^ (x >> np.uint64(31))
 
 
+def stream_seed(seed: int, *ids: int) -> int:
+    """A 63-bit generator seed that is a pure function of (seed, *ids)."""
+    with np.errstate(over="ignore"):
+        x = splitmix64(np.array([int(seed) & int(_M64)], np.uint64))
+        for i in ids:
+            x = splitmix64(x ^ np.uint64(int(i) & int(_M64)))
+    return int(x[0]) >> 1
+
+
 def request_uniforms(seed: int, ids, n: int) -> np.ndarray:
     """(len(ids), n) float64 uniforms in (0, 1), each a pure function of
     (seed, request id, column): a counter-based hash, vectorized."""
@@ -203,7 +212,7 @@ class TrunkPolicy(_ActorCritic):
         super().__init__()
         from repro_torch.models.model import ModelOpts, build_model
         self.device = resolve_device(device)
-        self.lm = build_model(arch, ModelOpts(dtype="float32",
+        self.lm = build_model(arch, ModelOpts(dtype="float32", remat=False,
                                               use_kernels=use_kernels),
                               reduced=reduced)
         self.n_actions = n_actions

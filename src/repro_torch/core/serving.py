@@ -174,6 +174,10 @@ class RequestBatcher:
              else arrival})
         return rid
 
+    def next_arrival(self) -> Optional[float]:
+        """Arrival time of the oldest queued request (None if empty)."""
+        return self._queue[0]["arrival"] if self._queue else None
+
     def take(self, max_n: int, now: Optional[float] = None) -> List[dict]:
         """Pop up to `max_n` requests in FIFO order. With `now`, only
         requests that have arrived (arrival <= now) are admissible, and
@@ -223,6 +227,13 @@ class ServeEngine:
         self._programs: Dict[int, _BucketProgram] = {}
         self._served = 0
         self._batches = 0
+
+    @classmethod
+    def for_agent(cls, agent, env, **kw):
+        """Engine for a registered Agent: its rollout policy and the env's
+        observation spec. Publish params separately
+        (`store.publish_from_state(agent, state)`)."""
+        return cls(agent.policy, env.spec.observation, **kw)
 
     @property
     def max_bucket(self) -> int:

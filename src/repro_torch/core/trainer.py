@@ -77,12 +77,11 @@ import copy
 import dataclasses
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core import agent as agent_api
 from repro_torch.core.distribution import DistPlan
-from repro_torch.core.networks import splitmix64
+from repro_torch.core.networks import stream_seed
 from repro_torch.core.pipeline import queue_init, queue_pop, queue_push
 from repro_torch.core.positions import PositionGroup, tree_leaves, tree_map
 from repro_torch.core.replay import PrioritizedReplay
@@ -90,18 +89,6 @@ from repro_torch.core.replay_service import ShardedPrioritizedReplay
 from repro_torch.core.rollout import rollout
 from repro_torch.core.topology import (ShardAxis, ZeRO3Agent, member_sum,
                                        zero_sharded_optimizer)
-
-_M64 = (1 << 64) - 1
-
-
-def stream_seed(seed: int, *ids: int) -> int:
-    """A 63-bit generator seed that is a pure function of (seed, *ids)."""
-    with np.errstate(over="ignore"):
-        x = splitmix64(np.array([seed & _M64], np.uint64))
-        for i in ids:
-            x = splitmix64(x ^ np.uint64(i & _M64))
-    return int(x[0]) >> 1
-
 
 # the per-iteration streams, and the set-up streams (iteration -1); an
 # elastic reshard's fresh envs draw from (-1, _RESHARD, superstep window)

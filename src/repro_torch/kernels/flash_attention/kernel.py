@@ -170,8 +170,9 @@ def _short_f32(name, dt, kv_end, B, KVH, S, G):
         raise ValueError(
             f"{name}: the backward covers float32 with key spans <= "
             f"{SHORT_SPAN} (got {'float32' if dt == 0 else 'bfloat16'}, "
-            f"{kv_end} keys, B={B}, KVH={KVH}); training elsewhere comes "
-            f"with LM training, ROADMAP queue 1 item 15")
+            f"{kv_end} keys, B={B}, KVH={KVH}); the reference trains its "
+            f"LMs without kernels (use_kernels=False), and other backward "
+            f"kernels wait in ROADMAP queue 2")
 
 
 def flash_attention_fwd_lse(q, k, v, *, causal=True, window=0,

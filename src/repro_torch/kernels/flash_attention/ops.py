@@ -74,9 +74,10 @@ def flash_attention(qg, k, v, *, causal=True, window=0):
             raise RuntimeError(
                 f"flash_attention: the backward kernel takes float32 with "
                 f"at most {SHORT_SPAN} keys; got {qg.dtype} with {S} keys "
-                f"under grad (training there comes with LM training, "
-                f"ROADMAP queue 1 item 15; run under torch.no_grad() to "
-                f"serve)")
+                f"under grad (the reference trains its LMs without "
+                f"kernels, use_kernels=False, as launch/train.py does; "
+                f"other backward kernels wait in ROADMAP queue 2; run "
+                f"under torch.no_grad() to serve)")
         return _FlashAttention.apply(qg, k, v, causal, window)
     B, S, KVH, G, D = qg.shape
     q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)

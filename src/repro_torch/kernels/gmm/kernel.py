@@ -36,9 +36,11 @@ def gmm_ecd(x, w):
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         # the kernel writes through ctypes: its output has no grad_fn
         raise RuntimeError(
-            "gmm_ecd: x or w requires grad, but no gmm backward kernel is "
-            "ported (LM training is a later slice); run under "
-            "torch.no_grad() / inference_mode, or use use_kernels=False")
+            "gmm_ecd: x or w requires grad, but there is no gmm backward "
+            "kernel: the reference trains its LMs without kernels "
+            "(use_kernels=False, as launch/train.py does), and backward "
+            "kernels wait in ROADMAP queue 2; run under torch.no_grad() / "
+            "inference_mode to serve")
     if x.ndim != 3 or w.ndim != 3 or w.shape[0] != x.shape[0] or \
             w.shape[1] != x.shape[2]:
         raise ValueError(f"gmm_ecd: expected x (E,C,d) and w (E,d,f); got "

@@ -81,10 +81,11 @@ def _check(r, k, v, logw, u, state, chunk):
             or (state is not None and state.requires_grad)):
         # the kernel writes through ctypes: its outputs have no grad_fn
         raise RuntimeError(
-            "wkv6_btHN: an input requires grad, but no WKV backward kernel "
-            "is ported (the reference has none; RWKV training is a later "
-            "slice); run under torch.no_grad() / inference_mode, or use "
-            "use_kernels=False")
+            "wkv6_btHN: an input requires grad, but there is no WKV "
+            "backward kernel: the reference trains its LMs without kernels "
+            "(use_kernels=False, as launch/train.py does), and backward "
+            "kernels wait in ROADMAP queue 2; run under torch.no_grad() / "
+            "inference_mode to serve")
     shape = r.shape
     if len(shape) != 4:
         _refuse(r, k, v, logw, u, state)

@@ -57,7 +57,7 @@ def main(argv=None):
     from repro_torch.launch.serve import stub_frontend
     from repro_torch.models.model import ModelOpts, build_model
 
-    model = build_model(args.arch, ModelOpts(dtype="bfloat16",
+    model = build_model(args.arch, ModelOpts(dtype="bfloat16", remat=False,
                                              use_kernels=not args.plain))
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen)

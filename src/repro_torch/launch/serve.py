@@ -120,7 +120,8 @@ def serve(arch="smollm-360m", reduced=True, batch=4, prompt_len=32,
     input. Returns the reference's keys (times unrounded) and the
     device."""
     device = resolve_device(device)
-    model = build_model(arch, ModelOpts(dtype=dtype, use_kernels=use_kernels),
+    model = build_model(arch, ModelOpts(dtype=dtype, remat=False,
+                                        use_kernels=use_kernels),
                         reduced=reduced)
     cfg = model.cfg
     gen = torch.Generator(device=device).manual_seed(seed)

@@ -21,16 +21,22 @@ embeddings and prepends them to the tokens, so its caches grow by the
 prefix and its decode positions start after it.
 
 Execution modes: the block stack alone (`_run_seq`; the policy trunk
-calls `run_blocks`), `prefill` (emits the cache) and `decode_step` (one
-token against it, updating the cache in place: an attention block
+calls `run_blocks`), "train" (the whole sequence to (logits, aux), what
+`loss` differentiates), `prefill` (emits the cache) and `decode_step`
+(one token against it, updating the cache in place: an attention block
 writes the token's k, v into its slot, an RWKV block overwrites its
 state, and under `use_kernels` the WKV kernel writes the new S straight
-into the cache's buffer). Train-mode `forward`/`loss` (LM training) are
-not ported yet. The reference's ZeRO-3 list form of
-the stack (`_run_seq` over a list of blocks, `_sequence_barrier`) has no
-counterpart: it only keeps XLA from hoisting every block's gather ahead
-of the loop, and eager PyTorch runs in program order
-(core/networks.py `TrunkPolicy.partition_list`).
+into the cache's buffer). With `ModelOpts.remat` (the reference's
+default) a run with no cache under grad recomputes each stack
+super-block in the backward (`torch.utils.checkpoint`), as the
+reference's `jax.checkpoint` around its scan body; the prefix and tail
+blocks keep their activations, as there. The reference trains with
+`use_kernels=False`, and so does `launch/train.py`.
+
+The reference's ZeRO-3 list form of the stack (`_run_seq` over a list
+of blocks, `_sequence_barrier`) has no counterpart: it only keeps XLA
+from hoisting every block's gather ahead of the loop, and eager PyTorch
+runs in program order (core/networks.py `TrunkPolicy.partition_list`).
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ import math
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig, get_config
 from repro_torch.kernels.common import resolve_device
@@ -63,6 +71,7 @@ def _rounds_before(name):
 @dataclasses.dataclass(frozen=True)
 class ModelOpts:
     dtype: str = "bfloat16"
+    remat: bool = True
     use_kernels: bool = False
     block_k: int = 512
     n_q_chunks: int = 8
@@ -135,14 +144,16 @@ class LanguageModel(nn.Module):
             add_param(self, "projector",
                       (cfg.frontend_dim or cfg.d_model, cfg.d_model), dense())
 
-    def init(self, generator, device="cuda") -> dict:
+    def init(self, generator, device="cuda", param_dtype=None) -> dict:
         """Fresh params (flat, JAX key paths) drawn leaf by leaf on
         `generator`'s device (a CUDA generator draws on the card), the
-        matrices stored in `opts.dtype` and the norm scales in f32, then
-        placed on `device`: the card by default, RuntimeError without
-        one."""
+        matrices stored in `param_dtype` (default `opts.dtype`) and the
+        norm scales in f32, then placed on `device`: the card by default,
+        RuntimeError without one. Training passes torch.float32: f32
+        master weights whatever the compute dtype, as the reference
+        stores every leaf and casts at use."""
         return init_params(self, generator, resolve_device(device),
-                           self.opts.tdtype)
+                           param_dtype or self.opts.tdtype)
 
     def layers(self):
         """(cache/param key prefix, block, spec) in execution order."""
@@ -159,17 +170,51 @@ class LanguageModel(nn.Module):
         trunk calls it directly), cross-attending `enc_out` in a model
         with an encoder. Returns (x, cache as a flat dict keyed like the
         params, the summed MoE aux loss: an f32 scalar tensor, or 0.0
-        without MoE layers)."""
+        without MoE layers). With `opts.remat`, no cache and grad on,
+        each stack super-block runs under `_remat_superblock`."""
         aux = 0.0
         caches = {}
         dt = x.dtype
+        remat = (self.opts.remat and not cache_capacity
+                 and torch.is_grad_enabled())
         for name, blk in self.layers():
             if _rounds_before(name):
                 x = x.to(dt)
+            if remat and name.startswith("stack/"):
+                if name.endswith("/t0"):
+                    x, a = self._remat_superblock(
+                        self.stack[int(name.split("/")[1])], x, pos0,
+                        enc_out)
+                    aux = aux + a
+                continue
             x, c, a = blk(x, pos0, cache_capacity, enc_out=enc_out)
             aux = aux + a
             caches.update({f"{name}/{k}": v for k, v in c.items()})
         return x.to(dt), caches, aux
+
+    def _remat_superblock(self, sb, x, pos0, enc_out):
+        """One stack super-block under a non-reentrant checkpoint: its
+        activations are recomputed in the backward. Its params go in as
+        the checkpointed function's inputs, since by the recompute
+        `apply_params` has put the module's meta templates back. The
+        boundary is the super-block, so the residual is rounded at its
+        t0 only (`_rounds_before`), as in the reference's scan body.
+        Returns (x, aux)."""
+        names, leaves = zip(*sb.named_parameters())
+
+        def body(x, enc_out, *leaves):
+            params = dict(zip(names, leaves))
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for t in range(self.period):
+                pre = f"t{t}."
+                x, _, a = functional_call(
+                    sb[f"t{t}"], {k[len(pre):]: v for k, v in params.items()
+                                  if k.startswith(pre)},
+                    (x, pos0, 0), {"enc_out": enc_out}, strict=True)
+                aux = aux + a
+            return x, aux
+
+        return checkpoint(body, x, enc_out, *leaves, use_reentrant=False)
 
     def encode(self, frames):
         """Whisper encoder over stub frame embeddings (B, Te, d): the
@@ -208,6 +253,9 @@ class LanguageModel(nn.Module):
           * "inputs": tokens x and `frontend` -> (the embedded sequence,
             the encoder's output or None), what "prefill" runs the stack
             over;
+          * "train": tokens x (and `frontend`) -> (logits (B, S, V) of
+            the tokens, a VLM's prefix dropped; the summed MoE aux loss),
+            the stack run with no cache;
           * "prefill": tokens x (and `frontend`) -> (last-token logits,
             cache);
           * "decode": token x (B,1) at position `pos` against `cache`
@@ -217,6 +265,11 @@ class LanguageModel(nn.Module):
             return self.run_blocks(x, pos0, cache_capacity)
         if mode == "inputs":
             return self._inputs(x, frontend)
+        if mode == "train":
+            h, enc_out = self._inputs(x, frontend)
+            h, _, aux = self.run_blocks(h, 0, 0, enc_out)
+            h = apply_norm(self.final_norm, h)
+            return unembed(self.embed, h, cfg)[:, self.n_prefix:], aux
         if mode == "prefill":
             h, enc_out = self._inputs(x, frontend)
             h, cache, _ = self.run_blocks(h, 0, cache_capacity, enc_out)
@@ -239,6 +292,21 @@ class LanguageModel(nn.Module):
         """Run the block stack on explicit params -> (x, cache, aux)."""
         return apply_params(self, params, x, pos0, mode="seq",
                             cache_capacity=cache_capacity)
+
+    def loss(self, params, batch):
+        """Next-token cross-entropy (+ MoE aux) on explicit params. batch:
+        {"tokens": (B, S+1) int, optional "frontend"}. Returns (ce + aux,
+        {"ce", "aux"}), the log-sum-exp and the picked logit taken in
+        f32, as the reference's `loss`."""
+        tokens = batch["tokens"]
+        logits, aux = apply_params(self, params, tokens[:, :-1],
+                                   mode="train",
+                                   frontend=batch.get("frontend"))
+        logits = logits.float()
+        picked = logits.gather(-1, tokens[:, 1:, None].long())[..., 0]
+        ce = torch.mean(torch.logsumexp(logits, dim=-1) - picked)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, tokens, cache_capacity=None, *,
                 frontend=None):

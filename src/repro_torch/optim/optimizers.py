@@ -36,6 +36,40 @@ class Optimizer:
         updates, state = self.update(grads, state, params)
         return tree_map(lambda p, u: p + u, params, updates), state
 
+    def apply_leafwise(self, params, state, grads, group_numel=1 << 26):
+        """`apply` on dicts it updates in place, a group of leaves at a
+        time (consecutive leaves of at most `group_numel` elements, a
+        larger leaf alone): each group's new params and state entries
+        replace the old ones before the next group is updated, so the
+        peak holds one copy of the params and the state (and, under a
+        clip, the clipped gradients) instead of two. For per-coordinate
+        updates only (`pre` then `shard_update`, or an `update` with no
+        `pre`); the same numbers as `apply`. Empties `grads`."""
+        if self.pre is not None:
+            grads_in, grads = grads, self.pre(grads)
+            grads_in.clear()
+        update = self.update if self.pre is None else self.shard_update
+        groups, size = [[]], 0
+        for k, g in grads.items():
+            if groups[-1] and size + g.numel() > group_numel:
+                groups.append([])
+                size = 0
+            groups[-1].append(k)
+            size += g.numel()
+        old = dict(state)
+        for keys in groups:
+            part = {n: {k: t[k] for k in keys} if isinstance(t, dict) else t
+                    for n, t in old.items()}
+            upd, new = update({k: grads.pop(k) for k in keys}, part,
+                              {k: params[k] for k in keys})
+            for k in keys:
+                params[k] = params[k] + upd[k]
+            for n, t in new.items():
+                if isinstance(t, dict):
+                    state[n].update(t)
+                else:
+                    state[n] = t
+        return params, state
 
 def global_norm(tree):
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))

@@ -9,7 +9,10 @@ repro.core.algos.dqn, and DQN through the Trainer, the CLIs and serving:
       rtol = atol = 1e-5 (f32 sums in another order); replay ptr/size and
       counters exact. Fused, legacy, uniform and single-Q; the trunk
       q-net runs a learner step;
-  (b) the ε anneal and `_QPolicy.sample_value` with explicit noise;
+      The algorithm class's own `DQN.learner_step` on a filled replay,
+      twice, with the noise of the reference's key;
+  (b) the ε anneal, `_QPolicy.sample_value` with explicit noise, and
+      `DQN.act` with the reference's two draws of its key;
   (c) fused and unfused fits bitwise equal (the GridWorld learning bar is
       checked on the card, in chip_smoke.py, over 16 seeds);
   (d) the CLI and serving: `rl_train --algo dqn`, a served DQN batch, a
@@ -216,6 +219,78 @@ def test_qpolicy_sample_value_with_explicit_noise():
     tq, tv = tag.policy.apply(params, torch.tensor(obs))
     np.testing.assert_allclose(tq.numpy(), q, **TOL)
     assert torch.equal(tv, v)
+
+
+def test_dqn_act_matches_jax_with_its_draws():
+    """`DQN.act` takes the reference's two draws from its key (the random
+    actions and the uniforms) as tensors and picks what it picks."""
+    jag = jax_agents.make("dqn", env=jenvs.make("cartpole"), hidden=(16,))
+    tag = agent_api.make("dqn", env=envs.make("cartpole"), hidden=(16,),
+                         device="cpu")
+    js = jag.init(jax.random.PRNGKey(2))
+    obs = np.random.default_rng(1).standard_normal((64, 4)).astype(
+        np.float32)
+    key = jax.random.PRNGKey(5)
+    rand = jax.random.randint(key, (64,), 0, jag.dqn.n_actions)
+    u = jax.random.uniform(key, (64,))
+    assert (np.asarray(u) < 0.5).any() and (np.asarray(u) >= 0.5).any()
+    want = jag.dqn.act(js.params, jax.numpy.asarray(obs), key, 0.5)
+    got = tag.dqn.act(train_state_from_jax(_np(js)).params,
+                      torch.tensor(obs), (torch.tensor(np.asarray(rand)),
+                                          torch.tensor(np.asarray(u))), 0.5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("extra", [{}, {"prioritized": False}],
+                         ids=["fused", "uniform"])
+def test_dqn_learner_step_matches_jax(extra, deterministic):
+    """`DQN.learner_step` (the algorithm class's own step on a filled
+    replay) with the noise of the reference's key, twice: params, the
+    adamw state, the replay and the loss; the second step syncs the
+    target net (target_update = 2). The reference's jitted step draws its
+    default 64 rows (its batch_size is not static)."""
+    kw = dict(BASE, hidden=(16, 16), replay_capacity=128, **extra)
+    jenv = jenvs.make("cartpole")
+    jag = jax_agents.make("dqn", env=jenv, ring_size=2, total_iters=10, **kw)
+    tag = agent_api.make("dqn", env=envs.make("cartpole"), ring_size=2,
+                         total_iters=10, device="cpu", **kw)
+    k_init, k_roll, k_learn = jax.random.split(jax.random.PRNGKey(4), 3)
+    js = jag.init(k_init)
+    jtraj, _ = jax_rollout_fresh(jag.policy, jag.actor_policy(js, 0), jenv,
+                                 k_roll, 2 * T, B)
+    jr = jag.replay.add_batch(js.extra["replay"], _np(
+        tag.transitions({k: torch.tensor(np.asarray(v))
+                         for k, v in jtraj.items()})))
+    js = jax_agents.TrainState(js.params, js.opt_state, {"replay": jr},
+                               js.ring, js.steps)
+    ts = train_state_from_jax(_np(js))
+    jp, jo, jrs = js.params, js.opt_state, jr
+    tp, to, trs = ts.params, ts.opt_state, ts.extra["replay"]
+    for key in jax.random.split(k_learn, 2):
+        if kw.get("prioritized", True):
+            noise = np.asarray(jax.random.gumbel(
+                key, (kw["replay_capacity"],)))
+        else:
+            size = int(jrs["size"])
+            idx = jax.random.randint(key, (64,), 0, size)
+            noise = (np.asarray(idx, np.float32) + 0.5) / size
+        jp, jo, jrs, jloss = jag.dqn.learner_step(jp, jo, jrs, key, jag.opt)
+        tp, to, trs, tloss = tag.dqn.learner_step(tp, to, trs,
+                                                  torch.tensor(noise),
+                                                  tag.opt)
+        assert float(tloss) == pytest.approx(float(jloss), abs=1e-5,
+                                             rel=1e-5)
+        _close(tp, jp, "params")
+        for moment in ("m", "v"):
+            _close(to[moment], jo[moment], moment)
+        if "prio" in jrs:
+            np.testing.assert_allclose(trs["prio"].numpy(),
+                                       np.asarray(jrs["prio"]), **TOL)
+    assert int(tp["steps"]) == int(jp["steps"]) == 2
+    for k in tp:
+        if k.startswith("target/"):
+            assert torch.equal(tp[k], tp["online/" + k[7:]])
 
 
 def test_train_state_from_jax_carries_the_replay():

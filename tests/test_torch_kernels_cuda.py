@@ -1422,12 +1422,13 @@ def test_flash_fwd_lse_leaves_o_bitwise(flash_bwd, S, G, D):
                                      (torch.float32, 33)])
 def test_flash_attention_under_grad_refuses_what_the_backward_lacks(
         flash_bwd, dtype, S):
-    """bf16, or a span past 32 keys, under grad raises (naming LM
-    training's item) instead of training through another path."""
+    """bf16, or a span past 32 keys, under grad raises (saying the
+    reference trains its LMs with use_kernels=False) instead of training
+    through another path."""
     qg = torch.randn((2, S, 2, 2, 64), device=cuda_dev(), dtype=dtype,
                      requires_grad=True)
     k = torch.randn((2, S, 2, 64), device=cuda_dev(), dtype=dtype)
-    with pytest.raises(RuntimeError, match="item 15"):
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
         flash_attention(qg, k, k)
     assert flash_bwd.flash_attention_fwd_lse.launches == 0
     with torch.no_grad():

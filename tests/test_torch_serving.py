@@ -3,7 +3,9 @@ launch/serve_policy) on the CPU: the contracts of tests/test_serving.py
 (versions, template drift, in-flight snapshots, buckets, FIFO, arrival
 times, per-request bitwise bucket parity, hot swap without a rebuild,
 version tags), parity with the JAX ServeEngine on the same params and
-rows, the CLI, and the refusal to run on the CPU unasked.
+rows (`ServeEngine.for_agent` and `RequestBatcher.next_arrival`
+against the reference's too), the CLI, and the refusal to run on the
+CPU unasked.
 
 Values are held to f32 atol = rtol = 2e-5 against JAX (the same math
 summed in another order); everything inside the port is bitwise."""
@@ -139,6 +141,55 @@ def test_batcher_take_respects_arrival_times():
     assert [r["obs"] for r in b.take(8, now=2.5)] == []
     assert [r["obs"] for r in b.take(8, now=6.0)] == ["b", "c"]
     assert len(b) == 0
+
+
+def test_batcher_next_arrival_matches_jax():
+    """The oldest queued request's arrival (None when empty), as the
+    reference's batcher reports it through submits and takes."""
+    from repro.core.serving import RequestBatcher as JaxBatcher
+    tb, jb = RequestBatcher(), JaxBatcher()
+    assert tb.next_arrival() is None and jb.next_arrival() is None
+    for obs, t in (("a", 3.0), ("b", 1.0), ("c", 2.0)):
+        tb.submit(obs, arrival=t)
+        jb.submit(obs, arrival=t)
+    seen = []
+    for now in (0.5, 3.5, 3.5, 3.5):
+        assert tb.next_arrival() == jb.next_arrival()
+        seen.append(tb.next_arrival())
+        tb.take(1, now=now)
+        jb.take(1, now=now)
+    assert seen == [3.0, 3.0, 1.0, 2.0]
+    assert tb.next_arrival() is None and jb.next_arrival() is None
+
+
+def test_engine_for_agent_matches_jax():
+    """`ServeEngine.for_agent`: the agent's rollout policy and the env's
+    observation space; served on the same params it answers as the
+    reference's `for_agent` engine does (values within TOL, the same
+    actions' log-probs)."""
+    from repro.core import agent as jax_agents
+    from repro_torch.core import agent as agent_api
+    jenv, env = jenvs.make("cartpole"), envs.make("cartpole")
+    jag = jax_agents.make("ppo", env=jenv, hidden=(16,))
+    tag = agent_api.make("ppo", env=env, hidden=(16,), device="cpu")
+    jeng = JaxEngine.for_agent(jag, jenv, buckets=(8,), seed=4)
+    teng = ServeEngine.for_agent(tag, env, buckets=(8,), seed=4,
+                                 device="cpu")
+    assert teng.policy is tag.policy
+    assert teng.obs_space == env.spec.observation
+    assert teng.buckets == jeng.buckets == (8,)
+    jparams = jag.policy.init(jax.random.PRNGKey(2))
+    jeng.store.publish(jparams)
+    teng.store.publish(params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                              jparams)))
+    obs = _obs_rows(env, 5, seed=3)
+    _, _, v_j = jeng.eval_bucket([jnp.asarray(o) for o in obs],
+                                 list(range(5)), 8)
+    a_t, l_t, v_t = teng.eval_bucket(obs, list(range(5)), 8)
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), **TOL)
+    pi, _ = jag.policy.apply(jparams, jnp.asarray(np.stack(obs)))
+    want = jax.nn.log_softmax(pi)[np.arange(5), a_t.numpy()]
+    np.testing.assert_allclose(l_t.numpy(), np.asarray(want), **TOL)
 
 
 def test_engine_fifo_fairness_under_bucketed_dispatch():

@@ -14,6 +14,8 @@ agent,algos,trainer} and launch/rl_train) on the CPU:
       policy, `use_kernels=True` (the plain attention on CPU tensors, as
       the reference's oracle off the TPU). A3C keeps
       the gradient through its n-step target into the bootstrap value;
+      The algorithm classes' own steps, `PPO.update` and
+      `IMPALA.learner_step`, on one batch against the reference's;
   (c) exact episode accounting, the cases of tests/test_trainer.py;
   (d) fused and unfused fits bitwise equal;
   (e) the lag ring under `policy_lag`;
@@ -158,6 +160,69 @@ def test_learner_step_matches_jax(name, env_name, algo_kwargs):
         np.testing.assert_allclose(tnew.ring[k].numpy(), v.numpy(), **TOL)
     assert int(tnew.steps) == int(jnew.steps) == 1
     assert int(tnew.opt_state["step"]) == int(jnew.opt_state["step"])
+
+
+def _algo_pair(name):
+    """The JAX and port agents (cartpole, HIDDEN), one JAX state with its
+    port copy, and a JAX rollout as both take it."""
+    jenv = jenvs.make("cartpole")
+    jag = jax_agents.make(name, env=jenv, hidden=HIDDEN)
+    tag = agent_api.make(name, env=envs.make("cartpole"), hidden=HIDDEN,
+                         device="cpu")
+    k_init, k_roll, k_learn = jax.random.split(jax.random.PRNGKey(3), 3)
+    jstate = jag.init(k_init)
+    jtraj, env_state = jax_rollout_fresh(
+        jag.policy, jag.actor_policy(jstate, 0), jenv, k_roll, 8, 6)
+    jboot = jax.vmap(jenv.obs)(env_state)
+    return (jag, tag, jstate, train_state_from_jax(_np(jstate)), jtraj,
+            jboot, k_learn)
+
+
+def _assert_step(tparams, topt, tloss, jparams, jopt, jloss):
+    assert float(tloss) == pytest.approx(float(jloss), abs=1e-5, rel=1e-5)
+    for got, want in ((tparams, jparams), (topt["m"], jopt["m"]),
+                      (topt["v"], jopt["v"])):
+        want = params_from_jax(_np(want))
+        assert set(want) == set(got)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), **TOL,
+                                       err_msg=k)
+    assert int(topt["step"]) == int(jopt["step"])
+
+
+def test_ppo_update_matches_jax():
+    """`PPO.update` (the algorithm class's own epoch/minibatch loop) on
+    one flattened batch, with the permutations the reference draws from
+    its key."""
+    jag, tag, jstate, tstate, jtraj, jboot, key = _algo_pair("ppo")
+    jbatch = jag.algo.make_batch(jstate.params, jtraj, jboot)
+    n_epochs, n_mb = 2, 3
+    n = jbatch["obs"].shape[0]
+    perms = np.stack([np.asarray(jax.random.permutation(k, n))
+                      for k in jax.random.split(key, n_epochs)])
+    jparams, jopt, jloss = jag.algo.update(
+        jstate.params, jstate.opt_state, jbatch, key, jag.opt,
+        n_epochs=n_epochs, n_minibatch=n_mb)
+    tparams, topt, tloss = tag.algo.update(
+        tstate.params, tstate.opt_state, _torch_traj(jbatch),
+        torch.tensor(perms), tag.opt, n_epochs=n_epochs, n_minibatch=n_mb)
+    _assert_step(tparams, topt, tloss, jparams, jopt, jloss)
+    with pytest.raises(ValueError, match="rows"):
+        tag.algo.update(tstate.params, tstate.opt_state,
+                        _torch_traj(jbatch), torch.tensor(perms), tag.opt,
+                        n_epochs=3)
+
+
+def test_impala_learner_step_matches_jax():
+    """`IMPALA.learner_step` (one gradient of the V-trace loss and the
+    optimizer) on one trajectory."""
+    jag, tag, jstate, tstate, jtraj, jboot, _ = _algo_pair("impala")
+    jparams, jopt, jloss = jag.algo.learner_step(
+        jstate.params, jstate.opt_state, jtraj, jboot, jag.opt)
+    tparams, topt, tloss = tag.algo.learner_step(
+        tstate.params, tstate.opt_state, _torch_traj(jtraj),
+        torch.tensor(np.asarray(jboot)), tag.opt)
+    _assert_step(tparams, topt, tloss, jparams, jopt, jloss)
 
 
 def test_a3c_gradient_reaches_the_bootstrap_value():
