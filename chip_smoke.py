@@ -195,6 +195,22 @@ Phases, in order; the script exits non-zero at the first failure:
      seq 64, lr 3e-3): smollm-360m, deepseek-moe-16b, rwkv6-1.6b and
      jamba-v0.1-52b end within 0.25 of `optimal_ce`. Every kernel's
      launch count is the same after the phase as before it.
+ 14. dry-run: `repro_torch.launch.dryrun.dryrun_one` of the reference's
+     five cases (smollm-360m train_4k, gemma3-1b decode_32k, rwkv6-1.6b
+     long_500k, whisper-base prefill_32k at mesh (4, 4), smollm-360m
+     train_4k multi-pod at (2, 2, 2)) and deepseek-moe-16b decode_32k at
+     (4, 4), each at full width in a process of its own, on the host's
+     CPU (meta DTensors over a fake process group; the card is not
+     used): every case ok, its compute, memory and collective terms
+     (H100 data-sheet constants), bottleneck and collective bytes a
+     kind printed;
+ 15. examples: the port's six examples (examples/repro_torch/*.py) at
+     their defaults on the card, each a process of its own, all at
+     once, while the dry-runs run: exit 0, train_lm's final CE within
+     0.25 of its floor, serve_policy_cartpole's programs flat after
+     warmup, es_cartpole's fitness finite; and `serve_policy --quick
+     --out DIR`, its BENCH_torch_serve.json valid and stamped with the
+     card.
 It then prints the kernels' JSON line and, last, the device line.
 """
 import contextlib
@@ -203,6 +219,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -395,6 +412,33 @@ PIPE_BARS = {"ppo": 45.0, "a3c": 28.0, "impala": 22.0}
 PIPE_ASP = ("a3c", 20, 4)   # algorithm, iterations, asp max_delay (= depth)
 ZERO_DQN_ITERS = 20          # dqn zero3 + replay against flat(2)
 ZERO_MEM_ITERS = 2           # the memory table's fits
+
+
+DRYRUN_CASES = [  # (arch, shape, mesh): the reference's five, and the MoE
+    ("smollm-360m", "train_4k", (4, 4)),
+    ("gemma3-1b", "decode_32k", (4, 4)),
+    ("rwkv6-1.6b", "long_500k", (4, 4)),
+    ("whisper-base", "prefill_32k", (4, 4)),
+    ("smollm-360m", "train_4k", (2, 2, 2)),
+    ("deepseek-moe-16b", "decode_32k", (4, 4)),
+]
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_SCRIPT = """
+import json, sys, time
+from repro_torch.launch.dryrun import dryrun_one
+arch, shape = sys.argv[1], sys.argv[2]
+mesh = tuple(int(x) for x in sys.argv[3].split(","))
+t0 = time.perf_counter()
+rec = dryrun_one(arch, shape, mesh_shape=mesh, multi_pod=len(mesh) == 3,
+                 save=False)
+rec["wall_s"] = time.perf_counter() - t0
+print("RESULT " + json.dumps(rec))
+"""
+# the six examples at their defaults on the card, and the policy serving
+# launcher's record
+EXAMPLES = ["quickstart", "train_lm", "serve_lm", "impala_pendulum",
+            "es_cartpole", "serve_policy_cartpole"]
+EXAMPLE_TIMEOUT_S = 300
 
 
 def fail(msg):
@@ -2689,6 +2733,133 @@ def phase_gmm_guard():
         fail("gmm_ecd ran on an input that requires grad")
 
 
+def start_dryrun():
+    """The dry-run cases, each in a process of its own (a dry-run makes
+    its process a rank of a fake process group; it allocates nothing
+    and uses the host's CPU, not the card), all started together."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    return [(case, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_SCRIPT, case[0], case[1],
+         ",".join(map(str, case[2]))], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for case in DRYRUN_CASES]
+
+
+def finish_dryrun(procs, card):
+    """Every case at full width must be ok: its three terms (data-sheet
+    H100 constants), the bottleneck and the collective bytes a kind."""
+    t0 = min(t for _, t, _ in procs)
+    for (arch, shape, mesh), _, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"dryrun {arch} {shape} {mesh}: over "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        check(proc.returncode == 0 and lines,
+              f"dryrun {arch} {shape} {mesh}: exit {proc.returncode}: "
+              f"{err[-2000:]}")
+        rec = json.loads(lines[-1][len("RESULT "):])
+        check(rec["status"] == "ok", f"dryrun {arch} {shape} {mesh}: "
+              f"{rec.get('error')}\n{rec.get('traceback')}")
+        cb = rec["collective_bytes"]
+        print("dryrun " + json.dumps(dict(
+            arch=arch, shape=shape, mesh=list(mesh), config="full width",
+            policy=rec["policy"], fsdp=rec["fsdp"],
+            param_dtype=rec["param_dtype"],
+            compute_term_s=rec["compute_term_s"],
+            memory_term_s=rec["memory_term_s"],
+            collective_term_s=rec["collective_term_s"],
+            bottleneck=rec["bottleneck"],
+            collective_bytes={k: cb[k] for k in cb if k != "counts"},
+            collective_counts=cb["counts"],
+            collective_bytes_by_axis=rec["collective_bytes_by_axis"],
+            counted_flops=rec["counted_flops"],
+            flops_per_chip=rec["flops_per_chip"], trace_s=rec["trace_s"],
+            wall_s=rec["wall_s"], host=card)))
+    print(f"dryrun: {len(procs)} cases ok; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_examples(card):
+    """The port's six examples at their defaults on the card, each a
+    process in a temp directory, all at once, and `serve_policy --quick
+    --out DIR`: each exits 0; train_lm's final CE within LM_BAR_MARGIN
+    of its floor, serve_policy_cartpole's programs flat after warmup,
+    es_cartpole's fitness finite; the BENCH_torch_serve.json record
+    valid and stamped with the card."""
+    import tempfile
+    import torch
+    from repro_torch.launch.bench_record import validate_bench_json
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name in EXAMPLES + ["serve_policy"]:
+            cwd = os.path.join(tmp, name)
+            os.makedirs(cwd)
+            cmd = ([os.path.join(ROOT, "examples", "repro_torch",
+                                 name + ".py")] if name in EXAMPLES else
+                   ["-m", "repro_torch.launch.serve_policy", "--quick",
+                    "--out", cwd])
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, *cmd], cwd=cwd, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = {}
+        for name, (start, proc) in procs.items():
+            try:
+                out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                fail(f"example {name}: over {EXAMPLE_TIMEOUT_S} s")
+            check(proc.returncode == 0,
+                  f"example {name}: exit {proc.returncode}: {err[-2000:]}")
+            outs[name] = out
+            print(f"example {name}: exit 0, "
+                  f"{time.perf_counter() - start:.1f} s")
+
+        def field(text, key):
+            found = [float(x) for x in
+                     re.findall(rf"{key}=(-?[\d.]+|nan|inf)", text)]
+            check(found, f"no {key}= in {text[-500:]}")
+            return found
+
+        final = field(outs["train_lm"], "final_ce")[-1]
+        floor = field(outs["train_lm"], "entropy_floor")[-1]
+        check(final <= floor + LM_BAR_MARGIN,
+              f"train_lm: final CE {final} above {floor} + "
+              f"{LM_BAR_MARGIN}")
+        warm = int(re.search(r"warmup compiles: (\d+)",
+                             outs["serve_policy_cartpole"]).group(1))
+        after = int(re.search(r"compiles: (\d+)\s*$",
+                              outs["serve_policy_cartpole"]).group(1))
+        check(warm == after == 2, f"serve_policy_cartpole: programs "
+              f"{warm} at warmup, {after} after the offered load")
+        fits = (field(outs["es_cartpole"], "mean_fitness")
+                + field(outs["es_cartpole"], "best_fitness"))
+        check(len(fits) == 20 and all(math.isfinite(f) for f in fits),
+              f"es_cartpole: fitness {fits}")
+        path = os.path.join(tmp, "serve_policy", "BENCH_torch_serve.json")
+        with open(path) as f:
+            doc = validate_bench_json(json.load(f))
+        check(doc["backend"] == "cuda" and doc["meta"]["device_name"]
+              == torch.cuda.get_device_name(0) and doc["meta"]["quick"],
+              f"BENCH_torch_serve.json meta {doc['meta']}")
+        summary = json.loads(outs["serve_policy"].strip().splitlines()[-1])
+        check(summary["recompiles_after_warmup"] == 0
+              and summary["bench"] == "BENCH_torch_serve.json",
+              f"serve_policy summary {summary}")
+        print("examples " + json.dumps(dict(
+            train_lm_final_ce=final, optimal_ce=floor,
+            serve_policy_cartpole_programs=after,
+            es_fitness_last=[fits[9], fits[19]],
+            bench_rows=len(doc["rows"]), card=card,
+            wall_s=time.perf_counter() - t0)))
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -2730,6 +2901,9 @@ def main():
     rwkv_launches = phase_rwkv_serve(card)
     zoo_launches = phase_lm_zoo(card)
     phase_lm_train(card)
+    dryrun_procs = start_dryrun()
+    phase_examples(card)
+    finish_dryrun(dryrun_procs, card)
     serve = cases[(SERVE_CASE, "float32")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

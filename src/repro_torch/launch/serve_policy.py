@@ -15,12 +15,15 @@ at each offered load (requests/second) against each bucket
 configuration: requests are admitted FIFO, padded to the smallest
 fitting bucket (one program per bucket, pinned flat), and hot-swapped
 onto fresh params halfway through every cell. Latency is charged from
-the *scheduled* arrival. Prints one JSON summary line.
+the *scheduled* arrival. Writes the cells as a repro-bench/v1 record,
+BENCH_torch_serve.json, to --out (the repo root by default;
+launch/bench_record.py), and prints one JSON summary line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -128,6 +131,9 @@ def build_parser():
                     help="serve the behaviour params of a reference "
                          "Trainer archive (.ring/ slot 0)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, metavar="DIR",
+                    help="directory for BENCH_torch_serve.json (default: "
+                         "the repo root; tests pass a temp dir)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card)")
     ap.add_argument("--quick", action="store_true",
@@ -162,6 +168,7 @@ def main(argv=None):
     from repro_torch.core.serving import ParamStore, ServeEngine
     from repro_torch.core.trainer import Trainer, TrainerConfig
     from repro_torch.kernels.common import resolve_device
+    from repro_torch.launch.bench_record import write_bench_json
 
     if args.env not in envs.available():
         ap.error(f"--env {args.env} not registered; available: "
@@ -205,7 +212,7 @@ def main(argv=None):
         torch.Generator().manual_seed(args.seed + 1),
         min(args.requests, 256)).numpy()
 
-    cells = []
+    rows, cells = [], []
     warmup_compiles = total_compiles = hot_swaps = 0
     for cfg_b in configs:
         engine = ServeEngine(policy, spec.observation, buckets=cfg_b,
@@ -217,16 +224,38 @@ def main(argv=None):
                                     swap_params=swap_params)
             hot_swaps += cell["hot_swaps"]
             cells.append(dict(cell, buckets=tag))
+            rows.append((
+                f"serve/{args.algo}/b{tag}/load{load:g}",
+                cell["p50_ms"] * 1e3,
+                f"p50_ms={cell['p50_ms']:.3f};"
+                f"p99_ms={cell['p99_ms']:.3f};"
+                f"throughput_rps={cell['throughput_rps']:.1f};"
+                f"offered_rps={load:g};n={cell['n']};"
+                f"hot_swaps={cell['hot_swaps']};"
+                f"versions={cell['versions']}"))
         total_compiles += engine.compile_count
+    recompiles = total_compiles - warmup_compiles
+    rows.append((
+        "serve/compile_flat", None,
+        f"warmup_compiles={warmup_compiles};"
+        f"recompiles_after_warmup={recompiles};"
+        f"hot_swaps={hot_swaps};bucket_configs={len(configs)};"
+        f"loads={len(loads)}"))
+    path = write_bench_json(
+        "serve", rows, device, out_dir=args.out, algo=args.algo,
+        env=args.env, loads=list(loads),
+        bucket_configs=[list(c) for c in configs],
+        requests_per_cell=args.requests, quick=args.quick,
+        train_iters=args.train_iters, source=source)
     print(json.dumps({
         "algo": args.algo, "env": args.env, "loads": list(loads),
         "bucket_configs": [list(c) for c in configs],
         "requests_per_cell": args.requests,
         "param_version": store.version,
         "warmup_compiles": warmup_compiles,
-        "recompiles_after_warmup": total_compiles - warmup_compiles,
+        "recompiles_after_warmup": recompiles,
         "hot_swaps": hot_swaps, "train_s": round(train_s, 1),
-        "source": source,
+        "source": source, "bench": os.path.basename(path),
         "device": str(device), "cells": cells}))
 
 

@@ -76,6 +76,12 @@ class ModelOpts:
     block_k: int = 512
     n_q_chunks: int = 8
     moe_local_dispatch: bool = False
+    # mesh axes the batch dim of activations is sharded over: when set
+    # and the residual stream is a DTensor, each stack super-block's
+    # input is redistributed to Shard(0) over these axes (the
+    # reference's with_sharding_constraint on its scan carry); on plain
+    # tensors it does nothing
+    act_batch_axes: tuple = ()
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -180,6 +186,8 @@ class LanguageModel(nn.Module):
         for name, blk in self.layers():
             if _rounds_before(name):
                 x = x.to(dt)
+            if name.startswith("stack/") and name.endswith("/t0"):
+                x = self._anchor_batch(x)
             if remat and name.startswith("stack/"):
                 if name.endswith("/t0"):
                     x, a = self._remat_superblock(
@@ -191,6 +199,20 @@ class LanguageModel(nn.Module):
             aux = aux + a
             caches.update({f"{name}/{k}": v for k, v in c.items()})
         return x.to(dt), caches, aux
+
+    def _anchor_batch(self, x):
+        """x redistributed to Shard(0) over `opts.act_batch_axes` (and
+        replicated over the mesh's other axes) when it is a DTensor and
+        the axes are set; x itself otherwise."""
+        axes = self.opts.act_batch_axes
+        if not axes:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(x, DTensor):
+            return x
+        mesh = x.device_mesh
+        return x.redistribute(mesh, [Shard(0) if a in axes else Replicate()
+                                     for a in mesh.mesh_dim_names])
 
     def _remat_superblock(self, sb, x, pos0, enc_out):
         """One stack super-block under a non-reentrant checkpoint: its
@@ -334,6 +356,37 @@ class LanguageModel(nn.Module):
                                        self.opts.tdtype, device,
                                        self.has_cross,
                                        self.cfg.enc_tokens).items()}
+
+    def input_specs(self, shape_cfg) -> dict:
+        """Meta-tensor stand-ins for every input of the step of
+        `shape_cfg`'s mode (nothing is allocated), keyed as the step's
+        arguments: train {"batch": {"tokens" (B, S+1) int32, "frontend"
+        where the model has one}}; prefill {"tokens" (B, S), "frontend"};
+        decode {"token" (B, 1), "cache" (`make_cache` at capacity S + 1
+        + the VLM prefix), "pos" () int32}. The frontend is f32: (B,
+        frontend_tokens, frontend_dim) patches, (B, enc_tokens, d_model)
+        audio frames."""
+        cfg = self.cfg
+        B, S = shape_cfg.global_batch, shape_cfg.seq_len
+
+        def meta(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        frontend = {}
+        if cfg.frontend == "vision_stub":
+            frontend["frontend"] = meta(B, cfg.frontend_tokens,
+                                        cfg.frontend_dim or cfg.d_model,
+                                        dtype=torch.float32)
+        if cfg.frontend == "audio_stub":
+            frontend["frontend"] = meta(B, cfg.enc_tokens, cfg.d_model,
+                                        dtype=torch.float32)
+        if shape_cfg.mode == "train":
+            return {"batch": {"tokens": meta(B, S + 1), **frontend}}
+        if shape_cfg.mode == "prefill":
+            return {"tokens": meta(B, S), **frontend}
+        return {"token": meta(B, 1),
+                "cache": self.make_cache(B, S + 1 + self.n_prefix, "meta"),
+                "pos": meta()}
 
 
 def build_model(name_or_cfg, opts: ModelOpts = ModelOpts(),

@@ -178,7 +178,7 @@ def test_cli_serves_a_trainer_archive(tmp_path):
         serve_policy.main(["--device", "cpu", "--algo", "impala",
                            "--ckpt", path, "--train-iters", "5",
                            "--load", "4000", "--buckets", "4",
-                           "--requests", "12"])
+                           "--requests", "12", "--out", str(tmp_path)])
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     assert out["source"] == "checkpoint" and out["device"] == "cpu"
     assert out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 1

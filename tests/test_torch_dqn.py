@@ -404,17 +404,19 @@ def test_jax_dqn_archive_serves_its_ring_slot_and_epsilon(tmp_path):
            "net")
     out = _run(serve_policy.main, ["--device", "cpu", "--algo", "dqn",
                                    "--ckpt", path, "--load", "4000",
-                                   "--buckets", "4", "--requests", "12"])
+                                   "--buckets", "4", "--requests", "12",
+                                   "--out", str(tmp_path)])
     assert out["source"] == "checkpoint" and out["algo"] == "dqn"
     assert out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 1
 
 
 @pytest.mark.parametrize("train_iters", ["0", "2"])
-def test_serve_cli_runs_dqn(train_iters):
+def test_serve_cli_runs_dqn(train_iters, tmp_path):
     out = _run(serve_policy.main, ["--device", "cpu", "--algo", "dqn",
                                    "--train-iters", train_iters,
                                    "--load", "4000", "--buckets", "4",
-                                   "--requests", "12"])
+                                   "--requests", "12",
+                                   "--out", str(tmp_path)])
     assert out["source"] == ("fresh-init" if train_iters == "0"
                              else "trained-in-process")
     assert out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 1

@@ -377,11 +377,12 @@ def test_cli_serves_reduced_on_the_cpu():
     assert res["generated_shape"] == [2, 4] and res["device"] == "cpu"
 
 
-def test_cli_forwards_policy_to_serve_policy():
+def test_cli_forwards_policy_to_serve_policy(tmp_path):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         tserve.main(["policy", "--device", "cpu", "--train-iters", "0",
-                     "--load", "4000", "--buckets", "4", "--requests", "8"])
+                     "--load", "4000", "--buckets", "4", "--requests", "8",
+                     "--out", str(tmp_path)])
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     assert out["source"] == "fresh-init" and out["device"] == "cpu"
     assert out["recompiles_after_warmup"] == 0

@@ -354,16 +354,16 @@ def test_engine_matches_jax_engine(env_name, kind):
 
 
 # ------------------------------------------------------------------- CLI
-def _run_cli(argv):
+def _run_cli(argv, out_dir):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        serve_policy.main(argv)
+        serve_policy.main(argv + ["--out", str(out_dir)])
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def test_cli_quick_on_cpu():
+def test_cli_quick_on_cpu(tmp_path):
     out = _run_cli(["--device", "cpu", "--train-iters", "0", "--quick",
-                    "--requests", "24"])
+                    "--requests", "24"], tmp_path)
     assert out["loads"] == [500.0, 2000.0]
     assert out["bucket_configs"] == [[4, 16], [16]]
     assert out["warmup_compiles"] == 3
@@ -376,17 +376,17 @@ def test_cli_quick_on_cpu():
 
 
 @pytest.mark.parametrize("algo", ["ppo", "a3c", "impala"])
-def test_cli_trains_in_process(algo):
+def test_cli_trains_in_process(algo, tmp_path):
     """--train-iters N > 0 trains the policy with the port's Trainer
     before serving it, as the reference does."""
     out = _run_cli(["--device", "cpu", "--algo", algo, "--train-iters",
                     "2", "--load", "4000", "--buckets", "4",
-                    "--requests", "12"])
+                    "--requests", "12"], tmp_path)
     assert out["source"] == "trained-in-process" and out["train_s"] >= 0
     assert out["recompiles_after_warmup"] == 0 and out["hot_swaps"] == 1
 
 
-def test_cli_quick_trains_four_iterations(monkeypatch):
+def test_cli_quick_trains_four_iterations(monkeypatch, tmp_path):
     import repro_torch.core.trainer as trainer_mod
     iters = []
     fit = trainer_mod.Trainer.fit
@@ -394,7 +394,7 @@ def test_cli_quick_trains_four_iterations(monkeypatch):
                         lambda self, *a: iters.append(self.cfg.iters)
                         or fit(self, *a))
     out = _run_cli(["--device", "cpu", "--quick", "--load", "4000",
-                    "--buckets", "4", "--requests", "8"])
+                    "--buckets", "4", "--requests", "8"], tmp_path)
     assert iters == [4] and out["source"] == "trained-in-process"
 
 
@@ -411,7 +411,7 @@ def test_cli_rejects_bad_flags(flags, frag, capsys):
 
 
 # ------------------------------------------- the card unless asked for
-def test_default_device_refuses_to_run_on_cpu():
+def test_default_device_refuses_to_run_on_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this box has a card: the default device is valid")
     spec = envs.make("cartpole").spec
@@ -423,7 +423,7 @@ def test_default_device_refuses_to_run_on_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(policy, spec.observation)
     with pytest.raises(RuntimeError, match="CUDA"):
-        _run_cli(["--train-iters", "0", "--quick"])
+        _run_cli(["--train-iters", "0", "--quick"], tmp_path)
 
 
 # ------------------------------- ZeRO-3 checkpoint / serve round trip
