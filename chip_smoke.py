@@ -124,6 +124,23 @@ Phases, in order; the script exits non-zero at the first failure:
      shards, bitwise; every run's launches exactly W x its algorithm's
      per consumed iteration; each `train_run` line has its plan, W,
      pipeline depth, ms an iteration, env steps a second and launches;
+  4e. processes: `rl_train --backend gloo`, a process a data position,
+     every rank on the one card (NCCL refuses two ranks on one card),
+     each case after the same `--backend positions` fit, in turns:
+     impala at 4 workers (10 iterations; also bitwise 4c's flat(4)
+     fit), ppo under (hosts=2 allreduce bsp, workers=2 gossip asp),
+     impala under workers=2 x shard=2 (bitwise the flat(4) fit), dqn
+     under workers=2 x replay=2 (20 iterations, the flat buffer back),
+     a3c pipelined at ssp depth 1 at W = 2, and the reduced trunk under
+     impala at W = 2 (its training attention's launches twice the flat
+     run's): each gloo fit bitwise its threaded fit and its line the
+     threaded line plus `backend` and `n_processes`; every rank's
+     launches summed equal to the threaded run's, none in the launcher;
+     each `train_run` line has the gloo and the threaded ms an
+     iteration (a number, not a gate). Then a one-rank NCCL group on
+     cuda:0: its hook, shard_gather and all-gather equal to
+     `PositionGroup(1)`'s; and `--backend nccl --n-workers 2` refused,
+     naming the card count, before any process starts;
   5. path agreement: one learner_step per algorithm from one state and
      trajectory, kernels on against the plain versions, on the card; the
      dqn step with the kernel runs under
@@ -198,12 +215,17 @@ Phases, in order; the script exits non-zero at the first failure:
  14. dry-run: `repro_torch.launch.dryrun.dryrun_one` of the reference's
      five cases (smollm-360m train_4k, gemma3-1b decode_32k, rwkv6-1.6b
      long_500k, whisper-base prefill_32k at mesh (4, 4), smollm-360m
-     train_4k multi-pod at (2, 2, 2)) and deepseek-moe-16b decode_32k at
-     (4, 4), each at full width in a process of its own, on the host's
+     train_4k multi-pod at (2, 2, 2)), deepseek-moe-16b decode_32k at
+     (4, 4), and at the production (16, 16) the five pairs the card
+     host's torch refused before the dry-run's own rules (jamba-v0.1-52b
+     train_4k and prefill_32k at one period, 8 of its 32 layers, for
+     time; its long_500k and decode_32k; rwkv6-1.6b train_4k), each at
+     full width in a process of its own, on the host's
      CPU (meta DTensors over a fake process group; the card is not
-     used): every case ok, its compute, memory and collective terms
-     (H100 data-sheet constants), bottleneck and collective bytes a
-     kind printed;
+     used), all started before phase 13, so they run beside it and the
+     examples (which they slow): every case ok, its compute, memory and
+     collective terms (H100 data-sheet constants), bottleneck and
+     collective bytes a kind printed;
  15. examples: the port's six examples (examples/repro_torch/*.py) at
      their defaults on the card, each a process of its own, all at
      once, while the dry-runs run: exit 0, train_lm's final CE within
@@ -414,22 +436,40 @@ ZERO_DQN_ITERS = 20          # dqn zero3 + replay against flat(2)
 ZERO_MEM_ITERS = 2           # the memory table's fits
 
 
-DRYRUN_CASES = [  # (arch, shape, mesh): the reference's five, and the MoE
-    ("smollm-360m", "train_4k", (4, 4)),
-    ("gemma3-1b", "decode_32k", (4, 4)),
-    ("rwkv6-1.6b", "long_500k", (4, 4)),
-    ("whisper-base", "prefill_32k", (4, 4)),
-    ("smollm-360m", "train_4k", (2, 2, 2)),
-    ("deepseek-moe-16b", "decode_32k", (4, 4)),
+# (arch, shape, mesh, layers kept or None for all): the reference's five,
+# the MoE decode, and the five pairs torch 2.11 (the card host's) refused
+# before the dry-run's own view, add/sub and flip rules, at the production
+# mesh where they failed. jamba's train_4k and prefill_32k keep one whole
+# period of its 32 layers (7 Mamba + 1 attention, MoE every other layer:
+# every op kind of the model, the head split among them): at full depth
+# they traced in 300.6 s and 483.6 s on the card host's CPU (`dryrun
+# --all`, eight at once), too long for DRYRUN_TIMEOUT_S beside the
+# examples
+DRYRUN_CASES = [
+    ("smollm-360m", "train_4k", (4, 4), None),
+    ("gemma3-1b", "decode_32k", (4, 4), None),
+    ("rwkv6-1.6b", "long_500k", (4, 4), None),
+    ("whisper-base", "prefill_32k", (4, 4), None),
+    ("smollm-360m", "train_4k", (2, 2, 2), None),
+    ("deepseek-moe-16b", "decode_32k", (4, 4), None),
+    ("jamba-v0.1-52b", "train_4k", (16, 16), 8),
+    ("jamba-v0.1-52b", "prefill_32k", (16, 16), 8),
+    ("jamba-v0.1-52b", "long_500k", (16, 16), None),
+    ("jamba-v0.1-52b", "decode_32k", (16, 16), None),
+    ("rwkv6-1.6b", "train_4k", (16, 16), None),
 ]
-DRYRUN_TIMEOUT_S = 300
+DRYRUN_TIMEOUT_S = 420
 DRYRUN_SCRIPT = """
-import json, sys, time
+import dataclasses, json, sys, time
+from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import dryrun_one
 arch, shape = sys.argv[1], sys.argv[2]
 mesh = tuple(int(x) for x in sys.argv[3].split(","))
+cfg = get_config(arch)
+if sys.argv[4] != "None":
+    cfg = dataclasses.replace(cfg, n_layers=int(sys.argv[4]))
 t0 = time.perf_counter()
-rec = dryrun_one(arch, shape, mesh_shape=mesh, multi_pod=len(mesh) == 3,
+rec = dryrun_one(cfg, shape, mesh_shape=mesh, multi_pod=len(mesh) == 3,
                  save=False)
 rec["wall_s"] = time.perf_counter() - t0
 print("RESULT " + json.dumps(rec))
@@ -1688,6 +1728,214 @@ def phase_pipeline_zero(card, path_rows, flat4):
     return totals
 
 
+# phase 4e: each data position a process over gloo, all on the one card
+# (NCCL refuses two ranks on one card): (label, rl_train flags, kernel
+# launches an iteration per position, W, iterations, superstep). Supersteps
+# of a few iterations (bitwise any other) give steady-state times beside
+# the first dispatch, which holds a fresh process's CUDA warm-up
+PROC_SHORT = ["--env", "cartpole", "--iters", str(DIST_SHORT),
+              "--superstep", "2", "--log-every", "1"]
+PROC_CASES = [
+    ("impala-w4", ["--algo", "impala", "--n-workers", "4"] + PROC_SHORT,
+     ALGO_KERNELS["impala"], 4, DIST_SHORT, 2),
+    ("ppo-2x2-allreduce-gossip-asp",
+     ["--algo", "ppo", "--plan", "hosts=2:allreduce:bsp,workers=2:gossip:asp"]
+     + PROC_SHORT, ALGO_KERNELS["ppo"], 4, DIST_SHORT, 2),
+    ("impala-w2-shard2",
+     ["--algo", "impala", "--plan",
+      "workers=2:allreduce:bsp,shard=2:allreduce:bsp:shard"] + PROC_SHORT,
+     ALGO_KERNELS["impala"], 4, DIST_SHORT, 2),
+    ("dqn-w2-replay2",
+     ["--algo", "dqn", "--env", "cartpole", "--iters",
+      str(DIST_ITERS["dqn"]), "--superstep", "5", "--plan",
+      "workers=2:allreduce:bsp,replay=2:allreduce:bsp:replay"],
+     {"shard_topk_c": 1}, 2, DIST_ITERS["dqn"], 5),
+    ("a3c-w2-pipeline-ssp1",
+     ["--algo", "a3c", "--n-workers", "2", "--sync", "ssp",
+      "--staleness-bound", "1", "--pipeline"] + PROC_SHORT,
+     ALGO_KERNELS["a3c"], 2, DIST_SHORT, 2),
+    ("impala-trunk-w2",
+     ["--algo", "impala", "--env", "cartpole", "--policy", "trunk",
+      "--iters", str(TRUNK_ITERS), "--superstep", "1",
+      "--log-every", "1", "--n-workers", "2"],
+     None, 2, TRUNK_ITERS, 1),
+]
+
+
+def nccl_one_rank(group):
+    """In a one-rank NCCL group's process: its hook (flat(4)'s gradient
+    mean and gossip's mix, over a lead of 1), shard_gather and metric
+    all-gather against `PositionGroup(1)`'s on the same inputs; returns
+    the names of those that differ."""
+    import torch
+    from repro_torch.core.distribution import DistPlan
+    from repro_torch.core.positions import PositionGroup, tree_leaves
+    gen = torch.Generator(device=group.device).manual_seed(0)
+    tree = {"a": torch.randn((3, 4), generator=gen, device=group.device),
+            "b": torch.randn((5,), generator=gen, device=group.device)}
+    threads = PositionGroup(1)
+    bad = []
+    try:
+        for spec in ("workers=4:allreduce:bsp", "workers=4:gossip:bsp"):
+            for i, fn in enumerate(DistPlan.parse(spec).compile_collectives()):
+                if fn is None:
+                    continue
+                want = threads.run(lambda r: threads.hook(r, fn, (1,))(
+                    tree))[0]
+                got = group.hook(0, fn, (1,))(tree)
+                if not all(torch.equal(x, y) for x, y in zip(
+                        tree_leaves(got), tree_leaves(want))):
+                    bad.append(f"{spec} hook {i}")
+        chunks = [tree["a"].reshape(-1), tree["b"]]
+        want = threads.run(lambda r: threads.shard_gather(r, [[0]])(
+            chunks))[0]
+        got = group.shard_gather(0, [[0]])(chunks)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            bad.append("shard_gather")
+        if not torch.equal(group.all_gather(tree["a"])[0], tree["a"]):
+            bad.append("all_gather")
+    finally:
+        threads.close()
+    return {"differ": bad, "device": str(group.device),
+            "backend": group.backend}
+
+
+def phase_processes(card, path_rows, flat4):
+    """Phase 4e: the process backend on the one card. Each case through
+    `rl_train` twice, in turns: `--backend positions` (threads) and then
+    `--backend gloo` (a process a position, every rank on cuda:0), counts
+    at 0 just before each; the two fits bitwise equal, every rank's
+    launches summed equal to the threaded run's (W x the flat run's);
+    impala-w4 also bitwise the distribution phase's flat(4) fit `flat4`,
+    and the ZeRO-2 fit bitwise the threaded flat(4). Then NCCL: a
+    one-rank group's collectives against `PositionGroup(1)`, and the
+    refusal of `--backend nccl --n-workers 2` before any process starts.
+    Returns the launch counts of the runs."""
+    import multiprocessing
+    import torch
+    from repro_torch.core.positions import run_processes
+    from repro_torch.launch.rl_train import main as rl_main
+    counters = train_counters()
+    totals = dict.fromkeys(counters, 0)
+    hist_json = lambda h: json.dumps(h)      # NaN-safe equality
+    t_phase = time.perf_counter()
+
+    def fit(label, argv, per_iter, W, iters, backend):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run, state, hist = rl_main(argv + ["--backend", backend])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        here = {n: f.launches for n, f in counters.items()}
+        steps = run.superstep_s
+        if backend == "positions":
+            got, fit_s = here, wall
+        else:
+            check(not any(here.values()), f"{label} {backend}: the "
+                  f"launcher launched kernels itself: {here}")
+            check(run.n_processes == W and out["n_processes"] == W
+                  and out["backend"] == backend,
+                  f"{label} {backend}: {run.n_processes} processes, line "
+                  f"{out}")
+            got = {n: sum(r[n] for r in run.launches) for n in counters}
+            fit_s = run.fit_s[0]
+        want = {n: W * per_iter.get(n, 0) * iters for n in counters}
+        check(got == want, f"{label} {backend}: kernel launches {got}, "
+                           f"expected {want}")
+        check(all(math.isfinite(h["loss"]) for h in hist),
+              f"{label} {backend}: non-finite loss in {hist}")
+        for n in counters:
+            totals[n] += got[n]
+        return state, hist, out, got, fit_s, wall, steps
+
+    def steady_ms(steps, iters, K):
+        """ms an iteration over the supersteps after the first."""
+        return sum(steps[1:]) * 1e3 / (iters - K) if len(steps) > 1 \
+            else None
+
+    threaded_flat4 = None
+    for label, argv, per_iter, W, iters, K in PROC_CASES:
+        per_iter = per_iter or trunk_launches("impala", 2)
+        ref = fit(label, argv, per_iter, W, iters, "positions")
+        got = fit(label, argv, per_iter, W, iters, "gloo")
+        bad = state_equal(got[0], ref[0])
+        check(not bad and hist_json(got[1]) == hist_json(ref[1]),
+              f"{label}: the gloo fit is not bitwise the threaded fit "
+              f"({bad or 'history'})")
+        line = dict(ref[2], **{k: got[2][k] for k in ("backend",
+                                                        "n_processes")})
+        line.pop("wall_s"), got[2].pop("wall_s")
+        check(hist_json(line) == hist_json(got[2]),
+              f"{label}: the gloo line {got[2]} is not the threaded "
+              f"line {ref[2]} plus backend and n_processes")
+        if label == "impala-w4":
+            threaded_flat4 = ref
+            bad = state_equal(got[0], flat4[0])
+            check(not bad and hist_json(got[1]) == hist_json(flat4[1]),
+                  f"impala-w4 gloo: not bitwise the distribution phase's "
+                  f"flat(4) fit ({bad or 'history'})")
+        if label == "impala-w2-shard2":
+            bad = state_equal(got[0], threaded_flat4[0])
+            check(not bad and hist_json(got[1]) == hist_json(
+                threaded_flat4[1]), f"impala-w2-shard2 gloo: not bitwise "
+                                    f"the flat(4) fit ({bad or 'history'})")
+        if label == "dqn-w2-replay2":
+            check(got[0].extra["replay"]["prio"].shape == (20000,),
+                  "dqn w2 x replay2 gloo: fit did not return the flat "
+                  "buffer")
+        print("train_run " + json.dumps({
+            "run": label, "backend": "gloo", "n_processes": W,
+            "plan": got[2]["plan"], "W": W, "iters": iters,
+            "superstep": K, "ms_per_iter": got[4] * 1e3 / iters,
+            "threaded_ms_per_iter": ref[4] * 1e3 / iters,
+            "steady_ms_per_iter": steady_ms(got[6], iters, K),
+            "threaded_steady_ms_per_iter": steady_ms(ref[6], iters, K),
+            "first_superstep_s": got[6][0],
+            "threaded_first_superstep_s": ref[6][0],
+            "launcher_wall_s": got[5], "threaded_wall_s": ref[5],
+            "launches": got[3], "threaded_launches": ref[3],
+            "kernel_share_of_wall": {
+                n: got[3][n] / W * path_rows[n]["ms"] / (got[4] * 1e3)
+                for n in counters if got[3][n] and n in path_rows},
+            "bitwise_threaded": True, "history": got[1], "card": card}))
+    # NCCL at world size 1, and the refusal of two ranks on one card
+    t0 = time.perf_counter()
+    res = run_processes(nccl_one_rank, n=1, backend="nccl",
+                        devices=["cuda:0"], deadline=300)[0]
+    check(not res["differ"], f"nccl world size 1: {res['differ']} differ "
+                             f"from PositionGroup(1)")
+    print(f"processes: nccl world size 1 on {res['device']}: hook, "
+          f"shard_gather and all_gather equal PositionGroup(1)'s "
+          f"({time.perf_counter() - t0:.1f} s)")
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()):
+        try:
+            rl_main(["--algo", "impala", "--n-workers", "2", "--iters", "1",
+                     "--backend", "nccl"])
+        except SystemExit as e:
+            code = e.code
+        else:
+            code = 0
+    cards = torch.cuda.device_count()
+    check(code not in (0, None) and f"2 ranks, {cards} card" in
+          err.getvalue() and not multiprocessing.active_children(),
+          f"--backend nccl --n-workers 2 on {cards} card(s): exit {code}, "
+          f"{err.getvalue()[-500:]}")
+    print(f"processes: --backend nccl --n-workers 2 refused before "
+          f"spawning: {err.getvalue().strip().splitlines()[-1]} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    print(f"processes: {len(PROC_CASES)} cases bitwise; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def phase_path_agreement():
     """One learner_step per algorithm from the same state and trajectory,
     with the kernels and with the plain scans, on the card."""
@@ -2626,12 +2874,8 @@ def phase_lm_zoo(card):
 def kernel_counters():
     """Every kernel wrapper of the port, by name (each counts its own
     launches)."""
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_hsd
-    from repro_torch.kernels.gmm.kernel import gmm_ecd
-    from repro_torch.kernels.wkv6.kernel import wkv6_btHN
-    return dict(train_counters(), flash_attention_hsd=flash_attention_hsd,
-                gmm_ecd=gmm_ecd, wkv6_btHN=wkv6_btHN)
+    from repro_torch.kernels import wrappers
+    return wrappers()
 
 
 def lm_train_run(arch, **kw):
@@ -2741,15 +2985,17 @@ def start_dryrun():
                OMP_NUM_THREADS="1")
     return [(case, time.perf_counter(), subprocess.Popen(
         [sys.executable, "-c", DRYRUN_SCRIPT, case[0], case[1],
-         ",".join(map(str, case[2]))], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)) for case in DRYRUN_CASES]
+         ",".join(map(str, case[2])), str(case[3])], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for case in DRYRUN_CASES]
 
 
 def finish_dryrun(procs, card):
     """Every case at full width must be ok: its three terms (data-sheet
     H100 constants), the bottleneck and the collective bytes a kind."""
     t0 = min(t for _, t, _ in procs)
-    for (arch, shape, mesh), _, proc in procs:
+    from repro_torch.configs import get_config
+    for (arch, shape, mesh, layers), _, proc in procs:
         try:
             out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
         except subprocess.TimeoutExpired:
@@ -2766,7 +3012,11 @@ def finish_dryrun(procs, card):
               f"{rec.get('error')}\n{rec.get('traceback')}")
         cb = rec["collective_bytes"]
         print("dryrun " + json.dumps(dict(
-            arch=arch, shape=shape, mesh=list(mesh), config="full width",
+            arch=arch, shape=shape, mesh=list(mesh),
+            config="full width" + (
+                "" if layers is None else
+                f", {layers} of {get_config(arch).n_layers} layers (one "
+                f"whole period; full depth over DRYRUN_TIMEOUT_S)"),
             policy=rec["policy"], fsdp=rec["fsdp"],
             param_dtype=rec["param_dtype"],
             compute_term_s=rec["compute_term_s"],
@@ -2884,7 +3134,8 @@ def main():
         **{n: r[train_path] for n, r in bwd_rows.items()})
     dist_launches, flat4 = phase_distribution(card, path_rows)
     pipe_launches = phase_pipeline_zero(card, path_rows, flat4)
-    for launches_of in (dist_launches, pipe_launches):
+    proc_launches = phase_processes(card, path_rows, flat4)
+    for launches_of in (dist_launches, pipe_launches, proc_launches):
         for name, n in launches_of.items():
             if name == "shard_topk_c":
                 shard_launches += n
@@ -2900,8 +3151,10 @@ def main():
     phase_wkv6_guard()
     rwkv_launches = phase_rwkv_serve(card)
     zoo_launches = phase_lm_zoo(card)
-    phase_lm_train(card)
+    # the dry-runs use the host's CPU for minutes: they run beside the LM
+    # training phase and the examples, whose times they slow
     dryrun_procs = start_dryrun()
+    phase_lm_train(card)
     phase_examples(card)
     finish_dryrun(dryrun_procs, card)
     serve = cases[(SERVE_CASE, "float32")]

@@ -26,16 +26,36 @@ layout, and every reduction runs in rank order.
 
 No collective waits forever: every wait for the turn has a timeout, and
 a rank that raises aborts the group, so the others leave their waits at
-once and `run` re-raises the first error in the caller. A later
-multi-card backend (one process per card, `torch.distributed`) replaces
-the group and leaves the algorithms as they are.
+once and `run` re-raises the first error in the caller.
+
+Processes (`ProcessPositions`, `run_processes`): the same W positions,
+one process each, rank r of a `torch.distributed` group of W, in place
+of the group of threads; the algorithms stay as they are. A collective
+all-gathers every rank's flat vector in rank order and applies the same
+pure function to the stacked rows on every rank, each keeping its own
+row: exactly what `PositionGroup.collective`'s last rank computes, so a
+fit is bitwise the threaded fit (not a ring all-reduce, whose order is
+the library's). The backend is explicit: `nccl` puts rank r on
+`cuda:r`; `gloo` is a host transport, so a CUDA tensor goes through the
+host (`.cpu()`, then back to the rank's device), and every rank may
+share one card. Each wait has the group's timeout; a rank that raises
+reports its error and leaves the group, the launcher then stops the
+others and raises the error, naming the rank.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import datetime
+import os
+import pickle
+import queue as queue_mod
+import shutil
+import tempfile
 import threading
 import time
+import traceback
 from typing import Tuple
 
 import torch
@@ -67,6 +87,28 @@ def stack_trees(trees):
     """A list of congruent trees as one tree whose leaves carry a leading
     (len(trees),) dim."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _flat(tree):
+    """`tree`'s leaves as one flat vector, and their sizes."""
+    leaves = tree_leaves(tree)
+    if len({x.dtype for x in leaves}) != 1:
+        raise ValueError("a collective's tree must hold one dtype")
+    return torch.cat([x.reshape(-1) for x in leaves]), [x.numel()
+                                                        for x in leaves]
+
+
+def _unflat(vec, sizes, like):
+    """The inverse of `_flat`: `vec` cut into the leaves of `like`."""
+    parts = iter(torch.split(vec, sizes))
+    return tree_map(lambda x: next(parts).reshape(x.shape), like)
+
+
+def _on_rows(stacked_fn, lead, rows):
+    """`stacked_fn` over the rank-ordered (W, N) rows laid out over the
+    `lead` position dims, back as (W, N)."""
+    return stacked_fn(rows.reshape(tuple(lead) + rows.shape[1:])).reshape(
+        rows.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,20 +203,11 @@ class PositionGroup:
         one flat vector (one stack and one reduction a collective, not
         one a leaf), and come back in the tree's shapes."""
         def on_stack(trees):
-            leaves = [tree_leaves(t) for t in trees]
-            if len({x.dtype for x in leaves[0]}) != 1:
-                raise ValueError("a collective's tree must hold one dtype")
-            flat = torch.stack([torch.cat([x.reshape(-1) for x in ls])
-                                for ls in leaves])
-            out = stacked_fn(flat.reshape(tuple(lead) + flat.shape[1:]))
-            out = out.reshape(flat.shape)
-            sizes = [x.numel() for x in leaves[0]]
-            res = []
-            for r in range(self.n):
-                parts = iter(torch.split(out[r], sizes))
-                res.append(tree_map(
-                    lambda x: next(parts).reshape(x.shape), trees[r]))
-            return res
+            flats = [_flat(t) for t in trees]
+            out = _on_rows(stacked_fn, lead,
+                           torch.stack([f for f, _ in flats]))
+            return [_unflat(out[r], flats[r][1], trees[r])
+                    for r in range(self.n)]
 
         return lambda tree: self.collective(rank, on_stack, tree)
 
@@ -246,3 +279,207 @@ class PositionGroup:
         if self._pool is not None:
             self._pool.shutdown(wait=False)
             self._pool = None
+
+
+class RankFailed(RuntimeError):
+    """Raised by `run_processes` when a rank raised or died: the message
+    names the rank and holds its traceback."""
+
+
+class ProcessPositions:
+    """Data position `rank` of `n`, in a process of its own: one rank of
+    a `torch.distributed` group, with `PositionGroup`'s collectives for
+    its own rank (module doc, "Processes"). `backend` is "nccl" (a card a
+    rank, `device` the rank's) or "gloo" (through the host: a CUDA tensor
+    is staged with `.cpu()` and copied back to `device`). The group is
+    the process's default group, initialised here from `init_method`
+    with `timeout` seconds for every collective; `close` leaves it."""
+
+    def __init__(self, rank: int, n: int, backend: str, init_method: str,
+                 device, timeout: float = COLLECTIVE_TIMEOUT_S):
+        import torch.distributed as dist
+        self.rank, self.n, self.backend = rank, n, backend
+        self.device = torch.device(device)
+        self.timeout = timeout
+        if backend not in ("gloo", "nccl"):
+            raise ValueError(f"backend {backend!r}: 'gloo' or 'nccl'")
+        if backend == "nccl" and self.device.type != "cuda":
+            raise ValueError(f"backend 'nccl' needs a CUDA device, got "
+                             f"{self.device}")
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=n, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout))
+
+    def _own(self, rank: int) -> None:
+        if rank != self.rank:
+            raise ValueError(f"process of rank {self.rank} asked for rank "
+                             f"{rank}'s collective")
+
+    def all_gather(self, t):
+        """Every rank's `t` (of one shape and dtype on every rank), in
+        rank order, on this rank's device."""
+        import torch.distributed as dist
+        wire = t.contiguous() if self.backend == "nccl" else t.cpu()
+        out = [torch.empty_like(wire) for _ in range(self.n)]
+        dist.all_gather(out, wire)
+        return [o.to(self.device) for o in out]
+
+    def gather_objects(self, obj):
+        """Every rank's picklable `obj`, in rank order (tensors in it are
+        best moved to the CPU first)."""
+        import torch.distributed as dist
+        out = [None] * self.n
+        dist.all_gather_object(out, obj)
+        return out
+
+    def hook(self, rank: int, stacked_fn, lead):
+        """`PositionGroup.hook` for this process's rank: the rank-ordered
+        flat vectors of every rank through `stacked_fn` on every rank,
+        this rank's row back in its tree's shapes."""
+        self._own(rank)
+
+        def tx(tree):
+            flat, sizes = _flat(tree)
+            out = _on_rows(stacked_fn, lead, torch.stack(
+                self.all_gather(flat)))
+            return _unflat(out[self.rank], sizes, tree)
+
+        return tx
+
+    def shard_gather(self, rank: int, members):
+        """`PositionGroup.shard_gather` for this process's rank: every
+        rank's chunks gathered (one collective), this rank's group's
+        concatenated in shard order."""
+        self._own(rank)
+        group = members[rank]
+
+        def gather(chunks):
+            flat, sizes = _flat(chunks)
+            rows = self.all_gather(flat)
+            parts = [torch.split(rows[m], sizes) for m in group]
+            return [torch.cat([p[e].reshape(c.shape) for p in parts])
+                    for e, c in enumerate(chunks)]
+
+        return gather
+
+    def close(self) -> None:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _environ(values):
+    """`os.environ` with `values` set around the block: the spawned
+    children inherit them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _watch_parent(pid: int) -> None:
+    """Exit this process once its parent is gone: no rank outlives its
+    launcher."""
+    def watch():
+        while os.getppid() == pid:
+            time.sleep(0.5)
+        os._exit(1)
+
+    threading.Thread(target=watch, name="parent-watch", daemon=True).start()
+
+
+def _process_main(rank, n, backend, init_method, device, timeout, threads,
+                  parent, fn, args, results):
+    """A rank's process: `fn(group, *args)` over its `ProcessPositions`;
+    puts (rank, True, result) or (rank, False, traceback) on `results`."""
+    _watch_parent(parent)
+    group = None
+    try:
+        torch.set_num_threads(threads)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is not None:
+            torch.cuda.set_device(device)
+        group = ProcessPositions(rank, n, backend, init_method, device,
+                                 timeout)
+        # pickled here, by value: the queue's own pickler would hand
+        # tensors over as shared memory that dies with this process
+        results.put((rank, True, pickle.dumps(fn(group, *args))))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if group is not None:
+            group.close()
+
+
+def run_processes(fn, args=(), *, n: int, backend: str, devices,
+                  timeout: float = COLLECTIVE_TIMEOUT_S, threads: int = 1,
+                  deadline: float = None):
+    """`fn(group, *args)` in `n` spawned processes, rank r's `group` a
+    `ProcessPositions` on `devices[r]`, meeting at a `file://`
+    rendezvous in a fresh temp dir; returns the results in rank order.
+    Each child runs `threads` intra-op threads (and OMP_NUM_THREADS).
+    The first rank that raises (or dies) stops every other and raises
+    `RankFailed` naming it; past `deadline` seconds (None: no limit, each
+    collective still times out after `timeout`) every child is killed
+    and TimeoutError raised. No child outlives the call."""
+    if len(devices) != n:
+        raise ValueError(f"{len(devices)} devices for {n} ranks")
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="positions-")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    # gloo's and NCCL's sockets on the loopback interface, unless set
+    env = {"OMP_NUM_THREADS": str(threads),
+           **{k: os.environ.get(k, "lo") for k in ("GLOO_SOCKET_IFNAME",
+                                                   "NCCL_SOCKET_IFNAME")}}
+    end = None if deadline is None else time.monotonic() + deadline
+    procs, done = [], {}
+    try:
+        with _environ(env):
+            for r in range(n):
+                p = ctx.Process(target=_process_main, name=f"position-{r}",
+                                args=(r, n, backend, init, str(devices[r]),
+                                      timeout, threads, os.getpid(), fn,
+                                      args, results), daemon=True)
+                p.start()
+                procs.append(p)
+        while len(done) < n:
+            try:
+                rank, ok, payload = results.get(timeout=0.5)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in done and p.exitcode not in (None, 0)]
+                if end is not None and time.monotonic() > end:
+                    raise TimeoutError(
+                        f"ranks {sorted(set(range(n)) - set(done))} of {n} "
+                        f"did not finish within {deadline} s") from None
+                if not dead:
+                    continue
+                try:   # a rank that reported, then exited: its report
+                    rank, ok, payload = results.get(timeout=2.0)
+                except queue_mod.Empty:
+                    raise RankFailed(
+                        f"rank {dead[0]} of {n} died with exit code "
+                        f"{procs[dead[0]].exitcode}") from None
+            if not ok:
+                raise RankFailed(f"rank {rank} of {n} failed:\n{payload}")
+            done[rank] = pickle.loads(payload)
+        for p in procs:
+            p.join(timeout=30)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join(timeout=10)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [done[r] for r in range(n)]

@@ -41,6 +41,15 @@ bitwise the flat fit. With W positions, each holds its own replay group.
 An elastic `actors=` schedule reshards the envs between supersteps, as
 the reference's `_reshard_envs`.
 
+One process a position (`Trainer(..., positions=ProcessPositions)`, the
+reference's one program per device): the process runs its own rank's
+iterations only. It computes the env reset, the slices, stream ids,
+delays and reshards of every position from the seed as above and keeps
+its own; the collectives and the per-iteration metrics go through the
+process group in rank order, so the fit is bitwise the threaded fit;
+`fit` gathers every position's final state and returns position 0's
+(shard group 0's, reassembled) on every rank.
+
 Sharded learner states (survey §5's memory ceiling, ZeRO): a shard-role
 axis larger than 1 is a data axis whose members also split the learner
 state, each position's agent copy bound to its shard coordinate and to
@@ -75,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import time
 from typing import Any, Dict, Optional
 
 import torch
@@ -108,6 +118,16 @@ def state_bytes(states) -> int:
     return sum(seen.values())
 
 
+def state_to(state, device):
+    """`state` (a TrainState) with every tensor on `device`."""
+    def move(t):
+        return t.to(device) if isinstance(t, torch.Tensor) else t
+
+    return agent_api.TrainState(*(tree_map(move, part) for part in (
+        state.params, state.opt_state, state.extra, state.ring,
+        state.steps)))
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     algo: str = "impala"
@@ -138,8 +158,14 @@ class Trainer:
     """Drives any registered Agent under a DistPlan on one device; see
     module doc."""
 
-    def __init__(self, env, cfg: TrainerConfig, device="cuda"):
+    def __init__(self, env, cfg: TrainerConfig, device="cuda",
+                 positions=None):
         plan = cfg.resolved_plan()
+        if positions is not None and positions.n != plan.sim_devices:
+            raise ValueError(
+                f"a process group of {positions.n} ranks for the plan's "
+                f"{plan.sim_devices} data positions (mesh "
+                f"{plan.mesh_shape}): one process a position")
         # envs shard over the env grid (an active replay axis replicates
         # its data position's envs), so divisibility is against it
         if cfg.n_envs % plan.sim_devices:
@@ -205,6 +231,10 @@ class Trainer:
         self.pipeline_depth = plan.pipeline_depth if cfg.pipeline else 0
         # the data positions: the env grid's, row-major (replay axis 0)
         self.n_positions = plan.sim_devices
+        # one process a position: this process runs rank `_procs.rank`
+        self._procs = positions
+        self._ranks = ([positions.rank] if positions is not None
+                       else list(range(self.n_positions)))
         self._coords = plan.sim_coords()
         if self._sharded:
             # rank r's shard group: the ranks that differ from it only on
@@ -228,6 +258,8 @@ class Trainer:
                       for _ in range(self.n_positions)]
         self._hooks = [(None, None)] * self.n_positions
         self.actor_shards = []   # env count per superstep dispatch
+        self.superstep_s = []    # host seconds per superstep dispatch,
+        #                          each ending in its metrics' read back
         self.state_bytes = None  # every position's TrainState bytes, at
         #                          the end of the last fit
 
@@ -448,6 +480,16 @@ class Trainer:
         opt = self._geometry.collect_opt_state([s.opt_state for s in group])
         return dataclasses.replace(states[0], opt_state=opt)
 
+    def _gather_states(self, own):
+        """Every position's final TrainState from its process, in rank
+        order and on this device (through the host, bitwise), and the
+        bytes they hold together (each process's `state_bytes`)."""
+        got = self._procs.gather_objects((state_to(own, "cpu"),
+                                          state_bytes([own])))
+        return ([own if r == self._procs.rank else state_to(st, self.device)
+                 for r, (st, _) in enumerate(got)],
+                sum(n for _, n in got))
+
     # ---- elastic actor shards (plan.actors) ---------------------------
     def _reshard_envs(self, sims, n_total, s_idx):
         """Grow or shrink every position's env count to n_total / W
@@ -499,8 +541,8 @@ class Trainer:
             states[r], sims[r], queues[r] = state, sim, queue
             return per
 
-        if group is None:
-            return [work(0)]
+        if group is None or self._procs is not None:
+            return [work(r) for r in self._ranks]
         grad = torch.is_grad_enabled()
 
         def in_thread(r):   # the caller's grad mode and current device
@@ -529,29 +571,29 @@ class Trainer:
                 # supersteps, no drain
                 sims = self._reshard_envs(
                     sims, self.plan.actor_schedule(0, cfg.n_envs), 0)
-                for r in range(W):
+                for r in self._ranks:
                     sims[r], queues[r] = self._fill_queue(states[r],
                                                           sims[r], r)
         group = None
         if W > 1:
-            group = PositionGroup(W)
+            group = self._procs or PositionGroup(W)
             grad_fn, param_fn = self._collectives
             lead = self.plan.sim_shape
-            self._hooks = [
-                (grad_fn and group.hook(r, grad_fn, lead),
-                 param_fn and group.hook(r, param_fn, lead))
-                for r in range(W)]
-            if self._sharded:
-                for r, a in enumerate(self._agents):
-                    a.opt.axis.bind(self._coords[r][self._shard_k],
-                                    group.shard_gather(
-                                        r, self._shard_members))
+            for r in self._ranks:
+                self._hooks[r] = (grad_fn and group.hook(r, grad_fn, lead),
+                                  param_fn and group.hook(r, param_fn, lead))
+                if self._sharded:
+                    self._agents[r].opt.axis.bind(
+                        self._coords[r][self._shard_k],
+                        group.shard_gather(r, self._shard_members))
         K = cfg.superstep if fused else 1
         history = []
         start = 0
         self.actor_shards = []
+        self.superstep_s = []
         try:
             while start < cfg.iters:
+                t0 = time.perf_counter()
                 k = min(K, cfg.iters - start)
                 # the schedule's window is the cfg.superstep-iteration
                 # window, not the dispatch: fused and unfused fits
@@ -565,10 +607,13 @@ class Trainer:
                 names = sorted(per[0][0])
                 stacked = [torch.stack([torch.stack([m[n] for m in p])
                                         for n in names]) for p in per]
+                if W > 1 and self._procs is not None:
+                    stacked = self._procs.all_gather(stacked[0])
                 # positions averaged each iteration, in rank order
                 values = (stacked[0] if W == 1
                           else member_sum(torch.stack(stacked)) / W)
                 values = values.cpu()                  # ONE host sync
+                self.superstep_s.append(time.perf_counter() - t0)
                 for j in range(k):
                     it = start + j
                     if it % cfg.log_every == 0 or it == cfg.iters - 1:
@@ -578,12 +623,17 @@ class Trainer:
                 start += k
         finally:
             if group is not None:
-                group.close()
+                if self._procs is None:
+                    group.close()
                 self._hooks = [(None, None)] * W
                 if self._sharded:
                     for a in self._agents:
                         a.opt.axis.unbind()
-        self.state_bytes = state_bytes(states)
+        if W > 1 and self._procs is not None:
+            states, self.state_bytes = self._gather_states(
+                states[self._procs.rank])
+        else:
+            self.state_bytes = state_bytes(states)
         state = self._unshard(states) if self._sharded else states[0]
         if self._replay_service is not None:
             # the flat buffer again: fit()'s result and checkpoints do

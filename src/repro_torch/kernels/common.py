@@ -10,15 +10,17 @@ is rebuilt when the content hash of the sources, headers or flags
 changes. Nothing is downloaded and nothing outside the
 repository's sources is compiled.
 
-The build-and-load runs once per process under a lock, and every
-wrapper counts its launches through `count_launch`, also under a lock,
-so threads that launch kernels at once (the Trainer's data positions,
-core/positions.py) neither build twice nor lose a count.
+The build-and-load runs once per process under a lock, the build
+itself under a lock file shared by every process, and every wrapper
+counts its launches through `count_launch`, also under a lock, so
+threads or processes that launch kernels at once (the Trainer's data
+positions, core/positions.py) neither build twice nor lose a count.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -94,15 +96,32 @@ def _digest(sources) -> str:
 def build_kernels() -> tuple:
     """Compile the kernel sources unless an up-to-date library exists.
     Returns (library path, compiler log); the log holds ptxas's
-    register and shared-memory report of a fresh build, else is empty."""
+    register and shared-memory report of a fresh build, else is empty.
+    Processes that build at once (one per data position) take turns on
+    a lock file in the build directory: the first builds, the others
+    then find its library up to date."""
     files = kernel_sources()
-    sources = [src for src in files if src.suffix == ".cu"]
     lib = BUILD_DIR / "libkernels.so"
     stamp = BUILD_DIR / "libkernels.sha256"
     digest = _digest(files)
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+
+    def current():
+        return (lib.exists() and stamp.exists()
+                and stamp.read_text() == digest)
+
+    if current():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        if current():
+            return lib, ""
+        return _build(files, lib, stamp, digest)
+
+
+def _build(files, lib, stamp, digest) -> tuple:
+    """`build_kernels`' compile and link, under its lock."""
+    sources = [src for src in files if src.suffix == ".cu"]
     nvcc = _nvcc()
     pid = os.getpid()  # concurrent builds write their own objects
     objs = [BUILD_DIR / f"{src.parent.parent.name}_{src.stem}.{pid}.o"

@@ -36,7 +36,8 @@ differences:
     temp or generated-code size.
 DTensor has no sharding strategy for some ops the models run, and its
 strategy for others fails on these inputs: `RULE_OPS` gives each a rule
-of the dry-run's own (listed with the reason), so the collectives they
+of the dry-run's own, and `WRAPPED_OPS` wraps DTensor's own strategy of
+a few more in one (each listed with the reason), so the collectives they
 cost are counted. `torch.einsum` over DTensors runs in
 `partitioned_einsum`: DTensor's own decomposes it into matmuls over
 flattened dims and refuses (torch 2.11) to flatten a sharded inner dim.
@@ -105,6 +106,24 @@ RULE_OPS = (
     (_aten.constant_pad_nd.default, "pad",
      "torch 2.11's strategy gives a placement list shorter than the "
      "mesh (IndexError in the redistribution of a padded kv block)"),
+    (_aten.flip.default, "flip",
+     "no strategy in torch 2.11 (cumsum's backward, RWKV-6's training "
+     "step)"),
+)
+# DTensor's own strategy for these ops, wrapped by a rule of the
+# dry-run's own: (ops, rule, reason).
+WRAPPED_OPS = (
+    ((_aten.view.default, _aten._unsafe_view.default), "carry_or_replicate",
+     "torch 2.11's view refuses to split a dim sharded wider than the "
+     "split's first part (jamba's 32 query heads over a 16-way model axis "
+     "into (8 kv heads, 4 groups)), where 2.13 makes a strided shard: the "
+     "input is replicated on that mesh dim first, its all-gather counted"),
+    ((_aten.add.Tensor, _aten.sub.Tensor), "keep_shard",
+     "torch 2.11's linear pointwise strategy follows a partial operand and "
+     "asks the other for a partial sum too, which 2.11 cannot make from a "
+     "shard (jamba's decode: Mamba's partial dt projection plus its "
+     "sharded dt_bias): the output keeps the shard, the partial operand "
+     "is reduced"),
 )
 _registered = False
 
@@ -180,8 +199,15 @@ def _register_rules():
             out.append(([Partial()], [Partial()]))
         return out
 
+    def flip(x, dims):
+        flipped = {d % x.ndim for d in dims}
+        return [([R], [R]), ([Partial()], [Partial()])] + [
+            ([Shard(d)], [Shard(d)]) for d in range(x.ndim)
+            if d not in flipped]
+
     rules = {"replicate": replicate, "index": index,
-             "index_put": index_put, "gather": gather, "pad": pad}
+             "index_put": index_put, "gather": gather, "pad": pad,
+             "flip": flip}
     # register_sharding documents that its rule overrides DTensor's own;
     # torch 2.13 looks an op's single-dim strategy up first, so that one
     # is dropped for these ops
@@ -189,7 +215,139 @@ def _register_rules():
     for op, rule, _ in RULE_OPS:
         register_sharding(op)(rules[rule])
         getattr(prop, "op_single_dim_strategy_funcs", {}).pop(op, None)
+    # flip's dims are a list, which register_sharding leaves out of the
+    # propagation cache's key: two flips of one input on other dims
+    # would share an entry
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    prop.op_to_schema_info[_aten.flip.default] = RuntimeSchemaInfo(1)
+    wrappers = {"carry_or_replicate": carry_or_replicate,
+                "keep_shard": keep_shard}
+    for ops, rule, _ in WRAPPED_OPS:
+        for op in ops:
+            # torch 2.13 keeps add and sub as single-dim strategies, and
+            # redistributes a shard to a partial sum itself
+            if op in prop.op_strategy_funcs:
+                prop.op_strategy_funcs[op] = wrappers[rule](
+                    prop.op_strategy_funcs[op])
     _registered = True
+
+
+def _uncarried_mesh_dims(rule, in_shape, placements, mesh_sizes):
+    """The mesh dims whose Shard a view with dim map `rule` (DTensor's
+    `view_groups`) cannot carry to its output without moving data: a
+    sharded dim that no output dim keeps, that a flatten puts after
+    another, or that a split cuts into a first part the mesh dim does not
+    divide (torch 2.11's strict view raises on each). Strided shards are
+    left to DTensor."""
+    from torch.distributed.tensor._ops._view_ops import (Flatten, InputDim,
+                                                         Split)
+    from torch.distributed.tensor.placement_types import _StridedShard
+    first_parts = {}       # input dim -> size of the output part it leads
+
+    def lead(cmd, size):
+        if isinstance(cmd, InputDim):
+            first_parts[cmd.input_dim] = size
+        elif isinstance(cmd, Flatten):
+            lead(cmd.input_dims[0], in_shape[cmd.input_dims[0].input_dim])
+        elif isinstance(cmd, Split) and cmd.split_id == 0:
+            lead(cmd.input_dim, cmd.group_shape[0])
+
+    for cmd in rule:
+        lead(cmd, None)
+    out = []
+    for m, p in enumerate(placements):
+        if not p.is_shard() or isinstance(p, _StridedShard):
+            continue
+        if p.dim not in first_parts:
+            out.append(m)
+            continue
+        size = first_parts[p.dim]
+        if size is not None and size % mesh_sizes[m]:
+            out.append(m)
+    return out
+
+
+def carry_or_replicate(strategy_fn):
+    """A view's strategy: DTensor's own, on its input replicated first on
+    every mesh dim whose shard the view cannot carry
+    (`_uncarried_mesh_dims`), so DTensor all-gathers it there (a
+    collective the recorder counts) instead of raising."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import (OpSchema, OpSpec,
+                                                     OpStrategy)
+    from torch.distributed.tensor._ops._view_ops import dim_maps
+    from torch.distributed.tensor._ops.utils import \
+        generate_redistribute_costs
+
+    def strategy(op_schema):
+        x = op_schema.args_schema[0]
+        spec = x.strategies[0].output_spec
+        rule = dim_maps[torch.Tensor.view](x, *op_schema.args_schema[1:])
+        drop = _uncarried_mesh_dims(rule, tuple(x.shape), spec.placements,
+                                    tuple(spec.mesh.shape))
+        if not drop:
+            return strategy_fn(op_schema)
+        placed = tuple(Replicate() if m in drop else p
+                       for m, p in enumerate(spec.placements))
+        whole = OpStrategy([OpSpec(DTensorSpec(
+            spec.mesh, placed, tensor_meta=spec.tensor_meta))])
+        out = strategy_fn(OpSchema(
+            op_schema.op, (whole, *op_schema.args_schema[1:]),
+            op_schema.kwargs_schema, schema_info=op_schema.schema_info))
+        return OpStrategy([OpSpec(
+            s.output_specs, s.input_specs,
+            [generate_redistribute_costs(x, s.input_specs[0])])
+            for s in out.strategies])
+
+    return strategy
+
+
+def keep_shard(strategy_fn):
+    """A linear binary pointwise op's strategy (add, sub): DTensor's own,
+    except on a mesh dim where it asks a sharded operand for a partial
+    sum: there the output keeps that operand's shard (on the output's
+    dim), each other operand is sharded alike where it has the dim and
+    replicated where it broadcasts, and a partial operand is reduced
+    (reduce-scatter or all-reduce)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import \
+        generate_redistribute_costs
+
+    def strategy(op_schema):
+        out = strategy_fn(op_schema)
+        args = [a for a in op_schema.args_schema
+                if isinstance(a, OpStrategy)]
+        cur = [a.strategies[0].output_spec for a in args]
+        shape = torch.broadcast_shapes(*(tuple(a.shape) for a in args))
+        fixed = []
+        for s in out.strategies:
+            outp = list(s.output_specs.placements)
+            ins = [list(t.placements) for t in s.input_specs]
+            for m in range(len(outp)):
+                bad = [i for i, (c, t) in enumerate(zip(cur, ins))
+                       if t[m].is_partial() and c.placements[m].is_shard()]
+                if not bad:
+                    continue
+                keep = bad[0]
+                dim = len(shape) - cur[keep].ndim + cur[keep].placements[m].dim
+                outp[m] = Shard(dim)
+                for i, c in enumerate(cur):
+                    d = dim - (len(shape) - c.ndim)
+                    has = d >= 0 and c.shape[d] == shape[dim]
+                    ins[i][m] = Shard(d) if has else Replicate()
+            specs = [DTensorSpec(c.mesh, tuple(p), tensor_meta=c.tensor_meta)
+                     for c, p in zip(cur, ins)]
+            fixed.append(OpSpec(
+                DTensorSpec(s.output_specs.mesh, tuple(outp),
+                            tensor_meta=s.output_specs.tensor_meta),
+                specs, [generate_redistribute_costs(a, t)
+                        for a, t in zip(args, specs)]))
+        return OpStrategy(fixed)
+
+    return strategy
 
 
 def _meta_dtensor(shape, dtype, spec, mesh):
@@ -667,20 +825,47 @@ def main():
     if args.all:
         from repro_torch.configs import list_archs
         archs = [a for a in list_archs() if a != "paper-drl-trunk"]
-        cases = [(a, s) for a in archs for s in SHAPES]
-    else:
-        cases = [(args.arch, args.shape)]
-    for arch, shape in cases:
-        rec = dryrun_one(arch, shape, multi_pod=args.multi_pod,
-                         mesh_shape=mesh_shape,
-                         param_dtype=args.param_dtype, fsdp=args.fsdp,
-                         tag=args.tag, policy=args.policy)
-        keys = ("status", "trace_s", "counted_flops", "compute_term_s",
-                "memory_term_s", "collective_term_s", "bottleneck",
-                "reason", "error")
-        print(json.dumps({"arch": arch, "shape": shape,
-                          **{k: rec[k] for k in keys if k in rec}}),
-              flush=True)
+        _run_pairs([(a, s) for a in archs for s in SHAPES], args)
+        return
+    arch, shape = args.arch, args.shape
+    rec = dryrun_one(arch, shape, multi_pod=args.multi_pod,
+                     mesh_shape=mesh_shape, param_dtype=args.param_dtype,
+                     fsdp=args.fsdp, tag=args.tag, policy=args.policy)
+    keys = ("status", "trace_s", "counted_flops", "compute_term_s",
+            "memory_term_s", "collective_term_s", "bottleneck",
+            "collective_bytes", "reason", "error")
+    print(json.dumps({"arch": arch, "shape": shape,
+                      **{k: rec[k] for k in keys if k in rec}}), flush=True)
+
+
+def _run_pairs(cases, args):
+    """`--all`: each pair by this module in a process of its own (one
+    fake world each), as many at once as the host has cores, one
+    intra-op thread each; their lines are printed as they end."""
+    import subprocess
+    import sys
+    flags = (["--multi-pod"] if args.multi_pod else []) + (
+        ["--fsdp"] if args.fsdp else [])
+    for name in ("param_dtype", "mesh_shape", "tag", "policy"):
+        if getattr(args, name):
+            flags += [f"--{name.replace('_', '-')}", getattr(args, name)]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    todo, running = list(cases), []
+    jobs = os.cpu_count() or 1
+    while todo or running:
+        while todo and len(running) < jobs:
+            arch, shape = todo.pop(0)
+            running.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, *flags], env=env,
+                stdout=subprocess.PIPE, text=True))
+        time.sleep(0.5)
+        for proc in [p for p in running if p.poll() is not None]:
+            running.remove(proc)
+            print(proc.stdout.read().strip(), flush=True)
+            if proc.returncode:
+                print(json.dumps({"args": proc.args[3:],
+                                  "exit": proc.returncode}), flush=True)
 
 
 if __name__ == "__main__":

@@ -29,16 +29,28 @@ bitwise). ``--pipeline`` splits each iteration into a rollout producer
 and a learner consumer joined by a trajectory queue as deep as the
 plan's sync disciplines admit (``--sync ssp --staleness-bound 1``: one).
 Prints one JSON line, the reference's, plus the device.
+
+``--backend gloo|nccl`` runs each data position in a process of its own
+instead (core/positions.py, "Processes"): this command spawns the plan's
+``sim_devices`` processes, one rank each of a ``torch.distributed`` group,
+and rank 0's line is printed with ``backend`` and ``n_processes`` added;
+the fit is bitwise the threaded one. ``nccl`` puts rank r on ``cuda:r``
+and refuses, before it spawns, a plan with more ranks than cards;
+``gloo`` puts every rank on ``--device`` (on one card, all share it) and
+moves the collectives through the host. A rank that fails makes the
+command fail, naming the rank; no process outlives it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
 ALGOS = ("a3c", "dqn", "impala", "ppo")
 TOPOLOGY_CHOICES = ("allreduce", "ps", "gossip")
 SYNC_CHOICES = ("bsp", "asp", "ssp")
+BACKENDS = ("positions", "gloo", "nccl")
 
 
 def build_parser():
@@ -83,6 +95,10 @@ def build_parser():
                          "queue as deep as the plan's sync admits")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: the card)")
+    ap.add_argument("--backend", default="positions", choices=BACKENDS,
+                    help="positions: every data position a thread on "
+                         "--device; gloo, nccl: a process each, over "
+                         "torch.distributed (nccl: a card a rank)")
     return ap
 
 
@@ -100,41 +116,35 @@ def plan_of(args):
                          args.max_delay, args.staleness_bound, actors=actors)
 
 
-def main(argv=None):
-    """Parse `argv`, train, print the JSON line; returns (trainer, final
-    TrainState, full history) for callers that drive it in-process."""
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    try:
-        plan = plan_of(args)
-    except ValueError as e:
-        ap.error(str(e))
+@dataclasses.dataclass
+class ProcessRun:
+    """What `main` returns in the Trainer's place under a process
+    backend: every rank's kernel launch counts and seconds in its
+    Trainer (construction and fit, the line's `wall_s` unrounded), rank
+    0's `Trainer.superstep_s` and its line."""
+    backend: str
+    n_processes: int
+    launches: list       # each rank's {kernel wrapper name: launches}
+    fit_s: list
+    superstep_s: list
+    line: dict
 
-    import repro_torch.envs as envs
-    from repro_torch.core.trainer import Trainer, TrainerConfig
 
-    if args.env not in envs.available():
-        ap.error(f"--env {args.env} not registered in the port; available: "
-                 f"{envs.available()}")
+def _config(args, plan):
+    from repro_torch.core.trainer import TrainerConfig
     algo_kwargs = {"policy": args.policy}
     if args.algo == "impala":
         algo_kwargs["use_vtrace"] = not args.no_vtrace
-    cfg = TrainerConfig(
+    return TrainerConfig(
         algo=args.algo, iters=args.iters, superstep=args.superstep,
         n_envs=args.n_envs, unroll=args.unroll, plan=plan,
         policy_lag=args.policy_lag, seed=args.seed,
         log_every=args.log_every, pipeline=args.pipeline,
         algo_kwargs=algo_kwargs)
-    env = envs.make(args.env)
-    t0 = time.time()
-    try:
-        trainer = Trainer(env, cfg, device=args.device)
-    except ValueError as e:  # e.g. a replay axis on an algorithm without
-        ap.error(str(e))     # a prioritized buffer, n_envs that does not
-        #                      divide across the positions, or --pipeline
-        #                      with a zero3 or replay axis
-    state, history = trainer.fit(fused=not args.unfused)
-    print(json.dumps({
+
+
+def _line(args, plan, trainer, t0, history):
+    return {
         "algo": args.algo, "env": args.env, "policy": args.policy,
         # the reference's keys: the plan and its device count (every
         # position, replay members included, shares this one device)
@@ -149,7 +159,96 @@ def main(argv=None):
         # per-shard slots; None without a replay axis larger than 1
         "partition_replay": trainer.partition_replay,
         "device": str(trainer.device),
-        "wall_s": round(time.time() - t0, 1), "history": history[-5:]}))
+        "wall_s": round(time.time() - t0, 1), "history": history[-5:]}
+
+
+def _rank_fit(group, args):
+    """One rank's process: its data position's fit. Returns its kernel
+    launches and, from rank 0, the line, history and final state (on the
+    host)."""
+    import repro_torch.envs as envs
+    from repro_torch import kernels
+    from repro_torch.core.trainer import Trainer, state_to
+    plan = plan_of(args)
+    t0 = time.time()
+    trainer = Trainer(envs.make(args.env), _config(args, plan),
+                      device=group.device, positions=group)
+    state, history = trainer.fit(fused=not args.unfused)
+    out = {"launches": kernels.launch_counts(), "fit_s": time.time() - t0}
+    if group.rank == 0:
+        out.update(line=_line(args, plan, trainer, t0, history),
+                   history=history, state=state_to(state, "cpu"),
+                   superstep_s=trainer.superstep_s)
+    return out
+
+
+def _launch(ap, args, plan):
+    """The process backends: check what can be checked here, spawn a
+    process a data position, print rank 0's line."""
+    import torch
+    import repro_torch.envs as envs
+    from repro_torch.core.positions import run_processes
+    from repro_torch.core.trainer import Trainer, state_to
+    from repro_torch.kernels.common import resolve_device
+    n = plan.sim_devices
+    if args.backend == "nccl":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if cards < n:
+            ap.error(f"--backend nccl runs a rank a card: {n} ranks, "
+                     f"{cards} card{'' if cards == 1 else 's'}")
+        devices = [f"cuda:{r}" for r in range(n)]
+    else:
+        devices = [args.device] * n
+    resolve_device(devices[0])
+    try:   # the Trainer's own checks, before any process starts
+        Trainer(envs.make(args.env), _config(args, plan), device="cpu")
+    except ValueError as e:
+        ap.error(str(e))
+    # each rank at this process's intra-op thread count: the CPU's
+    # reductions may depend on it, and a fit is bitwise the threaded one
+    results = run_processes(
+        _rank_fit, (args,), n=n, backend=args.backend, devices=devices,
+        threads=torch.get_num_threads())
+    line = dict(results[0]["line"], backend=args.backend, n_processes=n)
+    print(json.dumps(line))
+    run = ProcessRun(args.backend, n, [r["launches"] for r in results],
+                     [r["fit_s"] for r in results],
+                     results[0]["superstep_s"], line)
+    return (run, state_to(results[0]["state"], devices[0]),
+            results[0]["history"])
+
+
+def main(argv=None):
+    """Parse `argv`, train, print the JSON line; returns (trainer, final
+    TrainState, full history) for callers that drive it in-process
+    (under a process backend a `ProcessRun` in the trainer's place, and
+    position 0's state on the first rank's device)."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    try:
+        plan = plan_of(args)
+    except ValueError as e:
+        ap.error(str(e))
+
+    import repro_torch.envs as envs
+    from repro_torch.core.trainer import Trainer
+
+    if args.env not in envs.available():
+        ap.error(f"--env {args.env} not registered in the port; available: "
+                 f"{envs.available()}")
+    if args.backend != "positions":
+        return _launch(ap, args, plan)
+    t0 = time.time()
+    try:
+        trainer = Trainer(envs.make(args.env), _config(args, plan),
+                          device=args.device)
+    except ValueError as e:  # e.g. a replay axis on an algorithm without
+        ap.error(str(e))     # a prioritized buffer, n_envs that does not
+        #                      divide across the positions, or --pipeline
+        #                      with a zero3 or replay axis
+    state, history = trainer.fit(fused=not args.unfused)
+    print(json.dumps(_line(args, plan, trainer, t0, history)))
     return trainer, state, history
 
 

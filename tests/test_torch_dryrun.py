@@ -96,6 +96,59 @@ out["ffn"] = {"specs": {k[len(pre):]: list(v) for k, v in specs.items()
     "w8": """
 case("multi_pod", "gemma3-1b", "decode_32k", multi_pod=True,
      mesh_shape=(2, 2, 2))
+# the reduced jamba's 4 query heads over a 4-way model axis, split into
+# (2 kv heads, 2 groups)
+case("jamba_decode", "jamba-v0.1-52b", "decode_32k", mesh_shape=(2, 4))
+case("jamba_long", "jamba-v0.1-52b", "long_500k", mesh_shape=(2, 4))
+""",
+    "w4c": """
+# the rules of the dry-run's own that torch 2.11 needs, one op each on
+# a small fake mesh, and the training step that flips (cumsum's backward)
+case("rwkv_train", "rwkv6-1.6b", "train_4k", mesh_shape=(2, 2))
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+from torch.distributed.tensor._op_schema import OpSchema, OpSpec, OpStrategy
+from repro_torch.launch.sharding import P
+dryrun._register_rules()
+names = lambda t: [str(p) for p in t.placements]
+m22 = make_production_mesh(shape=(2, 2))
+m14 = make_production_mesh(shape=(1, 4))
+x = dryrun._meta_dtensor((4, 6, 8), torch.float32, P("data", None, "model"),
+                         m22)
+(keep, cut), rec = dryrun._run(
+    lambda x: (torch.flip(x, [1]), torch.flip(x, [-1])), (x,), m22)
+out["flip"] = {"keep": names(keep), "cut": names(cut),
+               "records": rec.records}
+split = {}
+for label, mesh in (("wider", m14), ("divides", m22)):
+    q = dryrun._meta_dtensor((2, 8, 4, 16), torch.bfloat16,
+                             P(None, None, "model", None), mesh)
+    o, rec = dryrun._run(lambda q: q.reshape(2, 8, 2, 2, 16), (q,), mesh)
+    split[label] = {"placements": names(o), "shape": list(o.shape),
+                    "records": rec.records}
+out["split"] = split
+def spec(shape, placements):
+    t = torch.empty(shape, device="meta")
+    return DTensorSpec(m22, tuple(placements),
+                       tensor_meta=TensorMeta(t.shape, t.stride(), t.dtype))
+def follow_first(op_schema):
+    # torch 2.11's linear pointwise answer for an add: it follows the
+    # first operand, and asks the second for the first's partial sum
+    a, b = (arg.strategies[0].output_spec for arg in op_schema.args_schema)
+    return OpStrategy([OpSpec(spec((8, 1, 16), a.placements), [
+        a, spec(b.shape, [Replicate(), Partial()])], [[0.0], [0.0]])])
+add = {}
+for label, bias in (("sharded", Shard(0)), ("replicated", Replicate())):
+    a = spec((8, 1, 1), [Shard(0), Partial()])
+    b = spec((16,), [Replicate(), bias])
+    got = dryrun.keep_shard(follow_first)(OpSchema(
+        torch.ops.aten.add.Tensor, (OpStrategy([OpSpec(a)]),
+                                    OpStrategy([OpSpec(b)])), {}))
+    s = got.strategies[0]
+    add[label] = {"out": [str(p) for p in s.output_specs.placements],
+                  "inputs": [[str(p) for p in t.placements]
+                             for t in s.input_specs]}
+out["add"] = add
 """,
 }
 
@@ -188,6 +241,61 @@ def test_reduced_cases_are_ok(runs, name, script):
     assert rec["bottleneck"] in ("compute", "memory", "collective")
     if name == "multi_pod":
         assert rec["chips"] == 8
+
+
+@pytest.mark.parametrize("name,script", [
+    ("rwkv_train", "w4c"), ("jamba_decode", "w8"), ("jamba_long", "w8")])
+def test_cases_torch_2_11_refused_are_ok(runs, name, script):
+    """The pairs the `--all` sweep found erroring on torch 2.11 (the card
+    host's), reduced: RWKV-6's training step (cumsum's backward flips)
+    and jamba's head split over a model axis wider than its kv heads
+    (the reduced config's 2 over 4). On this torch they ran before the
+    rules too; chip_smoke.py holds them on 2.11 at full width."""
+    _ok(runs(script)[name])
+
+
+def test_flip_keeps_the_shards_of_the_dims_it_does_not_flip(runs):
+    """A (4, 6, 8) tensor sharded on dims 0 and 2 over (data, model):
+    flipping dim 1 keeps both shards and moves nothing; flipping dim 2
+    leaves it unsharded."""
+    flip = runs("w4c")["flip"]
+    assert flip["keep"] == ["S(0)", "S(2)"]
+    assert not [r for r in flip["records"] if r[2] == "data"]
+    assert flip["cut"][0] == "S(0)"
+    assert flip["cut"][1] != "S(2)"
+
+
+def test_head_split_wider_than_the_kv_heads_gathers_first(runs):
+    """(2, 8, 4 heads, 16) bf16 sharded on heads, split into (2, 2): over
+    a 4-way model axis the first part (2) cannot carry the shard, so the
+    view runs on the heads gathered, one all-gather of the whole 2048
+    bytes on `model`, counted; over a 2-way axis it divides, and the
+    output keeps the shard on the kv-head dim with no collective."""
+    split = runs("w4c")["split"]
+    assert split["wider"] == {"placements": ["R", "R"],
+                              "shape": [2, 8, 2, 2, 16],
+                              "records": [["all-gather", 2048, "model"]]}
+    assert split["divides"] == {"placements": ["R",
+                                               "S(2)"],
+                                "shape": [2, 8, 2, 2, 16], "records": []}
+
+
+def test_add_offers_no_partial_sum_of_a_sharded_operand(runs):
+    """Jamba's decode add on torch 2.11: a (8, 1, 1) partial sum over
+    `model` plus a (16,) bias sharded over `model`. Where DTensor asks
+    the sharded bias for a partial sum (which 2.11 cannot make), the
+    rule keeps the bias's shard on the output's last dim and reduces
+    the partial operand; a replicated bias keeps DTensor's answer (a
+    partial sum is reachable from it)."""
+    add = runs("w4c")["add"]
+    assert add["sharded"] == {
+        "out": ["S(0)", "S(2)"],
+        "inputs": [["S(0)", "R"],
+                   ["R", "S(0)"]]}
+    assert add["replicated"] == {
+        "out": ["S(0)", "P(sum)"],
+        "inputs": [["S(0)", "P(sum)"],
+                   ["R", "P(sum)"]]}
 
 
 def test_act_batch_axes_reshards_each_superblock_input(runs):

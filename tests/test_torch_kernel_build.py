@@ -4,8 +4,11 @@ rebuilds the library. A stand-in `nvcc` (a Python script that records its
 arguments and writes the file after `-o`) takes the compiler's place, so
 this runs without the CUDA toolkit."""
 import json
+import os
 import shutil
+import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -62,6 +65,47 @@ def test_build_compiles_sources_only_and_links_once(tree):
     _, log = tree
     lib, _ = common.build_kernels()
     assert lib.exists()
+    calls = _calls(log)
+    compiled = sorted(c[c.index("-c") + 1].rsplit("/", 1)[1]
+                      for c in calls if "-c" in c)
+    assert compiled == ["a.cu", "b.cu"]
+    assert sum("-shared" in c for c in calls) == 1
+
+
+BUILD_IN_CHILD = """
+import json, os, sys, time
+from pathlib import Path
+from repro_torch.kernels import common
+common.PACKAGE_DIR, common.BUILD_DIR = Path(sys.argv[1]), Path(sys.argv[2])
+while time.time() < float(sys.argv[3]):   # start together
+    time.sleep(0.001)
+lib, _ = common.build_kernels()
+print(json.dumps([str(lib), os.stat(lib).st_ino]))
+"""
+
+
+def test_processes_that_build_at_once_build_once(tree, tmp_path):
+    """Two processes call `build_kernels` at once on the same tree, the
+    stand-in nvcc slowed so that their builds would overlap: under the
+    build directory's lock file each source is compiled once and linked
+    once, and both processes return the one library."""
+    pkg, log = tree
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.write_text(FAKE_NVCC.replace("import json, os, sys",
+                                      "import json, os, sys, time\n"
+                                      "time.sleep(0.5)"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
+    start = str(time.time() + 3.0)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", BUILD_IN_CHILD, str(pkg),
+         str(tmp_path / "build"), start], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for _ in range(2)]
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err[-2000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    assert outs[0] == outs[1]
     calls = _calls(log)
     compiled = sorted(c[c.index("-c") + 1].rsplit("/", 1)[1]
                       for c in calls if "-c" in c)
@@ -266,3 +310,20 @@ def test_count_launch_is_exact_under_threads():
 
     _together(8, bump)
     assert wrapper.launches == 8000
+
+
+def test_wrappers_name_every_kernel_that_counts_its_launches():
+    """`repro_torch.kernels.wrappers()` (what a rank reports back under a
+    process backend) holds every function of a kernel module that counts
+    its launches, and `launch_counts()` reads them."""
+    import importlib
+    from repro_torch import kernels
+    counting = {}
+    for path in sorted(common.PACKAGE_DIR.glob("kernels/*/kernel.py")):
+        mod = importlib.import_module(
+            f"repro_torch.kernels.{path.parent.name}.kernel")
+        counting.update({name: f for name, f in vars(mod).items()
+                         if callable(f) and hasattr(f, "launches")
+                         and f.__module__ == mod.__name__})
+    assert kernels.wrappers() == counting
+    assert set(kernels.launch_counts()) == set(counting)
