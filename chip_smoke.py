@@ -43,11 +43,16 @@ Phases, in order; the script exits non-zero at the first failure:
   2b. training attention: at the policy trunk's training shapes
      (TRAIN_FLASH_CASES: a full-width ppo minibatch (256, 4, 2, 4, 64),
      the reduced trunk's and the full-width a3c/impala batch of 1024 rows,
-     pendulum's 3 keys, a dqn batch of 64), the forward writing each row's
-     log-sum-exp (O bitwise the serving forward's, lse within 2e-5 of the
-     plain version's) and the backward kernel `flash_attention_bwd`
-     against its plain version on the kernel's o and lse (within 1e-4 x
-     max(1, max|grad|)), bitwise on a repeat; each with ms, device time
+     pendulum's 3 keys, a dqn batch of 64; 5 keys, one past the 4 at a
+     time the backward's phase 1 takes; TRAIN_FLASH_UNALIGNED: the
+     ppo minibatch with every operand one float off its alignment, the
+     backward's scalar-copy instance, bitwise its gradients on aligned
+     copies), the
+     forward writing each row's log-sum-exp (O bitwise the serving
+     forward's, lse within 2e-5 of the plain version's) and the backward
+     kernel `flash_attention_bwd` against its plain version on the
+     kernel's o and lse (within 1e-4 x max(1, max|grad|)), bitwise on a
+     repeat; each with ms, device time
      beside the launch floor, plain ms, the library's ms (SDPA's forward;
      SDPA's backward through autograd) and its bound;
   3. slice: the full-width `paper-drl-trunk` policy served through
@@ -256,11 +261,14 @@ SERVE_CASE = (32, 4, 2, 4, 64, True, 0)  # B, H, KVH, S, D, causal, window
 # the LM serve path's prefill attention (batch 4, prompt 32)
 LM_FLASH_CASES = [(4, 16, 16, 32, 128, True, 0),   # deepseek-moe-16b
                   (4, 15, 5, 32, 64, True, 0)]     # smollm-360m
+# f32 past 32 keys (flash_fwd<float>, on no caller's path) at
+# (4, 16, 16, 128, 128): a deepseek-width head at a 128-token prompt
 KERNEL_CASES = [SERVE_CASE, *LM_FLASH_CASES,
                 (2, 4, 2, 384, 64, True, 0),
                 (1, 4, 1, 256, 64, True, 64),
                 (2, 2, 2, 96, 32, False, 0),
-                (1, 2, 1, 512, 256, True, 0)]
+                (1, 2, 1, 512, 256, True, 0),
+                (4, 16, 16, 128, 128, True, 0)]
 # bf16 only: the LM zoo's prefill attention at its serve shapes (batch 4,
 # prompt 32): gemma3 (D = 256, one kv head, the short-row branch),
 # stablelm (MHA), whisper's decoder, paligemma (256 patches + 32 tokens:
@@ -395,10 +403,14 @@ RWKV = dict(arch="rwkv6-1.6b", batch=4, prompt_len=32, gen_len=16,
 # over 2 kv heads, 4 keys for cartpole, 3 for pendulum): a full-width ppo
 # minibatch (the path's row in the kernels line), the reduced trunk's
 # (rl_train's default) a3c/impala batch of 32 envs x 32 steps, the same at
-# full width, pendulum's 3 keys, and a dqn batch
+# full width, pendulum's 3 keys, and a dqn batch; then 5 keys, one past
+# the 4 at a time the backward's phase 1 takes at D 64
 TRAIN_FLASH_CASES = [(256, 4, 2, 4, 64), (1024, 4, 2, 4, 32),
                      (1024, 4, 2, 4, 64), (256, 4, 2, 3, 64),
-                     (64, 4, 2, 4, 32)]
+                     (64, 4, 2, 4, 32), (256, 4, 2, 5, 64)]
+# the path's shape with every operand one float into its buffer: off the
+# 16-byte alignment, so the backward's scalar-copy instance
+TRAIN_FLASH_UNALIGNED = [(256, 4, 2, 4, 64)]
 # the backward against its plain version fed the kernel's o and lse: dk and
 # dv sum S * G rows and dq S keys of f32 products in another order
 BWD_TOL = 1e-4
@@ -655,20 +667,41 @@ def phase_flash_bwd_kernel():
     from repro_torch.launch.profiling import beside_floor
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {"flash_attention_fwd_lse": {}, "flash_attention_bwd": {}}
-    for B, H, KVH, S, D in TRAIN_FLASH_CASES:
+
+    def drawn(shape, offset):
+        """a (B, S, X, D) draw, one `offset` floats into its buffer"""
+        n = math.prod(shape)
+        buf = torch.empty(n + offset, device="cuda")
+        buf[offset:] = torch.randn(n, generator=gen, device="cuda")
+        return buf[offset:].view(shape)
+
+    for B, H, KVH, S, D, offset in (
+            [(*c, 0) for c in TRAIN_FLASH_CASES]
+            + [(*c, 1) for c in TRAIN_FLASH_UNALIGNED]):
         G = H // KVH
-        qg = torch.randn((B, S, KVH, G, D), generator=gen, device="cuda")
-        k, v = (torch.randn((B, S, KVH, D), generator=gen, device="cuda")
-                for _ in range(2))
+        qg = drawn((B, S, KVH, G, D), offset)
+        k, v = (drawn((B, S, KVH, D), offset) for _ in range(2))
         q, kt, vt = (qg.reshape(B, S, H, D).transpose(1, 2),
                      k.transpose(1, 2), v.transpose(1, 2))
-        do = torch.randn((B, S, H, D), generator=gen,
-                         device="cuda").transpose(1, 2)
+        do = drawn((B, S, H, D), offset).transpose(1, 2)
         o, lse = fk.flash_attention_fwd_lse(q, kt, vt)
+        if offset:
+            buf = torch.empty(o.numel() + offset, device="cuda")
+            o = buf[offset:].view(B, S, H, D).copy_(
+                o.transpose(1, 2)).transpose(1, 2)
         got = fk.flash_attention_bwd(q, kt, vt, o, lse, do)
         again = fk.flash_attention_bwd(q, kt, vt, o, lse, do)
         torch.cuda.synchronize()
-        case = (B, H, KVH, S, D)
+        case = (B, H, KVH, S, D) + ((offset,) if offset else ())
+        check(q.data_ptr() % 8 == 4 * offset % 8,
+              f"flash_attention_bwd {case}: the operands' alignment")
+        if offset:  # bitwise the vector instance's on aligned copies
+            aligned = fk.flash_attention_bwd(
+                *(t.contiguous() for t in (q, kt, vt, o)), lse,
+                do.contiguous())
+            check(all(torch.equal(a, b) for a, b in zip(got, aligned)),
+                  f"flash_attention_bwd {case}: not bitwise the aligned "
+                  f"operands' gradients")
         check(torch.equal(o, fk.flash_attention_hsd(q, kt, vt)),
               f"flash_attention_fwd_lse {case}: O not bitwise the serving "
               f"forward's")
@@ -716,7 +749,8 @@ def phase_flash_bwd_kernel():
             t_bytes = sp["nbytes"] / H100_BYTES_PER_S
             t_ops = sp["ops"] / PEAK_OPS["float32"]
             library_dev_us, _ = device_us(sp["library"])
-            row = {"shape": list(case), "max_abs_err": sp["err"],
+            row = {"shape": list(case[:5]), "offset_floats": offset,
+                   "max_abs_err": sp["err"],
                    "tol": BWD_TOL if name == "flash_attention_bwd"
                    else TOL["float32"],
                    "ms": cuda_time_ms(sp["kernel"], 200),

@@ -206,15 +206,28 @@ def flash_attention_fwd_lse(q, k, v, *, causal=True, window=0,
 flash_attention_fwd_lse.launches = 0
 
 
+def _bwd_operands_error(q, o, lse, do, B, H, S):
+    """flash_attention_bwd's message for the operand it refuses."""
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != torch.float32 or \
+                t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd: {name} must be float32 "
+                             f"{tuple(q.shape)} on {q.device} with a "
+                             f"contiguous head dim")
+    raise ValueError(f"flash_attention_bwd: lse must be contiguous "
+                     f"float32 {(B, H, S)} on {q.device}")
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
                         valid_len=None):
     """The backward of flash_attention_fwd_lse on float32, key spans
     <= 32: q, o, do (B,H,S,D), k, v (B,KVH,S,D), any strides with a
     contiguous head dim, lse (B,H,S) as the forward wrote it. Returns
-    (dq, dk, dv): dq (B,H,S,D), a view of a (B,S,H,D) buffer, and dk, dv
-    (B,KVH,S,D), views of (B,S,KVH,D) buffers (the model layout needs no
-    copy). Deterministic: dk and dv are summed over each kv head's group
-    in one fixed order, without atomics."""
+    (dq, dk, dv): dq (B,H,S,D), a view of a (B,S,H,D) stretch, and dk, dv
+    (B,KVH,S,D), views of (B,S,KVH,D) stretches, of one buffer (the model
+    layout needs no copy; one allocation, not three). Deterministic: dk
+    and dv are summed over each kv head's group in one fixed order,
+    without atomics."""
     if not q.is_cuda:
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window, valid_len=valid_len)
@@ -222,30 +235,33 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     B, H, S, D = q.shape
     KVH = k.shape[1]
     _short_f32("flash_attention_bwd", dt, kv_end, B, KVH, S, H // KVH)
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != torch.float32 or \
-                t.device != q.device or t.stride(-1) != 1:
-            raise ValueError(f"flash_attention_bwd: {name} must be float32 "
-                             f"{tuple(q.shape)} on {q.device} with a "
-                             f"contiguous head dim")
-    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or \
-            lse.device != q.device or not lse.is_contiguous():
-        raise ValueError(f"flash_attention_bwd: lse must be contiguous "
-                         f"float32 {(B, H, S)} on {q.device}")
-    dq = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, S, KVH, D), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    # q's dtype, device and head-dim stride passed _check: o, do and lse
+    # are held to them in one pass (get_device() is an int, cheaper than
+    # comparing devices), and the message is found only on a refusal
+    f32, dev, shape = torch.float32, q.get_device(), q.shape
+    if o.shape != shape or do.shape != shape or lse.shape != (B, H, S) or \
+            o.dtype != f32 or do.dtype != f32 or lse.dtype != f32 or \
+            o.get_device() != dev or do.get_device() != dev or \
+            lse.get_device() != dev or o.stride(-1) != 1 or \
+            do.stride(-1) != 1 or not lse.is_contiguous():
+        _bwd_operands_error(q, o, lse, do, B, H, S)
+    nq, nk = B * S * H * D, B * S * KVH * D
+    out = torch.empty(nq + 2 * nk, dtype=f32, device=q.device)
+    ptr = out.data_ptr()
     qs, ks, vs, os_, ds = (t.stride() for t in (q, k, v, o, do))
     _launch(BWD_PARAMS.pack(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, KVH, S, D, int(causal), int(window), kv_end,
-        D ** -0.5, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1],
-        vs[2], os_[0], os_[1], os_[2], ds[0], ds[1], ds[2],
+        do.data_ptr(), lse.data_ptr(), ptr, ptr + 4 * nq,
+        ptr + 4 * (nq + nk), B, H, KVH, S, D, int(causal), int(window),
+        kv_end, D ** -0.5, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
+        vs[0], vs[1], vs[2], os_[0], os_[1], os_[2], ds[0], ds[1], ds[2],
         S * H * D, D, H * D, S * KVH * D, D, KVH * D,
         S * KVH * D, D, KVH * D), q.device, flash_attention_bwd,
         "flash_attention_bwd")
-    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    kv = (S * KVH * D, D, KVH * D, 1)
+    return (out.as_strided((B, H, S, D), (S * H * D, D, H * D, 1)),
+            out.as_strided((B, KVH, S, D), kv, nq),
+            out.as_strided((B, KVH, S, D), kv, nq + nk))
 
 
 flash_attention_bwd.launches = 0

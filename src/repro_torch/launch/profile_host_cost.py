@@ -50,14 +50,17 @@ only):
   `flash_attention_bwd`, the training forward `flash_attention_fwd_lse`,
   the autograd backward of `flash_attention` (its Function) and of SDPA
   on the same inputs, and the backward wrapper's pieces: the checks with
-  the packing of the arguments, the three output allocations and the
-  ctypes call itself (one packed argument).
+  the packing of the arguments, the one allocation of its outputs and
+  their three views (beside three allocations of their own, the older
+  wrapper's) and the ctypes call itself (one packed argument).
 Prints one JSON line beside the card's name and power limit.
 
 With `--parent` (once or more), it measures nothing else: the whole
 calls of the training path's small kernels (`vtrace_tb`,
 `discounted_return_tb`, the adjoint with every gradient and with dinit
-alone, at (32, 32)) in rounds of processes, one on the package of each
+alone, at (32, 32); the flash backward's wrapper and the whole autograd
+backward of `flash_attention` at the full-width ppo minibatch) in
+rounds of processes, one on the package of each
 checkout given and one on this one's, the order rotating from round to
 round, after a warm-up process per checkout (the kernel builds). A
 process times each call ROUNDS times, the calls in turns, and reports
@@ -174,7 +177,11 @@ def flash_costs(dev, shape, dtype=torch.bfloat16):
                 lambda: fn(params, launch_stream(dev)))}
 
 
-def flash_bwd_costs(dev, shape):
+def train_attention(dev, shape):
+    """The trunk's training attention at `shape` (B, H, KVH, S, D): (q,
+    k, v, o, lse, do) as the autograd Function hands them to the backward
+    wrapper, and (its output under grad, its inputs, the cotangent) for
+    a whole autograd backward."""
     B, H, KVH, S, D = shape
     G = H // KVH
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -187,7 +194,13 @@ def flash_bwd_costs(dev, shape):
     o, lse = flash_kernel.flash_attention_fwd_lse(q, kt, vt)
     do = dout.reshape(B, S, H, D).transpose(1, 2)
     ins = [t.clone().requires_grad_() for t in (qg, k, v)]
-    out = flash_attention(*ins)
+    return (q, kt, vt, o, lse, do), (flash_attention(*ins), ins, dout)
+
+
+def flash_bwd_costs(dev, shape):
+    B, H, KVH, S, D = shape
+    G = H // KVH
+    (q, kt, vt, o, lse, do), (out, ins, dout) = train_attention(dev, shape)
     qc, kc, vc = (t.detach().contiguous().requires_grad_()
                   for t in (q, kt, vt))
     ref = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
@@ -195,9 +208,22 @@ def flash_bwd_costs(dev, shape):
     _, fn = flash_kernel._launcher("flash_attention_bwd")
     dq, dk, dv = flash_kernel.flash_attention_bwd(q, kt, vt, o, lse, do)
     qs, ks, vs, os_, ds = (t.stride()[:3] for t in (q, kt, vt, o, do))
+    nq, nk = B * S * H * D, B * S * KVH * D
 
     def pack():
-        flash_kernel._check(q, kt, vt, None)
+        # the wrapper's checks (_check, _short_f32, o, do and lse in one
+        # pass) and its packing
+        dt, kv_end = flash_kernel._check(q, kt, vt, None)
+        flash_kernel._short_f32("flash_attention_bwd", dt, kv_end, B, KVH,
+                                S, G)
+        f32, d = torch.float32, q.get_device()
+        if o.shape != q.shape or do.shape != q.shape or \
+                lse.shape != (B, H, S) or o.dtype != f32 or \
+                do.dtype != f32 or lse.dtype != f32 or \
+                o.get_device() != d or do.get_device() != d or \
+                lse.get_device() != d or o.stride(-1) != 1 or \
+                do.stride(-1) != 1 or not lse.is_contiguous():
+            raise ValueError("flash_bwd_costs: operands the wrapper refuses")
         return flash_kernel.BWD_PARAMS.pack(
             q.data_ptr(), kt.data_ptr(), vt.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -206,6 +232,8 @@ def flash_bwd_costs(dev, shape):
             S * KVH * D, D, KVH * D)
 
     params = pack()
+    buf = torch.empty(nq + 2 * nk, device=dev)
+    kv = (S * KVH * D, D, KVH * D, 1)
     return {
         "flash_attention_bwd": per_call_us(
             lambda: flash_kernel.flash_attention_bwd(q, kt, vt, o, lse, do)),
@@ -217,7 +245,13 @@ def flash_bwd_costs(dev, shape):
             lambda: torch.autograd.grad(ref, (qc, kc, vc), do,
                                         retain_graph=True)),
         "checks and packed arguments": per_call_us(pack),
-        "torch.empty x3": per_call_us(lambda: [
+        "torch.empty (one buffer)": per_call_us(
+            lambda: torch.empty(nq + 2 * nk, device=dev)),
+        "as_strided x3 (the outputs' views)": per_call_us(lambda: (
+            buf.as_strided((B, H, S, D), (S * H * D, D, H * D, 1)),
+            buf.as_strided((B, KVH, S, D), kv, nq),
+            buf.as_strided((B, KVH, S, D), kv, nq + nk))),
+        "torch.empty x3 (three buffers)": per_call_us(lambda: [
             torch.empty((B, S, H, D), device=dev),
             torch.empty((B, S, KVH, D), device=dev),
             torch.empty((B, S, KVH, D), device=dev)]),
@@ -376,6 +410,12 @@ def whole_calls():
         "discounted_return_adjoint_tb (dinit alone)": lambda:
             scan_kernel.discounted_return_adjoint_tb(
                 g, coef, out, init, need=(False, False, True))}
+    if hasattr(flash_kernel, "flash_attention_bwd"):
+        args, (fout, ins, dout) = train_attention(dev, TRUNK_TRAIN)
+        calls["flash_attention_bwd"] = \
+            lambda: flash_kernel.flash_attention_bwd(*args)
+        calls["flash_attention autograd backward"] = \
+            lambda: torch.autograd.grad(fout, ins, dout, retain_graph=True)
     for fn in calls.values():  # build, load and warm every path first
         fn()
     torch.cuda.synchronize()

@@ -6,6 +6,9 @@ its adjoint, and V-trace.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_small_kernels \
         [--reps 2] [--ablate]
+    PYTHONPATH=src python -m repro_torch.launch.profile_small_kernels \
+        --bwd [--bwd-parent OLD/src/repro_torch/kernels/flash_attention/\
+csrc/flash_attention_bwd.cu] [--reps 2]
 
 The sweep: f32 flash attention through the model's entry
 (`ops.flash_attention`) at the trunk's serve buckets (B = 1, 4, 8, 16,
@@ -46,6 +49,22 @@ whole: `tiled_t32` (T <= 32 on the tiled scans, K = 4, in place of the
 short kernels). Prints
 one JSON line with the card's name and power limit. Needs a card and the
 CUDA toolkit.
+
+`--bwd` instead times the flash backward (`flash_attention_bwd`) at
+`TRAIN` and `BWD_EXTRA` (5 keys, one past phase 1's 4 at a time; 8
+keys; and operands one float off their alignment) in libraries built the
+same way: the source as it is (`whole`), its design alternatives
+measured whole (`_FLASH_BWD`: 1, 2 or 8 groups a block at most
+instead of 4; rounds of 4 rows instead of 8; rows unpadded in shared
+memory; phase 1's keys unrolled by 2; registers not capped at 128 at
+D <= 64; the scalar-copy
+instance everywhere; and, timing only, the output then
+wrong, the kernel cut once a round's copies have landed, `to_loads`, and
+after phase 1, `to_phase1`), and each `--bwd-parent` source as it
+is (an older tree's flash_attention_bwd.cu, with that tree's shared
+headers beside it), in turns within each repetition (the order, then
+its reverse). Each library's gradients are held to `attention_bwd_ref`
+first (max abs error beside each time).
 """
 import argparse
 import ctypes
@@ -71,12 +90,18 @@ TRUNK = [(b, 4, 2, s, 64, True, 0) for s in (4, 3) for b in (1, 4, 8, 16,
 KERNEL_CASES = [(32, 4, 2, 4, 64, True, 0), (4, 16, 16, 32, 128, True, 0),
                 (4, 15, 5, 32, 64, True, 0), (2, 4, 2, 384, 64, True, 0),
                 (1, 4, 1, 256, 64, True, 64), (2, 2, 2, 96, 32, False, 0),
-                (1, 2, 1, 512, 256, True, 0)]
+                (1, 2, 1, 512, 256, True, 0), (4, 16, 16, 128, 128, True, 0)]
 SCAN_SHAPES = [(32, 32), (32, 4096), (2048, 128)]
 SERVE = (32, 4, 2, 4, 64, True, 0)
 # (B, H, KVH, S, D) of the trunk's training calls
 TRAIN = [(b, 4, 2, 4, d) for d in (32, 64) for b in (64, 256, 1024)] + \
     [(256, 4, 2, 3, 64)]
+# (B, H, KVH, S, D, float offset) beside TRAIN for the backward's
+# variants: one key past the trunk's 4, which phase 1 takes 4 at a time
+# at D 64, 8 keys, and the path's shape with every
+# operand one float off its 16-byte alignment (the scalar-copy instance)
+BWD_EXTRA = [(256, 4, 2, 5, 64, 0), (256, 4, 2, 8, 64, 0),
+             (256, 4, 2, 4, 64, 1)]
 ABLATE_FLASH = [SERVE, (4, 16, 16, 32, 128, True, 0),
                 (4, 15, 5, 32, 64, True, 0)]
 ABLATE_SCANS = SCAN_SHAPES
@@ -194,6 +219,30 @@ _VTRACE = [  # vtrace_short and vtrace_tiled<K>
                   ("p.pg_adv[k] = pg_adv(", "if (x == -1.f) p.pg_adv[k] = "
                                             "pg_adv("),
                   ("p.vs[k] = v[i] + x;", "if (x == -1.f) p.vs[k] = v[i] + x;")]),
+]
+# the backward's design alternatives (flash_attention_bwd.cu), measured
+# whole
+_FLASH_BWD = [
+    *((f"groups{w}", [("constexpr int kWarps = 4;",
+                       f"constexpr int kWarps = {w};")]) for w in (1, 2, 8)),
+    ("rows4", [("static constexpr int R = D <= 128 ? 8 : 4;",
+                "static constexpr int R = 4;")]),
+    ("unpadded", [("static constexpr int DP = D + 16;",
+                   "static constexpr int DP = D;")]),
+    ("keys2", [("#pragma unroll 1  // keys in turn",
+                "#pragma unroll 2  // keys in turn")]),
+    ("uncapped", [("static constexpr int kMinBlocks = D <= 64 ? 4 : 1;",
+                   "static constexpr int kMinBlocks = 1;")]),
+    ("scalar", [("const bool vec = (ptrs",
+                 "const bool vec = false && (ptrs")]),
+    # its time to two points, the output then wrong: once the round's
+    # copies have landed, and after phase 1
+    ("to_loads", [("    sm90::cp_async_wait<0>();\n    __syncwarp();\n",
+                   "    sm90::cp_async_wait<0>();\n    __syncwarp();\n"
+                   "    if (blockDim.x > 0) return;\n")]),
+    ("to_phase1", [("    __syncwarp();\n\n    // phase 2:",
+                    "    __syncwarp();\n    if (blockDim.x > 0) return;"
+                    "\n\n    // phase 2:")]),
 ]
 for _cuts in (_FLASH_SHORT, _SCAN, _VTRACE):
     _cuts.append(("skeleton", [c for _, cs in _cuts for c in cs]))
@@ -331,6 +380,58 @@ def calls(dev):
     return out
 
 
+def bwd_case_inputs(case, dev):
+    """train_inputs of a BWD_EXTRA or TRAIN case; with a float offset
+    every operand is a view one float into a larger buffer."""
+    B, H, KVH, S, D = case[:5]
+    q, k, v, o, lse, do = train_inputs((B, H, KVH, S, D), dev)
+    if len(case) < 6 or not case[5]:
+        return q, k, v, o, lse, do
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + case[5], device=dev)
+        view = buf[case[5]:].view(t.transpose(1, 2).shape).transpose(1, 2)
+        view.copy_(t)
+        return view
+    return (*(shifted(t) for t in (q, k, v, o)), lse, shifted(do))
+
+
+def bwd_variants(tmp, dev, parents, reps):
+    """{case: {library: {max_abs_err, device_us: [...], launch_floor_us:
+    [...]}}} of the backward at TRAIN + BWD_EXTRA (the --bwd sweep)."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    source = (common.PACKAGE_DIR / "kernels" / "flash_attention" / "csrc" /
+              "flash_attention_bwd.cu")
+    libs = build_variants(Path(tmp) / "bwd", source, _FLASH_BWD)
+    for i, parent in enumerate(parents):
+        name = "parent" if len(parents) == 1 else f"parent{i}"
+        libs[name] = build_variants(Path(tmp) / name, Path(parent),
+                                    [])["whole"]
+    order = list(libs)
+    out = {}
+    for case in [(*c, 0) for c in TRAIN] + BWD_EXTRA:
+        behind(flash_kernel, common.load_kernels())  # the forward's
+        args = bwd_case_inputs(case, dev)
+        want = attention_bwd_ref(*args)
+        row = {}
+        for name, dll in libs.items():
+            behind(flash_kernel, dll)
+            got = flash_kernel.flash_attention_bwd(*args)
+            row[name] = {"max_abs_err": max(
+                (g - w).abs().max().item() for g, w in zip(got, want)),
+                "device_us": [], "launch_floor_us": []}
+        for _ in range(reps):
+            for name in order + order[::-1]:
+                behind(flash_kernel, libs[name])
+                us, floor, _ = beside_floor(
+                    lambda: flash_kernel.flash_attention_bwd(*args))
+                row[name]["device_us"].append(us)
+                row[name]["launch_floor_us"].append(floor)
+        out[str(case)] = row
+    behind(flash_kernel, common.load_kernels())
+    return out
+
+
 def sweep(dev):
     out = {}
     for label, (fn, iters) in calls(dev).items():
@@ -462,6 +563,11 @@ def main(argv=None):
         prog="repro_torch.launch.profile_small_kernels")
     ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time the flash backward's variants")
+    ap.add_argument("--bwd-parent", action="append", default=[],
+                    help="an older flash_attention_bwd.cu to time beside "
+                         "(repeatable)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_small_kernels measures the card; torch "
@@ -473,6 +579,11 @@ def main(argv=None):
             with tempfile.TemporaryDirectory() as tmp:
                 print(json.dumps({"card": card(), "ablate": ablate(tmp,
                                                                    dev)}))
+            return
+        if args.bwd:
+            with tempfile.TemporaryDirectory() as tmp:
+                print(json.dumps({"card": card(), "bwd": bwd_variants(
+                    tmp, dev, args.bwd_parent, args.reps)}))
             return
         reps = [sweep(dev) for _ in range(args.reps)]
     print(json.dumps({"card": card(), "reps": reps}))

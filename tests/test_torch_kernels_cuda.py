@@ -1401,6 +1401,151 @@ def test_flash_bwd_strided(flash_bwd, D, offset, S):
     assert all(torch.equal(a, b) for a, b in zip(contig, got))
 
 
+# The backward's cutoffs by head dim (flash_attention_bwd.cu): the keys
+# its phase 1 takes at a time at D 32 and 64 (4), and the last key count
+# at which a block's shared memory holds 4 groups at D 128 and 256 (19,
+# 10)
+BWD_CUTOFFS = [(32, 4), (64, 4), (128, 19), (256, 10)]
+# causal; a window; non-causal with a valid_len cutting a longer S
+_BWD_MASKS = [dict(causal=True, window=0, cut=0),
+              dict(causal=True, window=3, cut=0),
+              dict(causal=False, window=0, cut=2)]
+
+
+def _bwd_held(fk, q, k, v, do, **mask):
+    """The kernel's gradients within BWD_TOL of the plain backward on its
+    o and lse, and bitwise on a repeat; returns (o, lse, gradients)."""
+    o, lse, got, want = _bwd_case(fk, q, k, v, do, **mask)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+    again = fk.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    return o, lse, got
+
+
+# each cutoff, one key short of it and one past it, under each mask (5
+# groups of 3 query heads)
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", range(len(_BWD_MASKS)))
+@pytest.mark.parametrize("step", [-1, 0, 1])
+@pytest.mark.parametrize("D,cut", BWD_CUTOFFS)
+def test_flash_bwd_at_its_cutoffs(flash_bwd, D, cut, step, mask):
+    m = _BWD_MASKS[mask]
+    n = cut + step
+    B, KVH, G, S = 5, 1, 3, n + m["cut"]
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda_dev(),
+                       D + n + mask)
+    do = torch.randn_like(q)
+    _, _, got = _bwd_held(flash_bwd, q, k, v, do, causal=m["causal"],
+                          window=m["window"],
+                          valid_len=n if m["cut"] else None)
+    assert flash_bwd.flash_attention_bwd.launches == 2
+    assert bool((got[1][:, :, n:] == 0).all())
+    assert bool((got[2][:, :, n:] == 0).all())
+
+
+# B * KVH groups that leave a block part empty: a block takes 4 groups at
+# most, fewer where its shared memory holds fewer (at D 128 and 256 with
+# 32 keys, 2 and 1) and fewer where the groups would leave SMs without one
+# (132 on an H100: 135 groups take 2 a block, 201 take 2, 401 take 4);
+# and rounds of rows past the first (S * G > 8)
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D", [(4, 64), (3, 32), (9, 64), (32, 128),
+                                 (32, 256)])
+@pytest.mark.parametrize("B,KVH", [(1, 1), (7, 3), (135, 1), (67, 3),
+                                   (401, 1)])
+def test_flash_bwd_groups_not_a_multiple_of_a_block(flash_bwd, B, KVH, S,
+                                                    D):
+    G = 2
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda_dev(),
+                       B + KVH + S)
+    _bwd_held(flash_bwd, q, k, v, torch.randn_like(q))
+
+
+def _misaligned(t, how):
+    """t, a (B,H,S,D) view of a (B,S,H,D) layout, copied into a view
+    whose base lies 1 or 2 floats into its buffer (`base1`, `base2`) or
+    whose rows are D + 1 floats apart (`stride`)."""
+    B, H, S, D = t.shape
+    if how == "stride":
+        buf = torch.empty((B, S, H, D + 1), device=t.device)
+        view = buf[..., :D]
+    else:
+        off = int(how[-1])
+        buf = torch.empty(t.numel() + off, device=t.device)
+        view = buf[off:].view(B, S, H, D)
+    view.copy_(t.transpose(1, 2))
+    return view.transpose(1, 2)
+
+
+# operands whose base or strides break the 16-byte copies (a base 1 or 2
+# floats in, rows D + 1 floats apart): the scalar-copy instance, at one
+# pass of pairs and at several, bitwise the vector instance on aligned
+# copies
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["base1", "base2", "stride"])
+@pytest.mark.parametrize("S", [4, 12])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_bwd_unaligned_operands(flash_bwd, D, S, how):
+    B, KVH, G = 3, 2, 2
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda_dev(),
+                       D + S + len(how))
+    do = torch.randn_like(q)
+    mis = [_misaligned(t.transpose(1, 2).contiguous().transpose(1, 2), how)
+           for t in (q, k, v, do)]
+    o, lse, got = _bwd_held(flash_bwd, *mis)
+    aligned = flash_bwd.flash_attention_bwd(q, k, v, o.contiguous(), lse,
+                                            do)
+    assert all(torch.equal(a, b) for a, b in zip(aligned, got))
+
+
+def _three_buffer_bwd(fk, q, k, v, o, lse, do, *, causal=True, window=0):
+    """The backward kernel with dq, dk and dv each in an allocation of its
+    own, as the wrapper allocated them before they shared one buffer."""
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    dq = torch.empty((B, S, H, D), device=q.device)
+    dk, dv = (torch.empty((B, S, KVH, D), device=q.device) for _ in range(2))
+    st = [t.stride()[:3] for t in (q, k, v, o, do)]
+    fk._launch(fk.BWD_PARAMS.pack(
+        *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv)),
+        B, H, KVH, S, D, int(causal), int(window), S, D ** -0.5,
+        *(x for s in st for x in s), S * H * D, D, H * D,
+        *(S * KVH * D, D, KVH * D) * 2), q.device, fk.flash_attention_bwd,
+        "flash_attention_bwd")
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_one_buffer_leaves_projection_grads_bitwise(flash_bwd,
+                                                              monkeypatch):
+    """dq, dk and dv as views of one buffer: the gradients of the q, k and
+    v projections in front of the attention (the trunk's full width, a ppo
+    minibatch) are bitwise those of three separate allocations."""
+    from repro_torch.kernels.flash_attention import ops
+    B, S, KVH, G, D, W = 256, 4, 2, 2, 64, 256
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((B, S, W), generator=gen, device="cuda")
+    ws = [torch.randn((W, n), generator=gen, device="cuda") * W ** -0.5
+          for n in (KVH * G * D, KVH * D, KVH * D)]
+    dout = torch.randn((B, S, KVH, G, D), generator=gen, device="cuda")
+
+    def grads():
+        w = [t.clone().requires_grad_() for t in ws]
+        out = ops.flash_attention((x @ w[0]).view(B, S, KVH, G, D),
+                                  (x @ w[1]).view(B, S, KVH, D),
+                                  (x @ w[2]).view(B, S, KVH, D))
+        return torch.autograd.grad(out, w, dout)
+
+    one = grads()
+    monkeypatch.setattr(ops, "flash_attention_bwd",
+                        lambda *a, **kw: _three_buffer_bwd(flash_bwd, *a,
+                                                           **kw))
+    three = grads()
+    assert flash_bwd.flash_attention_bwd.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(one, three))
+
+
 # O with lse requested is bitwise O without it, through both short kernels
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 3, 4, 5, 17, 32])

@@ -31,7 +31,8 @@ def test_each_kernel_a_whole_number_of_times_a_call(counts, calls, whole):
 @pytest.mark.parametrize("source,cuts", [
     ("flash_attention/csrc/flash_attention.cu", "_FLASH_SHORT"),
     ("advantages/csrc/advantages.cu", "_SCAN"),
-    ("vtrace/csrc/vtrace.cu", "_VTRACE")])
+    ("vtrace/csrc/vtrace.cu", "_VTRACE"),
+    ("flash_attention/csrc/flash_attention_bwd.cu", "_FLASH_BWD")])
 def test_ablation_cut_texts_stand_in_their_sources(source, cuts):
     """Every text `profile_small_kernels --ablate` cuts out of a kernel
     source's build stands in that source or in the shared headers it
