@@ -11,7 +11,10 @@ Phases, in order; the script exits non-zero at the first failure:
      plain version and the PyTorch library call computing the same
      function where there is one (a yardstick only; the port never calls
      it): flash attention (f32 and bf16 at the paths' shapes, f32 ragged,
-     windowed and D = 32, 256 cases, and bf16 2048-token causal prefills
+     windowed and D = 32, 256 cases, f32 past 32 keys at the f32 LM
+     prefills (F32_LONG_CASES: flash_fwd_f32 at deepseek-moe-16b's and
+     paligemma-3b's default prompts, smollm-360m at 512 and 2048 tokens,
+     deepseek-moe-16b at 2048), and bf16 2048-token causal prefills
      at the deepseek-moe-16b and smollm-360m heads, where the tensor cores
      set the time), then the discounted-return scan, its adjoint
      and V-trace at (T, B) = (32, 32) (the training path), (32, 4096) and
@@ -204,6 +207,15 @@ Phases, in order; the script exits non-zero at the first failure:
      `generated_shape` [4, 16], and `lm_agreement` on each; the kernels
      phases also hold the zoo's flash and grouped-matmul shapes in bf16
      (ZOO_FLASH_CASES, ZOO_GMM_CASES) against their plain versions;
+ 12b. f32 LM serving: `serve()` of paligemma-3b (prompt 32 after its 256
+     stub patches) and smollm-360m (prompt 512) at full width in f32 (the
+     serve launcher's default dtype) with use_kernels, weights drawn on
+     the card from seed 0: every prefill attends past 32 keys, so the
+     flash launches, exactly 36 and 64 a serve(), are flash_fwd_f32's (a
+     prefill of the same shape under torch.profiler: every flash kernel
+     record flash_fwd_f32's); finite logits, peak memory, and `lm_agreement`'s
+     f32 gate (the kernel path against use_kernels=False on the same
+     params, prefill and first decode logits within 1e-3 x max|logit|);
  13. LM training: `repro_torch.launch.train.train` (use_kernels=False,
      as the reference trains) of smollm-360m at full width, batch 16,
      seq 128, 20 steps, in f32, in bf16 on f32 master weights (every
@@ -261,14 +273,19 @@ SERVE_CASE = (32, 4, 2, 4, 64, True, 0)  # B, H, KVH, S, D, causal, window
 # the LM serve path's prefill attention (batch 4, prompt 32)
 LM_FLASH_CASES = [(4, 16, 16, 32, 128, True, 0),   # deepseek-moe-16b
                   (4, 15, 5, 32, 64, True, 0)]     # smollm-360m
-# f32 past 32 keys (flash_fwd<float>, on no caller's path) at
-# (4, 16, 16, 128, 128): a deepseek-width head at a 128-token prompt
+# f32 past 32 keys (flash_fwd_f32: the LM prefills served in f32, the
+# serve launcher's default dtype): deepseek-moe-16b at a 128-token prompt,
+# paligemma-3b at the default prompt (256 patches + 32 tokens), smollm-360m
+# at 512 and 2048 tokens, deepseek-moe-16b at 2048
+F32_LONG_CASES = [(4, 16, 16, 128, 128, True, 0), (4, 8, 1, 288, 256, True, 0),
+                  (4, 15, 5, 512, 64, True, 0), (1, 15, 5, 2048, 64, True, 0),
+                  (1, 16, 16, 2048, 128, True, 0)]
 KERNEL_CASES = [SERVE_CASE, *LM_FLASH_CASES,
                 (2, 4, 2, 384, 64, True, 0),
                 (1, 4, 1, 256, 64, True, 64),
                 (2, 2, 2, 96, 32, False, 0),
                 (1, 2, 1, 512, 256, True, 0),
-                (4, 16, 16, 128, 128, True, 0)]
+                *F32_LONG_CASES]
 # bf16 only: the LM zoo's prefill attention at its serve shapes (batch 4,
 # prompt 32): gemma3 (D = 256, one kv head, the short-row branch),
 # stablelm (MHA), whisper's decoder, paligemma (256 patches + 32 tokens:
@@ -360,6 +377,10 @@ ZOO = [
         d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128, d_ff=8192,
         vocab=202048, moe=(128, 1, 8192, 1, 2)), 4, 57),
 ]
+# f32 LM serving on flash_fwd_f32 (phase lm_serve_f32): (arch, prompt
+# length, flash_attention_hsd launches a serve(): one a causal
+# full-attention layer a prefill, two prefills), batch 4, 16 new tokens
+LM_F32 = [("paligemma-3b", 32, 36), ("smollm-360m", 512, 64)]
 # kernel path against use_kernels=False on the same params (lm_agreement):
 # f32 end to end, x max|logit| (f32 sums in another order over 28 layers);
 # bf16 layer by layer, x max|plain output| (2^-6: a few bf16 roundings)
@@ -2395,7 +2416,8 @@ def phase_lm_serve(card):
     return launches
 
 
-def lm_agreement(model, params, prompts, capacity, frontend=None):
+def lm_agreement(model, params, prompts, capacity, frontend=None,
+                 bf16=True):
     """The kernel path against use_kernels=False on the same (bf16)
     params. bf16 compute end to end is dominated by rounding for this
     random-init model (the reference's fan-in of the (E, d, f) expert
@@ -2413,7 +2435,7 @@ def lm_agreement(model, params, prompts, capacity, frontend=None):
         mixers and FFNs run no kernel: they advance the activations).
     The bf16 end-to-end logits of both paths are reported against the f32
     plain logits, ungated. `frontend` is the model's stub input, if it
-    has one."""
+    has one; bf16=False runs the f32 gate alone (an f32-served model)."""
     import torch
     from repro_torch.checkpoint.convert import unflatten_tree
     from repro_torch.configs.base import ATTN
@@ -2423,7 +2445,8 @@ def lm_agreement(model, params, prompts, capacity, frontend=None):
     arch, cfg = model.cfg.name, model.cfg
     models = {(dt, k): build_model(cfg, ModelOpts(dtype=dt, remat=False,
                                                   use_kernels=k))
-              for dt in ("float32", "bfloat16") for k in (False, True)}
+              for dt in ("float32", "bfloat16")[:2 if bf16 else 1]
+              for k in (False, True)}
     S = prompts.shape[1]
     logits = {}
     tok = None
@@ -2454,6 +2477,10 @@ def lm_agreement(model, params, prompts, capacity, frontend=None):
         check(err <= LM_F32_TOL * scale,
               f"{arch} {name}: f32 kernel path vs use_kernels=False logits "
               f"max_abs_err {err} > {LM_F32_TOL} x {scale}")
+    if not bf16:
+        del models
+        torch.cuda.empty_cache()
+        return out
 
     tree = unflatten_tree(params)
     kern, plain = models[("bfloat16", True)], models[("bfloat16", False)]
@@ -2905,6 +2932,87 @@ def phase_lm_zoo(card):
     return total
 
 
+def phase_lm_serve_f32(card):
+    """Serve paligemma-3b (prompt 32, its 256 stub patches before it) and
+    smollm-360m (prompt 512) at full width in f32 with use_kernels: every
+    prefill attends past 32 keys, so each causal full-attention layer's
+    prefill runs flash_fwd_f32. Launches exactly LM_F32's a serve(), and
+    every flash kernel of a prefill of the same shape flash_fwd_f32 by
+    the profiler's names (`profiling.kernel_us`); finite logits, peak
+    memory, and the kernel path against use_kernels=False on the same
+    params (`lm_agreement`, f32). Returns the serves' flash launches,
+    summed."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_hsd
+    from repro_torch.launch.profiling import kernel_us
+    from repro_torch.launch.serve import serve, stub_frontend
+    from repro_torch.models.model import ModelOpts, build_model
+    B, gen_len = LM["batch"], LM["gen_len"]
+    total = 0
+    t_phase = time.perf_counter()
+    for arch, S, n_flash in LM_F32:
+        model = build_model(arch, ModelOpts(dtype="float32", remat=False,
+                                            use_kernels=True))
+        cfg = model.cfg
+        n_attn = cfg.pattern().count("attn")
+        check(2 * n_attn == n_flash, f"{arch}: {n_attn} attention layers, "
+                                     f"expected {n_flash} launches")
+        check(S + model.n_prefix > 32, f"{arch}: prefill within 32 keys")
+        torch.cuda.empty_cache()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        check(all(v.dtype == torch.float32 for v in params.values()),
+              f"{arch}: params not all f32")
+        prompts = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            return serve(cfg, reduced=False, batch=B, prompt_len=S,
+                         gen_len=gen_len, seed=0, dtype="float32",
+                         device="cuda", use_kernels=True, params=params,
+                         prompts=prompts)
+        # the main path: counts at 0 just before, read just after
+        flash_attention_hsd.launches = 0
+        res = run()
+        launches = flash_attention_hsd.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(launches == n_flash, f"{arch} f32 serve: {launches} flash "
+                                   f"launches, expected {n_flash}")
+        check(res["generated_shape"] == [B, gen_len],
+              f"{arch} f32 serve: generated_shape {res['generated_shape']}")
+        total += launches
+        # checks below launch the kernels again; they are not the main path.
+        # A serve() is two prefills of this shape: every flash kernel
+        # record of one is flash_fwd_f32's, n_flash / 2 of them where the
+        # window kept every record (`profiling.records_whole`)
+        fe = stub_frontend(cfg, B, "cuda")
+
+        def prefill():
+            with torch.inference_mode():
+                model.prefill(params, prompts, S + gen_len, frontend=fe)
+        times, records = kernel_us(prefill, calls=1, tries=2)
+        names = {k: n for k, n in records.items() if "flash" in k}
+        check(names and all("flash_fwd_f32" in k for k in names) and (
+            times is None or sum(names.values()) == n_flash // 2),
+              f"{arch} f32 prefill: flash kernels {names} (window whole: "
+              f"{times is not None}), expected {n_flash // 2} "
+              f"flash_fwd_f32")
+        agree = lm_agreement(model, params, prompts, S + gen_len,
+                             frontend=fe, bf16=False)
+        print("lm_serve_f32 " + json.dumps(dict(
+            res, prompt_len=S, rows=S + model.n_prefix, launches=launches,
+            flash_kernels=names, records_whole=times is not None,
+            serve_peak_bytes=peak, agreement=agree,
+            card=card)))
+        del params, model
+        torch.cuda.empty_cache()
+    print(f"lm_serve_f32 phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def kernel_counters():
     """Every kernel wrapper of the port, by name (each counts its own
     launches)."""
@@ -3185,6 +3293,7 @@ def main():
     phase_wkv6_guard()
     rwkv_launches = phase_rwkv_serve(card)
     zoo_launches = phase_lm_zoo(card)
+    f32_launches = phase_lm_serve_f32(card)
     # the dry-runs use the host's CPU for minutes: they run beside the LM
     # training phase and the examples, whose times they slow
     dryrun_procs = start_dryrun()
@@ -3201,6 +3310,16 @@ def main():
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
         "launches": launches + zoo_launches["flash_attention_hsd"]},
         **{k: serve[k] for k in keys})]
+    # f32 past 32 keys (flash_fwd_f32), its row at paligemma's prefill:
+    # launches from the f32 LM serves
+    long_row = cases[(F32_LONG_CASES[1], "float32")]
+    kernels.append(dict({
+        "name": "flash_fwd_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+        "launches": f32_launches, "shape": long_row["shape"]},
+        **{k: long_row[k] for k in keys}))
     # the training attention: the forward kernel writing lse, and its
     # backward (no pallas_call of its own: the adjoint of the forward's)
     for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):

@@ -42,7 +42,10 @@
 // keys at D = 128 (Q from shared memory, 3 blocks an SM) and D = 256.
 // Inputs whose base or strides are not 16-byte multiples (cp.async needs
 // them), or more than 65535 query tiles per group, take the CUDA-core
-// kernel below in bf16.
+// kernel below in bf16 (flash_fwd<__nv_bfloat16>: a block of 4 warps per
+// (query tile of 16 rows, head, batch), K/V tiles of 32 keys in shared
+// memory, lane j a key for the scores and lane i D / 32 output columns
+// for P V).
 //
 // float32: every product and sum f32 on the CUDA cores (no TF32, as the
 // port's f32 reference requires). The policy trunk serves at (B = bucket
@@ -54,17 +57,28 @@
 // each lane's share of Q, K and V in registers up to 4 keys at D <= 128,
 // the trunk's calls, and flash_short_f32, one key a lane, stages K/V once
 // per kv-head group in shared memory for the rest). Longer spans take
-// flash_fwd: one
-// thread block of 4 warps per (query tile of 16 rows, head, batch); warp
-// w owns rows w, w+4, w+8, w+12 of the tile, so a tiny S still spreads
-// over the warps. K/V tiles of 32 keys are staged
-// in dynamic shared memory as f32 (D = 256 needs ~80 KB, above the 48 KB
-// static limit). For the scores, lane j owns key j of the tile and dots
-// it with each of the warp's rows (K rows padded to D+1 floats so the 32
-// lanes hit 32 banks); the row max and row sum are warp reductions with
-// __shfl_xor_sync. For P.V, lane i owns D/32 output columns and takes
-// each p_j from lane j with __shfl_sync. The running (m, l, acc) live in
-// f32 registers.
+// flash_fwd_f32 (below), the f32 forward of the LM prefills served in f32
+// (launch/serve.py's default dtype). What bounds it on this card is FMA
+// issue on the CUDA cores (4 D operations a kept (query, key) pair at 67
+// TFLOP/s) at every LM prefill shape but the shortest, where the bytes
+// (each operand read once at 3.35 TB/s) and the latency of one block's
+// chain of tiles do; its design keeps the FMA pipes fed from shared
+// memory: rows are the (query, head) pairs of one kv head's group, as in
+// flash_fwd_tc, so K/V tiles are read once per group and row tile; they
+// come in by cp.async, double-buffered (or K and V in turn, each loading
+// while the other is consumed); each lane holds a register tile of scores
+// (TR rows x BN / 8 keys from 16-byte shared reads) and of O (TR rows x
+// D / 8 dims); P goes through the warp's own rows of shared memory.
+//
+// The f32 kernels' arithmetic, shared so that on a span of at most 32 keys
+// from key 0 flash_fwd_f32 gives the short-span kernels' bits: q is scaled
+// (q * scale, rounded) before the product; each score is one FMA chain
+// over d ascending from 0; m is the row max and p = expf(s - m); l sums a
+// tile's p over the key index's bits from the highest down (on 32 keys:
+// keys differing in bit 4 first, then bits 3, 2, 1, 0; a wider tile's
+// upper keys, +0 on such a span, first); O = sum of fma(p_j, v_j, .) over
+// j ascending; o = O * (1 / max(l, 1e-30)). No TF32, no ex2.approx, no
+// __expf.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,11 +93,9 @@ constexpr int kBlockM = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBlockN = 32;                      // keys per tile: one per lane
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
@@ -611,6 +623,426 @@ cudaError_t launch_short(const Args& a, int B, int D, cudaStream_t stream) {
   }
 }
 
+// ---- float32 past 32 keys: flash_fwd_f32 ----
+
+// cp.async moves 16-byte pieces: every base and stride a multiple of 16
+// bytes (`per16` elements of the operands' type)
+bool aligned16(const Args& a, int per16) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(a.q) |
+                      reinterpret_cast<uintptr_t>(a.k) |
+                      reinterpret_cast<uintptr_t>(a.v) |
+                      reinterpret_cast<uintptr_t>(a.o);
+  const int64_t st = a.q_b | a.q_h | a.q_s | a.k_b | a.k_h | a.k_s | a.v_b |
+                     a.v_h | a.v_s | a.o_b | a.o_h | a.o_s;
+  return p % 16 == 0 && st % per16 == 0;
+}
+
+// 4 bytes global -> shared, zero-filled (src unread) if !ok
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(sm90::smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// A block of KS x W warps: W warps of RW = 4 TR rows each take BM rows,
+// and KS groups of them (KS = 1 or 2) take the key tiles of BN in turn,
+// each its own online softmax over its tiles, merged at the end (a short
+// group's chain of tiles halved). Keys come in stages of KS BN: two
+// stages of (K, V), or with SPLIT one K and one V buffer loading in turn
+// (V while the scores read K, the next K while P V reads V); MB blocks
+// share an SM.
+template <int D, int W, int TR, int BN, int KS, bool SPLIT, int MB>
+struct F32Tile {
+  static constexpr int kThreads = KS * W * 32;
+  static constexpr int RW = 4 * TR;  // rows a warp: lane group rl = lane / 8
+                                     // owns rows rl, rl + 4, ...
+  static constexpr int BM = W * RW;  // (query, head) rows a block
+  static constexpr int TK = BN / 8;  // keys a lane: kl, kl + 8, ... (kl =
+                                     // lane % 8)
+  static constexpr int KN = KS * BN;  // keys a stage
+  static constexpr int RS = D + 4;   // padded Q, K, V row: 8 rows in 8
+                                     // distinct 16-byte bank groups
+  static constexpr int PS = BN + 8;  // padded P row: the lanes' scalar
+                                     // stores in 32 banks
+  static constexpr int kStages = SPLIT ? 1 : 2;
+  // Q [BM][RS]; stage s: K [KN][RS] at s * 2 KN RS, V [KN][RS] after it;
+  // P [KS BM][PS]. The merge reuses Q's and the stages' memory: m, l [BM]
+  // and O [BM][RS].
+  static constexpr int kSmem =
+      4 * (BM * RS + kStages * 2 * KN * RS + KS * BM * PS);
+};
+
+// Grid: one block per (row tile, kv head, batch), linear, the last row
+// tiles (the heaviest under a causal mask) of every group first. VEC: the
+// operands are read by 16-byte copies, else by 4-byte ones (the same
+// arithmetic).
+template <int D, int W, int TR, int BN, int KS, bool SPLIT, bool VEC,
+          int MB>
+__global__ void __launch_bounds__(KS * W * 32, MB)
+    flash_fwd_f32(Args a, int groups) {
+  using T = F32Tile<D, W, TR, BN, KS, SPLIT, MB>;
+  constexpr int NT = T::kThreads, RW = T::RW, BM = T::BM, TK = T::TK;
+  constexpr int KN = T::KN, RS = T::RS, PS = T::PS;
+  constexpr int C4 = D / 4;   // 16-byte pieces of a row
+  constexpr int NC = D / 32;  // P V: a lane's dims 4 kl + 32 c, c < NC
+  extern __shared__ __align__(16) float f32_smem[];
+  float* sQ = f32_smem;
+  float* sKV = sQ + BM * RS;
+  float* sP = sKV + T::kStages * 2 * KN * RS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rl = lane >> 3, kl = lane & 7;
+  const int kg = warp / W, rw = warp - kg * W;  // key group, row warp
+  const int G = a.H / a.KVH, M = a.S * G;
+  const int tiles = (M + BM - 1) / BM;
+  const int u = blockIdx.x, grp = u % groups;
+  const int r0 = (tiles - 1 - u / groups) * BM;
+  const int b = grp / a.KVH, kvh = grp - b * a.KVH;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_b +
+                   int64_t(kvh) * G * a.q_h;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_b + kvh * a.k_h;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_b + kvh * a.v_h;
+  float* o = static_cast<float*>(a.o) + b * a.o_b + int64_t(kvh) * G * a.o_h;
+
+  // key range [lo, hi) of a query position; both grow with qpos
+  auto lo_of = [&](int qpos) {
+    return a.window > 0 ? max(0, qpos - a.window + 1) : 0;
+  };
+  auto hi_of = [&](int qpos) {
+    return a.causal ? min(qpos + 1, a.kv_end) : a.kv_end;
+  };
+  const int blk_lo = lo_of(r0 / G);
+  const int blk_hi = hi_of((min(r0 + BM, M) - 1) / G);
+  const int nstages = blk_hi > blk_lo ? (blk_hi - blk_lo + KN - 1) / KN : 0;
+
+  auto copy16 = [&](float* dst, const float* src, bool ok, const float* any) {
+    if constexpr (VEC) {
+      sm90::cp_async16<false>(dst, ok ? src : any, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4z(dst + e, ok ? src + e : any, ok);
+    }
+  };
+  // Q rows r0 .. r0 + BM (zero past M), scaled once they land
+  for (int c = tid; c < BM * C4; c += NT) {
+    const int r = c / C4, d = c % C4 * 4, row = r0 + r;
+    const int qpos = row / G;
+    copy16(sQ + r * RS + d, q + (row - qpos * G) * a.q_h + qpos * a.q_s + d,
+           row < M, q);
+  }
+  // a stage's K or V rows t0 .. t0 + KN (zero from blk_hi)
+  auto load_rows = [&](float* dst, const float* src, int64_t stride, int t0) {
+    for (int c = tid; c < KN * C4; c += NT) {
+      const int j = c / C4, d = c % C4 * 4;
+      copy16(dst + j * RS + d, src + (t0 + j) * stride + d, t0 + j < blk_hi,
+             src);
+    }
+  };
+  // stage it's K (V follows it); SPLIT: one buffer each
+  auto sK_of = [&](int it) {
+    return sKV + (SPLIT ? 0 : (it & 1) * 2 * KN * RS);
+  };
+  if (nstages > 0) {
+    load_rows(sK_of(0), k, a.k_s, blk_lo);
+    if (!SPLIT) load_rows(sK_of(0) + KN * RS, v, a.v_s, blk_lo);
+  }
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  for (int c = tid; c < BM * C4; c += NT) {  // this thread's own pieces
+    float4* p = reinterpret_cast<float4*>(sQ + c / C4 * RS + c % C4 * 4);
+    float4 x = *p;
+    x.x *= a.scale;
+    x.y *= a.scale;
+    x.z *= a.scale;
+    x.w *= a.scale;
+    *p = x;
+  }
+
+  // this warp's rows wr0 .. w_last (in the group) and their key ranges
+  const int wr0 = r0 + rw * RW;
+  const bool warp_on = wr0 < M;
+  const int w_last = min(wr0 + RW, M) - 1;
+  const int w_lo = lo_of(wr0 / G), w_hi = hi_of(w_last / G);
+  const int w_maxlo = lo_of(w_last / G), w_minhi = hi_of(wr0 / G);
+  // this lane's rows wr0 + rl + 4 i; an empty range past M
+  int lo[TR], hi[TR];
+  float m[TR], l[TR], acc[TR][NC][4];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int row = wr0 + rl + 4 * i;
+    lo[i] = row < M ? lo_of(row / G) : 0;
+    hi[i] = row < M ? hi_of(row / G) : 0;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  }
+  const float* sQl = sQ + (rw * RW + rl) * RS;
+  float* sPl = sP + (kg * BM + rw * RW + rl) * PS;
+
+  for (int it = 0; it < nstages; ++it) {
+    const int t0 = blk_lo + it * KN;  // the stage's first key
+    const int tk = t0 + kg * BN;      // this key group's tile
+    float* sK = sK_of(it);
+    float* sV = sK + KN * RS;
+    sm90::cp_async_wait<0>();  // this thread's copies of stage it
+    __syncthreads();           // ... every thread's; the other buffer free
+    if (SPLIT) {
+      load_rows(sV, v, a.v_s, t0);
+    } else if (it + 1 < nstages) {
+      load_rows(sK_of(it + 1), k, a.k_s, t0 + KN);
+      load_rows(sK_of(it + 1) + KN * RS, v, a.v_s, t0 + KN);
+    }
+    sm90::cp_async_commit();
+    const bool on = warp_on && tk < w_hi && tk + BN > w_lo;  // warp-uniform
+    const float* sKg = sK + kg * BN * RS;
+    float p[TR][TK];
+    if (on) {
+      // S = Q K^T: row rl + 4 i, key kl + 8 t; one FMA chain over d
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int t = 0; t < TK; ++t) p[i][t] = 0.f;
+#pragma unroll (D >= 128 ? 4 : 2)
+      for (int c = 0; c < C4; ++c) {
+        float4 qv[TR], kv[TK];
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(sQl + 4 * i * RS + 4 * c);
+#pragma unroll
+        for (int t = 0; t < TK; ++t)
+          kv[t] = *reinterpret_cast<const float4*>(sKg + (kl + 8 * t) * RS +
+                                                   4 * c);
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int t = 0; t < TK; ++t) {
+            p[i][t] = fmaf(qv[i].x, kv[t].x, p[i][t]);
+            p[i][t] = fmaf(qv[i].y, kv[t].y, p[i][t]);
+            p[i][t] = fmaf(qv[i].z, kv[t].z, p[i][t]);
+            p[i][t] = fmaf(qv[i].w, kv[t].w, p[i][t]);
+          }
+      }
+      // masks only where the tile crosses a row's range edge; online
+      // softmax: each row's max and sum over its 8 lanes
+      const bool masked = tk < w_maxlo || tk + BN > w_minhi;
+      float alpha[TR];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < TK; ++t) {
+          const int key = tk + kl + 8 * t;
+          if (masked && (key < lo[i] || key >= hi[i])) p[i][t] = -INFINITY;
+          mx = fmaxf(mx, p[i][t]);
+        }
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        // a row with no key yet subtracts 0: its p and alpha stay 0
+        const float ref = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = expf(m[i] - ref);
+        float part[TK];
+#pragma unroll
+        for (int t = 0; t < TK; ++t) {
+          p[i][t] = expf(p[i][t] - ref);
+          part[t] = p[i][t];
+        }
+        // the tile's sum, the key's highest bit first: the lane's keys
+        // differ in bits 3 and up, the row's 8 lanes in bits 2, 1, 0
+#pragma unroll
+        for (int h = TK / 2; h > 0; h >>= 1)
+#pragma unroll
+          for (int t = 0; t < h; ++t) part[t] += part[t + h];
+        float sum = part[0];
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(kFull, sum, off);
+        l[i] = l[i] * alpha[i] + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int t = 0; t < TK; ++t) sPl[4 * i * PS + kl + 8 * t] = p[i][t];
+      }
+      // rescale O only where a row max moved (warp-uniform vote)
+      bool moved = false;
+#pragma unroll
+      for (int i = 0; i < TR; ++i) moved |= alpha[i] != 1.f;
+      if (__any_sync(kFull, moved)) {
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha[i];
+      }
+      __syncwarp();
+    }
+    if (SPLIT) {
+      sm90::cp_async_wait<0>();  // V of stage it
+      __syncthreads();           // ... every thread's; K's buffer free
+      if (it + 1 < nstages) load_rows(sKV, k, a.k_s, t0 + KN);
+      sm90::cp_async_commit();
+    }
+    if (on) {
+      // O += P V over the warp's keys of the tile (past them p = 0 on
+      // every row of the warp), 4 at a time, j ascending
+      const int n = min(BN, w_hi - tk);
+      const float* sVl = sV + kg * BN * RS + 4 * kl;
+#pragma unroll 1
+      for (int j = 0; j < n; j += 4) {
+        float4 pv[TR];
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(sPl + 4 * i * PS + j);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float4 vv[NC];
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            vv[c] = *reinterpret_cast<const float4*>(sVl + (j + jj) * RS +
+                                                     32 * c);
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const float pj = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y
+                           : jj == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              acc[i][c][0] = fmaf(pj, vv[c].x, acc[i][c][0]);
+              acc[i][c][1] = fmaf(pj, vv[c].y, acc[i][c][1]);
+              acc[i][c][2] = fmaf(pj, vv[c].z, acc[i][c][2]);
+              acc[i][c][3] = fmaf(pj, vv[c].w, acc[i][c][3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+  if constexpr (KS == 2) {
+    // merge the second key group's (m, l, O) into the first's through Q's
+    // and the stages' shared memory: O = O0 a0 + O1 a1, a = expf(m - max
+    // m). A row whose second group saw no key (a span within one tile)
+    // keeps the first group's sums exactly: a0 = 1, a1 = 0.
+    float* sM = sQ;
+    float* sL = sM + BM;
+    float* sO = sL + BM;
+    __syncthreads();  // every warp is done with Q and the stages
+    if (kg == 1) {
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int r = rw * RW + rl + 4 * i;
+        if (kl == 0) {
+          sM[r] = m[i];
+          sL[r] = l[i];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          *reinterpret_cast<float4*>(sO + r * RS + 4 * kl + 32 * c) =
+              make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2],
+                          acc[i][c][3]);
+      }
+    }
+    __syncthreads();
+    if (kg == 1) return;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int r = rw * RW + rl + 4 * i;
+      const float m1 = sM[r], mm = fmaxf(m[i], m1);
+      const float ref = mm == -INFINITY ? 0.f : mm;
+      const float a0 = expf(m[i] - ref), a1 = expf(m1 - ref);
+      l[i] = l[i] * a0 + sL[r] * a1;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 o1 =
+            *reinterpret_cast<const float4*>(sO + r * RS + 4 * kl + 32 * c);
+        acc[i][c][0] = acc[i][c][0] * a0 + o1.x * a1;
+        acc[i][c][1] = acc[i][c][1] * a0 + o1.y * a1;
+        acc[i][c][2] = acc[i][c][2] * a0 + o1.z * a1;
+        acc[i][c][3] = acc[i][c][3] * a0 + o1.w * a1;
+      }
+    }
+  }
+  if (!warp_on) return;
+
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int row = wr0 + rl + 4 * i;
+    if (row >= M) continue;
+    const int qpos = row / G;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    float* orow = o + (row - qpos * G) * a.o_h + qpos * a.o_s + 4 * kl;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 x = make_float4(acc[i][c][0] * inv, acc[i][c][1] * inv,
+                                   acc[i][c][2] * inv, acc[i][c][3] * inv);
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(orow + 32 * c) = x;
+      } else {
+        orow[32 * c] = x.x;
+        orow[32 * c + 1] = x.y;
+        orow[32 * c + 2] = x.z;
+        orow[32 * c + 3] = x.w;
+      }
+    }
+  }
+}
+
+template <int D, int W, int TR, int BN, int KS, bool SPLIT, int MB>
+cudaError_t launch_f32(const Args& a, int B, cudaStream_t stream) {
+  using T = F32Tile<D, W, TR, BN, KS, SPLIT, MB>;
+  const bool vec = aligned16(a, 4);
+  auto kern = vec ? flash_fwd_f32<D, W, TR, BN, KS, SPLIT, true, MB>
+                  : flash_fwd_f32<D, W, TR, BN, KS, SPLIT, false, MB>;
+  static bool configured[2] = {false, false};  // the attribute, once each
+  if (!configured[vec]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (e != cudaSuccess) return e;
+    configured[vec] = true;
+  }
+  const int64_t groups = int64_t(B) * a.KVH;
+  const int64_t blocks =
+      groups * ((int64_t(a.S) * (a.H / a.KVH) + T::BM - 1) / T::BM);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  kern<<<unsigned(blocks), T::kThreads, T::kSmem, stream>>>(a, int(groups));
+  return cudaGetLastError();
+}
+
+// Tiles (W, TR, BN, KS, SPLIT, MB) by head dim, from a sweep on the card
+// at the f32 LM prefills (launch/profile_flash_tiles.py --f32): at D 128
+// a group of at least kLongRows (query, head) rows takes 128-row blocks
+// of 4 x 8 register tiles (K/V read half as often), a shorter one 32-row
+// blocks on two key groups (its heaviest tile's chain halved); D 256 two
+// key groups; 8 rows a lane group or 16-row blocks were slower everywhere
+constexpr int64_t kLongRows = 512;
+
+template <int D>
+cudaError_t dispatch_f32_d(const Args& a, int B, cudaStream_t stream) {
+  const bool long_rows = int64_t(a.S) * (a.H / a.KVH) >= kLongRows;
+  if constexpr (D == 32) return launch_f32<D, 4, 4, 64, 1, false, 2>(a, B, stream);
+  if constexpr (D == 64) return launch_f32<D, 4, 4, 64, 1, false, 2>(a, B, stream);
+  if constexpr (D == 128) {
+    if (long_rows) return launch_f32<D, 8, 4, 64, 1, true, 1>(a, B, stream);
+    return launch_f32<D, 4, 2, 32, 2, true, 2>(a, B, stream);
+  }
+  if constexpr (D == 256) return launch_f32<D, 4, 2, 32, 2, true, 1>(a, B, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch_f32(const Args& a, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 32: return dispatch_f32_d<32>(a, B, stream);
+    case 64: return dispatch_f32_d<64>(a, B, stream);
+    case 128: return dispatch_f32_d<128>(a, B, stream);
+    case 256: return dispatch_f32_d<256>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ---- bfloat16: tensor cores, K/V staged once per kv-head group ----
 
 // 2^x on the special-function unit (x = -inf gives 0)
@@ -887,18 +1319,6 @@ cudaError_t dispatch_tc_d(const Args& a, int B, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// cp.async moves 16-byte pieces: every base and stride a multiple of 16
-// bytes (8 elements); the output's rows are written as bf16 pairs
-bool tc_aligned(const Args& a) {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(a.q) |
-                      reinterpret_cast<uintptr_t>(a.k) |
-                      reinterpret_cast<uintptr_t>(a.v) |
-                      reinterpret_cast<uintptr_t>(a.o);
-  const int64_t st = a.q_b | a.q_h | a.q_s | a.k_b | a.k_h | a.k_s | a.v_b |
-                     a.v_h | a.v_s | a.o_b | a.o_h | a.o_s;
-  return p % 16 == 0 && st % 8 == 0;
-}
-
 cudaError_t dispatch_tc(const Args& a, int B, int D, cudaStream_t stream) {
   switch (D) {
     case 32: return dispatch_tc_d<32>(a, B, stream);
@@ -928,7 +1348,7 @@ struct FlashParams {
 static_assert(sizeof(FlashParams) == 176, "FlashParams is packed");
 
 // kind, the caller's choice of kernel (kernel.py's `kernel_kind`): 0 =
-// float32 (flash_fwd<float>), 1 = bfloat16 (flash_fwd_tc, or flash_fwd in
+// float32 (flash_fwd_f32), 1 = bfloat16 (flash_fwd_tc, or flash_fwd in
 // bf16 for operands cp.async cannot read), 2 = float32 with kv_end <= 32
 // (flash_short_f32); scale is D^-0.5 as the caller rounds it to f32;
 // element strides of the batch, head and sequence dims (the head dim is
@@ -947,9 +1367,9 @@ int flash_attention_hsd(const FlashParams* p, void* stream) {
          p->q_s, p->k_b, p->k_h, p->k_s, p->v_b, p->v_h, p->v_s,
          p->o_b, p->o_h, p->o_s, p->lse};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->kind == 0) return dispatch_d<float>(a, p->B, p->D, s);
+  if (p->kind == 0) return dispatch_f32(a, p->B, p->D, s);
   if (p->kind == 1)
-    return tc_aligned(a) ? dispatch_tc(a, p->B, p->D, s)
+    return aligned16(a, 8) ? dispatch_tc(a, p->B, p->D, s)
                          : dispatch_d<__nv_bfloat16>(a, p->B, p->D, s);
   if (p->kind == 2) return launch_short(a, p->B, p->D, s);
   return cudaErrorInvalidValue;

@@ -50,9 +50,10 @@ def kernel_kind(dt, kv_end, B, KVH, S, G):
     with kv_end <= 32, one tile of keys (every policy-trunk call), and
     the grid of at most B * KVH * ceil(S * G / 16) blocks fits (the C side
     takes flash_short_reg_f32 up to 4 keys at D <= 128, else
-    flash_short_f32); else 0 (flash_fwd<float>) for float32 and 1 for
-    bfloat16 (flash_fwd_tc, or flash_fwd in bf16 for operands cp.async
-    cannot read)."""
+    flash_short_f32); else 0 (flash_fwd_f32, every longer span: the LM
+    prefills served in float32) for float32 and 1 for bfloat16
+    (flash_fwd_tc, or flash_fwd in bf16 for operands cp.async cannot
+    read)."""
     if dt != 0:
         return 1
     if kv_end <= SHORT_SPAN and \

@@ -90,7 +90,9 @@ TRUNK = [(b, 4, 2, s, 64, True, 0) for s in (4, 3) for b in (1, 4, 8, 16,
 KERNEL_CASES = [(32, 4, 2, 4, 64, True, 0), (4, 16, 16, 32, 128, True, 0),
                 (4, 15, 5, 32, 64, True, 0), (2, 4, 2, 384, 64, True, 0),
                 (1, 4, 1, 256, 64, True, 64), (2, 2, 2, 96, 32, False, 0),
-                (1, 2, 1, 512, 256, True, 0), (4, 16, 16, 128, 128, True, 0)]
+                (1, 2, 1, 512, 256, True, 0), (4, 16, 16, 128, 128, True, 0),
+                (4, 8, 1, 288, 256, True, 0), (4, 15, 5, 512, 64, True, 0),
+                (1, 15, 5, 2048, 64, True, 0), (1, 16, 16, 2048, 128, True, 0)]
 SCAN_SHAPES = [(32, 32), (32, 4096), (2048, 128)]
 SERVE = (32, 4, 2, 4, 64, True, 0)
 # (B, H, KVH, S, D) of the trunk's training calls

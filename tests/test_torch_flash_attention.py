@@ -117,3 +117,62 @@ def test_dispatcher_matches_jax(B, KVH, G, S, D, causal, window,
     got = attention(torch.tensor(qg), torch.tensor(k), torch.tensor(v),
                     causal=causal, window=window, use_kernel=use_kernel)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# B, KVH, G, S, D, causal, window: spans past 32 keys, which the card runs
+# through flash_fwd_f32 (the short-span kernels stop at 32): one key past
+# them, ragged S against its 32- and 64-key tiles, G up to 8 (paligemma's
+# one kv head), every head dim, a window across a tile, non-causal
+LONG_CASES = [
+    (2, 2, 3, 33, 64, True, 0),
+    (1, 1, 8, 130, 256, True, 0),
+    (2, 1, 4, 65, 32, True, 0),
+    (1, 2, 5, 96, 128, True, 40),
+    (1, 2, 2, 70, 32, False, 0),
+    (1, 1, 3, 100, 64, True, 7),
+]
+LONG_IDS = [f"B{c[0]}-KVH{c[1]}-G{c[2]}-S{c[3]}-D{c[4]}-c{int(c[5])}"
+            f"-w{c[6]}" for c in LONG_CASES]
+
+
+@pytest.mark.parametrize("B,KVH,G,S,D,causal,window", LONG_CASES,
+                         ids=LONG_IDS)
+def test_long_span_matches_pallas_interpret(B, KVH, G, S, D, causal,
+                                            window):
+    """Past 32 keys: the model-layout entry against the Pallas kernel in
+    interpret mode behind JAX's padding wrapper (bq = bk = 32)."""
+    qg, k, v = _inputs(B, KVH, G, S, D, seed=5)
+    want = jax_flash(jnp.asarray(qg), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, window=window, bq=32, bk=32)
+    got = flash_attention(torch.tensor(qg), torch.tensor(k),
+                          torch.tensor(v), causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("B,KVH,G,S,D,causal,window", LONG_CASES,
+                         ids=LONG_IDS)
+def test_long_span_dispatcher_matches_jax(B, KVH, G, S, D, causal, window,
+                                          use_kernel):
+    qg, k, v = _inputs(B, KVH, G, S, D, seed=6)
+    want = jax_attention(jnp.asarray(qg), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, window=window, use_kernel=use_kernel)
+    got = attention(torch.tensor(qg), torch.tensor(k), torch.tensor(v),
+                    causal=causal, window=window, use_kernel=use_kernel)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal,window,valid_len", [
+    (False, 0, 45), (True, 0, 40), (True, 20, 50)])
+def test_long_span_valid_len_matches_pallas_interpret(causal, window,
+                                                      valid_len):
+    """`valid_len` past 32 keys (alone, under the causal mask and with a
+    window), against the Pallas kernel in interpret mode (bq = bk = 32)."""
+    q, k, v = _hsd(*_inputs(1, 2, 4, 64, 64, seed=7))
+    want = jax_flash_hsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, window=window, bq=32, bk=32,
+                         valid_len=valid_len)
+    got = flash_attention_hsd(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), causal=causal, window=window,
+                              valid_len=valid_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -382,6 +382,130 @@ def test_flash_f32_short_span_strided(cuda, D, offset, S):
                                        vv.contiguous(), causal=True), out)
 
 
+# ---- f32 past 32 keys: flash_fwd_f32 ----
+#
+# Held to the plain version within the f32 tolerance, one launch a call,
+# bitwise on a repeat. Its tiles (flash_attention.cu dispatch_f32_d): keys
+# in tiles of 64 at D 32 and 64 and in D 128's groups of 512 (query, head)
+# rows or more, else of 32 on two key groups; rows in blocks of 64 at D
+# 32 and 64, of 128 and 32 at D 128 (groups of 512 rows or more, and
+# shorter ones), of 32 at D 256.
+def _f32_long_case(q, k, v, **mask):
+    """flash_attention_hsd on (B, H, S, D) views against the plain
+    version: one launch, f32 tolerance, a bitwise repeat."""
+    flash_attention_hsd.launches = 0
+    out = flash_attention_hsd(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert flash_attention_hsd.launches == 1
+    torch.testing.assert_close(out, attention_ref(q, k, v, **mask),
+                               atol=2e-5, rtol=2e-5)
+    assert torch.equal(flash_attention_hsd(q, k, v, **mask), out)
+    return out
+
+
+# every tile edge of every head dim: S = 33 (one key past the short-span
+# kernels), one below and one past a 32- and a 64-key tile, rows past a
+# row tile (S G over 32, 64, 128 rows), G = 1, 3, 5, 8
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [33, 63, 65, 95, 97, 130])
+@pytest.mark.parametrize("G", [1, 3, 5, 8])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_f32_long_span_tile_edges(cuda, D, G, S):
+    B, KVH = 2, 2
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda, D + S + G)
+    _f32_long_case(q, k, v)
+
+
+# windows below, across and past a key tile, non-causal, valid_len, and a
+# window with valid_len (every row keeps a key: the plain softmax spreads
+# a keyless row over every key, the kernel writes 0)
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal,window,valid_len", [
+    (True, 5, None), (True, 40, None), (True, 90, None), (False, 0, None),
+    (False, 0, 77), (True, 0, 100), (True, 50, 110)])
+def test_flash_f32_long_span_masks(cuda, D, causal, window, valid_len):
+    B, KVH, G, S = 2, 2, 3, 150
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda, D + S + 1)
+    out = _f32_long_case(q, k, v, causal=causal, window=window,
+                         valid_len=valid_len)
+    assert bool(torch.isfinite(out).all())
+
+
+# a window with valid_len leaving rows without a key past 32 keys: those
+# rows are 0 (the plain softmax spreads them over every key), the others
+# the plain version's
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_f32_long_span_rows_without_keys_are_zero(cuda, D):
+    B, KVH, G, S = 2, 2, 3, 100
+    q, k, v = _f32_qkv((B, KVH * G, S, D), (B, KVH, S, D), cuda, D + 2)
+    mask = dict(causal=True, window=10, valid_len=40)
+    out = flash_attention_hsd(q, k, v, **mask)
+    torch.cuda.synchronize()
+    # rows 49 and past: keys (qpos - 10, qpos] all at or past valid_len
+    assert bool((out[:, :, 49:] == 0).all())
+    torch.testing.assert_close(out[:, :, :49],
+                               attention_ref(q, k, v, **mask)[:, :, :49],
+                               atol=2e-5, rtol=2e-5)
+
+
+# the model layout's strided views (16-byte strides take 16-byte copies,
+# odd element strides the scalar-copy instance), and the scalar-copy
+# instance bitwise the vector one on the same values
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("offset", [0, 4, 3])
+@pytest.mark.parametrize("S", [40, 130])
+def test_flash_f32_long_span_strided_and_unaligned(cuda, D, offset, S):
+    B, KVH, G = 2, 2, 3
+    rng = np.random.default_rng(D + offset + S)
+    base = torch.tensor(rng.standard_normal(
+        (B, S, KVH, G + 2, D + 8)).astype(np.float32), device=cuda)
+    qg = base[:, :, :, 1:G + 1, offset:offset + D]
+    kv = base[:, :, :, 0, offset:offset + D]
+    vv = base[:, :, :, G + 1, offset:offset + D]
+    assert not qg.is_contiguous()
+    flash_attention_hsd.launches = 0
+    out = flash_attention(qg, kv, vv, causal=True)
+    assert flash_attention_hsd.launches == 1
+    q = qg.reshape(B, S, KVH * G, D).transpose(1, 2)
+    ref = attention_ref(q, kv.transpose(1, 2), vv.transpose(1, 2),
+                        causal=True)
+    torch.testing.assert_close(
+        out, ref.transpose(1, 2).reshape(B, S, KVH, G, D), atol=2e-5,
+        rtol=2e-5)
+    assert torch.equal(flash_attention(qg.contiguous(), kv.contiguous(),
+                                       vv.contiguous(), causal=True), out)
+
+
+# the f32 LM prefills past 32 keys (B, H, KVH, S, D), causal: deepseek-moe
+# at a 128-token prompt, paligemma at the default prompt (256 patches + 32
+# tokens), smollm at 512 and 2048 tokens, deepseek-moe at 2048
+F32_LONG_PATH = [(4, 16, 16, 128, 128), (4, 8, 1, 288, 256),
+                 (4, 15, 5, 512, 64), (1, 15, 5, 2048, 64),
+                 (1, 16, 16, 2048, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KVH,S,D", F32_LONG_PATH)
+def test_flash_f32_long_span_at_the_path_shapes(cuda, B, H, KVH, S, D):
+    G = H // KVH
+    qg, k, v = _f32_qkv((B, S, KVH, G, D), (B, S, KVH, D), cuda, S + D)
+    flash_attention_hsd.launches = 0
+    out = flash_attention(qg, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_hsd.launches == 1
+    q = qg.reshape(B, S, H, D).transpose(1, 2)
+    ref = attention_ref(q, k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    torch.testing.assert_close(
+        out, ref.transpose(1, 2).reshape(B, S, KVH, G, D), atol=2e-5,
+        rtol=2e-5)
+    assert torch.equal(flash_attention(qg, k, v, causal=True), out)
+    names = _flash_kernel_names(lambda: flash_attention(qg, k, v))
+    assert len(names) == 1 and "flash_fwd_f32" in names[0]
+
+
 def _scan_tol(T):
     return 1e-5 if T <= 128 else 1e-4
 

@@ -183,6 +183,44 @@ def test_prefill_and_decode_match_jax(arch, use_kernels):
         wkv6_btHN.launches == 0  # CPU
 
 
+# (arch, prompt) whose prefill attends past 32 keys, which the card runs
+# through flash_fwd_f32 at serve.py's default dtype (f32): smollm's prompt
+# alone, paligemma's 16 stub patches with the prompt
+LONG_PROMPTS = [("smollm-360m", 40), ("paligemma-3b", 20)]
+
+
+@pytest.mark.parametrize("arch,prompt_len", LONG_PROMPTS)
+def test_f32_kernel_path_past_32_keys_matches_jax(arch, prompt_len):
+    """f32, use_kernels: a prefill whose rows attend past 32 keys (the
+    short-span kernels' limit) and three teacher-forced decode steps
+    after it, against the reference's kernel path."""
+    jm, tm, jparams, tparams = _pair(arch, True)
+    prompts = np.random.default_rng(10).integers(
+        0, tm.cfg.vocab, (B, prompt_len)).astype(np.int32)
+    fe, jfe = _frontend(tm)
+    P, steps = tm.n_prefix, 3
+    assert P + prompt_len > 32
+    cap = prompt_len + steps
+    jlogits, jcache = _jprefill(jm, cap)(jparams, jnp.asarray(prompts), jfe)
+    with torch.inference_mode():
+        logits, cache = tm.prefill(tparams, torch.tensor(prompts), cap,
+                                   frontend=fe)
+    _close(logits, jlogits)
+    want = _jax_cache(jcache)
+    for k in want:
+        _close(cache[k], want[k])
+    forced = np.random.default_rng(11).integers(
+        0, tm.cfg.vocab, (steps, B, 1)).astype(np.int32)
+    jdecode = _jdecode(jm)
+    for i in range(steps):
+        jlogits, jcache = jdecode(jparams, jnp.asarray(forced[i]), jcache,
+                                  jnp.int32(P + prompt_len + i))
+        with torch.inference_mode():
+            logits, cache = tm.decode_step(tparams, torch.tensor(forced[i]),
+                                           cache, P + prompt_len + i)
+        _close(logits, jlogits)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_tokens_match_jax(arch):
     jm, tm, jparams, tparams = _pair(arch, True)

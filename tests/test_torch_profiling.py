@@ -3,6 +3,7 @@ window counts (the profiler now and then loses kernel records, not
 their launch calls), on synthetic counts: no card needed."""
 import pytest
 
+from repro_torch.launch import profile_flash_tiles as pft
 from repro_torch.launch.profiling import records_whole
 
 
@@ -42,6 +43,20 @@ def test_ablation_cut_texts_stand_in_their_sources(source, cuts):
     texts = psk.build_texts(common.PACKAGE_DIR / "kernels" / source)
     assert psk.missing_texts("\n".join(texts.values()),
                              getattr(psk, cuts)) == []
+
+
+@pytest.mark.parametrize("name", list(pft.F32_VARIANTS))
+def test_f32_tile_variants_stand_in_the_source(name):
+    """Every `profile_flash_tiles --f32` variant patches texts that stand
+    in flash_attention.cu as it is now, once each: its `dispatch_f32_d`
+    lines (D 128's long- and short-group lines apart), its edits'."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import profile_small_kernels as psk
+    text = (common.PACKAGE_DIR / "kernels" / "flash_attention" / "csrc" /
+            "flash_attention.cu").read_text()
+    reps = pft.f32_replacements(text, *pft.F32_VARIANTS[name])
+    assert psk.missing_texts(text, [(name, reps)]) == []
+    assert all(text.count(old) == 1 for old, _ in reps)
 
 
 def test_a_variant_includes_its_cut_header(tmp_path):
