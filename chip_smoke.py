@@ -35,8 +35,10 @@ Phases, in order; the script exits non-zero at the first failure:
      bitwise the plain version's; the yardstick is a batched torch.topk
      over the masked (R, chunk) scores); then the grouped matmul at the
      LM serving path's shapes (deepseek-moe-16b experts, batch 4, prompt
-     32: decode C = 8, prefill C = 15) in bf16 and f32, ragged shapes and
-     a C below the smallest tile (f32 within rtol 1e-4, bf16 against the
+     32: decode C = 8, prefill C = 15) in bf16 and f32, the f32 prefill
+     at a 128-token prompt (C = 60), ragged shapes and a C below the
+     smallest tile (every f32 record the f32 kernel's by the profiler's
+     names; f32 within rtol 1e-4, bf16 against the
      f32 product within one bf16 rounding, 2^-8; the yardstick is
      torch.bmm); every flash, replay-draw, per-shard-draw and grouped
      matmul row also gives the kernel's device time per call from
@@ -208,14 +210,18 @@ Phases, in order; the script exits non-zero at the first failure:
      phases also hold the zoo's flash and grouped-matmul shapes in bf16
      (ZOO_FLASH_CASES, ZOO_GMM_CASES) against their plain versions;
  12b. f32 LM serving: `serve()` of paligemma-3b (prompt 32 after its 256
-     stub patches) and smollm-360m (prompt 512) at full width in f32 (the
-     serve launcher's default dtype) with use_kernels, weights drawn on
-     the card from seed 0: every prefill attends past 32 keys, so the
-     flash launches, exactly 36 and 64 a serve(), are flash_fwd_f32's (a
-     prefill of the same shape under torch.profiler: every flash kernel
-     record flash_fwd_f32's); finite logits, peak memory, and `lm_agreement`'s
-     f32 gate (the kernel path against use_kernels=False on the same
-     params, prefill and first decode logits within 1e-3 x max|logit|);
+     stub patches), smollm-360m (prompt 512) and deepseek-moe-16b (its
+     published widths checked, 65.5 GB of f32 weights; prompts 128 and
+     32 on the same weights) at full width in f32 (the serve launcher's
+     default dtype) with use_kernels, weights drawn on the card from seed
+     0: the flash launches, exactly 36, 64 and 56 a serve(), and
+     deepseek's 1539 gmm_ecd launches; a prefill past 32 keys runs
+     flash_fwd_f32 (a prefill of the same shape under torch.profiler:
+     every flash kernel record flash_fwd_f32's), and every gmm record of
+     a deepseek prefill is the f32 kernel's (81 a prefill); finite
+     logits, weight bytes, init and serve peaks, and `lm_agreement`'s f32
+     gate (the kernel path against use_kernels=False on the same params,
+     prefill and first decode logits within 1e-3 x max|logit|);
  13. LM training: `repro_torch.launch.train.train` (use_kernels=False,
      as the reference trains) of smollm-360m at full width, batch 16,
      seq 128, 20 steps, in f32, in bf16 on f32 master weights (every
@@ -337,6 +343,11 @@ SYNC_ITERS = 20
 GMM_PATH = [(64, 8, 2048, 1408), (64, 8, 1408, 2048), (64, 15, 2048, 1408),
             (64, 15, 1408, 2048)]
 GMM_CASES = GMM_PATH + [(4, 70, 96, 130), (8, 16, 512, 64), (3, 3, 100, 37)]
+# f32 only: the prefill's wi/wg and wo at a 128-token prompt (T = 512,
+# C = max(8, round(T·K/E·1.25)) = 60), the f32 serve phase's deepseek
+GMM_F32_CASES = [(64, 60, 2048, 1408), (64, 60, 1408, 2048)]
+# the f32 grouped matmul's kernel, by the profiler's names
+GMM_F32_KERNEL = "gmm_f32_kernel"
 # bf16 only: the LM zoo's expert matmuls (batch 4, prompt 32), each C from
 # the reference's max(8, round(T·K/E·1.25)): jamba's prefill (T = 128,
 # C = 20) and decode (C = 8) wi/wg and wo, llama4's wi/wg and wo (C = 8
@@ -377,10 +388,16 @@ ZOO = [
         d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128, d_ff=8192,
         vocab=202048, moe=(128, 1, 8192, 1, 2)), 4, 57),
 ]
-# f32 LM serving on flash_fwd_f32 (phase lm_serve_f32): (arch, prompt
-# length, flash_attention_hsd launches a serve(): one a causal
-# full-attention layer a prefill, two prefills), batch 4, 16 new tokens
-LM_F32 = [("paligemma-3b", 32, 36), ("smollm-360m", 512, 64)]
+# f32 LM serving (phase lm_serve_f32): (arch, prompt lengths served on
+# the same weights, flash_attention_hsd launches a serve(): one a causal
+# full-attention layer a prefill, two prefills; gmm_ecd launches a
+# serve(): three a MoE layer a forward, 19 forwards), batch 4, 16 new
+# tokens. deepseek-moe-16b's f32 weights are 65.5 GB: all 28 layers fit
+# the 80 GB card; at prompt 128 its prefill runs flash_fwd_f32 and the
+# experts at C = 60, at 32 (the launcher's default) the short-span flash
+# kernel and C = 15
+LM_F32 = [("paligemma-3b", (32,), 36, 0), ("smollm-360m", (512,), 64, 0),
+          ("deepseek-moe-16b", (128, 32), 56, 1539)]
 # kernel path against use_kernels=False on the same params (lm_agreement):
 # f32 end to end, x max|logit| (f32 sums in another order over 28 layers);
 # bf16 layer by layer, x max|plain output| (2^-6: a few bf16 roundings)
@@ -2278,7 +2295,8 @@ def phase_gmm_kernel():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     cases = [(c, dname) for dname in ("bfloat16", "float32")
-             for c in GMM_CASES] + [(c, "bfloat16") for c in ZOO_GMM_CASES]
+             for c in GMM_CASES] + [(c, "float32") for c in GMM_F32_CASES] \
+        + [(c, "bfloat16") for c in ZOO_GMM_CASES]
     for (E, C, d, f), dname in cases:
         dt = getattr(torch, dname)
         x = torch.randn((E, C, d), generator=gen, device="cuda").to(dt)
@@ -2314,6 +2332,10 @@ def phase_gmm_kernel():
         library_ms = cuda_time_ms(library, 50 if big else 200)
         dev_us, dev_kernels = device_us(kernel)
         library_dev_us, _ = device_us(library)
+        if dname == "float32":
+            check(dev_kernels and all(GMM_F32_KERNEL in k
+                                      for k in dev_kernels),
+                  f"gmm_ecd f32 {(E, C, d, f)}: kernels {dev_kernels}")
         es = torch.finfo(dt).bits // 8
         nbytes = es * (E * C * d + E * d * f + E * C * f)
         ops = 2 * E * C * d * f
@@ -2933,80 +2955,133 @@ def phase_lm_zoo(card):
 
 
 def phase_lm_serve_f32(card):
-    """Serve paligemma-3b (prompt 32, its 256 stub patches before it) and
-    smollm-360m (prompt 512) at full width in f32 with use_kernels: every
-    prefill attends past 32 keys, so each causal full-attention layer's
-    prefill runs flash_fwd_f32. Launches exactly LM_F32's a serve(), and
-    every flash kernel of a prefill of the same shape flash_fwd_f32 by
-    the profiler's names (`profiling.kernel_us`); finite logits, peak
-    memory, and the kernel path against use_kernels=False on the same
-    params (`lm_agreement`, f32). Returns the serves' flash launches,
-    summed."""
+    """Serve LM_F32's models at full width in f32 with use_kernels:
+    paligemma-3b (prompt 32, its 256 stub patches before it) and
+    smollm-360m (prompt 512), each prefill past 32 keys on
+    flash_fwd_f32; deepseek-moe-16b at its published widths (65.5 GB of
+    f32 weights, drawn once) at prompts 128 (flash_fwd_f32, experts at
+    C = 60) and 32 (the launcher's default: the short-span flash kernel,
+    C = 15), its experts on the f32 grouped matmul. Each serve()
+    launches exactly LM_F32's flash and gmm counts; a prefill of the same
+    shape under the profiler (`profiling.kernel_us`) shows every flash
+    record flash_fwd_f32's where it attends past 32 keys and every gmm
+    record the f32 kernel's; finite logits, weight bytes, init and serve
+    peaks, and the kernel path against use_kernels=False on the same
+    params (`lm_agreement`, f32). Returns the serves' launches, summed:
+    {"flash_fwd_f32": flash launches of the serves past 32 keys,
+    "gmm_ecd_f32": gmm launches}."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_hsd
+    from repro_torch.kernels.gmm.kernel import gmm_ecd
     from repro_torch.launch.profiling import kernel_us
     from repro_torch.launch.serve import serve, stub_frontend
     from repro_torch.models.model import ModelOpts, build_model
     B, gen_len = LM["batch"], LM["gen_len"]
-    total = 0
+    total = {"flash_fwd_f32": 0, "gmm_ecd_f32": 0}
     t_phase = time.perf_counter()
-    for arch, S, n_flash in LM_F32:
+    for arch, prompt_lens, n_flash, n_gmm in LM_F32:
         model = build_model(arch, ModelOpts(dtype="float32", remat=False,
                                             use_kernels=True))
         cfg = model.cfg
         n_attn = cfg.pattern().count("attn")
         check(2 * n_attn == n_flash, f"{arch}: {n_attn} attention layers, "
                                      f"expected {n_flash} launches")
-        check(S + model.n_prefix > 32, f"{arch}: prefill within 32 keys")
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        check(3 * n_moe * (2 + gen_len + 1) == n_gmm,
+              f"{arch}: {n_moe} MoE layers, expected {n_gmm} launches")
+        if cfg.moe is not None:  # deepseek-moe-16b's published widths
+            check((cfg.n_layers, cfg.d_model, cfg.moe.n_experts,
+                   cfg.moe.d_ff) == (28, 2048, 64, 1408),
+                  f"{arch}: not the full-width config")
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
         check(all(v.dtype == torch.float32 for v in params.values()),
               f"{arch}: params not all f32")
-        prompts = torch.randint(0, cfg.vocab, (B, S), device="cuda",
-                                generator=torch.Generator(
-                                    device="cuda").manual_seed(1))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        weight_bytes = sum(v.numel() * v.element_size()
+                           for v in params.values())
+        n_params = sum(v.numel() for v in params.values())
+        if cfg.moe is not None:
+            # param_count (the reference's) leaves out the norm scales
+            n_norm = (2 * cfg.n_layers + 1) * cfg.d_model
+            check(n_params == cfg.param_count() + n_norm,
+                  f"{arch}: {n_params} params, config says "
+                  f"{cfg.param_count()} + {n_norm} norm scales")
+        for S in prompt_lens:
+            rows = S + model.n_prefix
+            prompts = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                                    generator=torch.Generator(
+                                        device="cuda").manual_seed(1))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
 
-        def run():
-            return serve(cfg, reduced=False, batch=B, prompt_len=S,
-                         gen_len=gen_len, seed=0, dtype="float32",
-                         device="cuda", use_kernels=True, params=params,
-                         prompts=prompts)
-        # the main path: counts at 0 just before, read just after
-        flash_attention_hsd.launches = 0
-        res = run()
-        launches = flash_attention_hsd.launches
-        peak = torch.cuda.max_memory_allocated()
-        check(launches == n_flash, f"{arch} f32 serve: {launches} flash "
-                                   f"launches, expected {n_flash}")
-        check(res["generated_shape"] == [B, gen_len],
-              f"{arch} f32 serve: generated_shape {res['generated_shape']}")
-        total += launches
-        # checks below launch the kernels again; they are not the main path.
-        # A serve() is two prefills of this shape: every flash kernel
-        # record of one is flash_fwd_f32's, n_flash / 2 of them where the
-        # window kept every record (`profiling.records_whole`)
-        fe = stub_frontend(cfg, B, "cuda")
+            def run():
+                return serve(cfg, reduced=False, batch=B, prompt_len=S,
+                             gen_len=gen_len, seed=0, dtype="float32",
+                             device="cuda", use_kernels=True, params=params,
+                             prompts=prompts)
+            t0 = time.perf_counter()
+            # the main path: counts at 0 just before, read just after
+            flash_attention_hsd.launches = 0
+            gmm_ecd.launches = 0
+            res = run()
+            launches = {"flash_attention_hsd": flash_attention_hsd.launches,
+                        "gmm_ecd": gmm_ecd.launches}
+            serve_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check(launches == {"flash_attention_hsd": n_flash,
+                               "gmm_ecd": n_gmm},
+                  f"{arch} f32 serve at prompt {S}: launches {launches}, "
+                  f"expected {n_flash} flash and {n_gmm} gmm")
+            check(res["generated_shape"] == [B, gen_len],
+                  f"{arch} f32 serve: generated_shape "
+                  f"{res['generated_shape']}")
+            if rows > 32:
+                total["flash_fwd_f32"] += n_flash
+            total["gmm_ecd_f32"] += n_gmm
+            # checks below launch the kernels again; they are not the main
+            # path. A serve() is two prefills of this shape: every flash
+            # kernel record of one is flash_fwd_f32's past 32 keys, and
+            # every gmm record the f32 kernel's, n_flash / 2 and n_gmm / 19
+            # of them where the window kept every record
+            # (`profiling.records_whole`)
+            fe = stub_frontend(cfg, B, "cuda")
 
-        def prefill():
-            with torch.inference_mode():
-                model.prefill(params, prompts, S + gen_len, frontend=fe)
-        times, records = kernel_us(prefill, calls=1, tries=2)
-        names = {k: n for k, n in records.items() if "flash" in k}
-        check(names and all("flash_fwd_f32" in k for k in names) and (
-            times is None or sum(names.values()) == n_flash // 2),
-              f"{arch} f32 prefill: flash kernels {names} (window whole: "
-              f"{times is not None}), expected {n_flash // 2} "
-              f"flash_fwd_f32")
-        agree = lm_agreement(model, params, prompts, S + gen_len,
-                             frontend=fe, bf16=False)
-        print("lm_serve_f32 " + json.dumps(dict(
-            res, prompt_len=S, rows=S + model.n_prefix, launches=launches,
-            flash_kernels=names, records_whole=times is not None,
-            serve_peak_bytes=peak, agreement=agree,
-            card=card)))
+            def prefill():
+                with torch.inference_mode():
+                    model.prefill(params, prompts, S + gen_len, frontend=fe)
+            times, records = kernel_us(prefill, calls=1, tries=2)
+            names = {k: n for k, n in records.items() if "flash" in k}
+            gmms = {k: n for k, n in records.items() if "gmm" in k}
+            check(names and (rows <= 32 or all(
+                "flash_fwd_f32" in k for k in names)) and (
+                times is None or sum(names.values()) == n_flash // 2),
+                  f"{arch} f32 prefill at {rows} rows: flash kernels "
+                  f"{names} (window whole: {times is not None}), expected "
+                  f"{n_flash // 2}" + (" flash_fwd_f32" if rows > 32
+                                       else ""))
+            n_gmm_prefill = n_gmm // (2 + gen_len + 1)
+            check(all(GMM_F32_KERNEL in k for k in gmms) and (
+                times is None or sum(gmms.values()) == n_gmm_prefill),
+                  f"{arch} f32 prefill: gmm kernels {gmms} (window whole: "
+                  f"{times is not None}), expected {n_gmm_prefill} "
+                  f"{GMM_F32_KERNEL}")
+            agree = lm_agreement(model, params, prompts, S + gen_len,
+                                 frontend=fe, bf16=False)
+            print("lm_serve_f32 " + json.dumps(dict(
+                res, prompt_len=S, rows=rows, launches=launches,
+                flash_kernels=names, gmm_kernels=gmms,
+                records_whole=times is not None, weight_bytes=weight_bytes,
+                n_params=n_params, init_s=init_s,
+                init_peak_bytes=init_peak, serve_peak_bytes=peak,
+                serve_s=serve_s, layers_served=cfg.n_layers,
+                agreement=agree, card=card)))
         del params, model
         torch.cuda.empty_cache()
     print(f"lm_serve_f32 phase: {time.perf_counter() - t_phase:.1f} s")
@@ -3311,15 +3386,26 @@ def main():
         "launches": launches + zoo_launches["flash_attention_hsd"]},
         **{k: serve[k] for k in keys})]
     # f32 past 32 keys (flash_fwd_f32), its row at paligemma's prefill:
-    # launches from the f32 LM serves
+    # launches from the f32 LM serves past 32 keys
     long_row = cases[(F32_LONG_CASES[1], "float32")]
     kernels.append(dict({
         "name": "flash_fwd_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-        "launches": f32_launches, "shape": long_row["shape"]},
+        "launches": f32_launches["flash_fwd_f32"],
+        "shape": long_row["shape"]},
         **{k: long_row[k] for k in keys}))
+    # the f32 grouped matmul, its row at deepseek's prefill wi/wg (prompt
+    # 32): launches from the f32 serve phase's deepseek serves
+    f32_gmm_row = gmm_rows[(GMM_PATH[2], "float32")]
+    kernels.append(dict({
+        "name": "gmm_ecd_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/gmm/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/gmm/kernel.py:42",
+        "launches": f32_launches["gmm_ecd_f32"],
+        "shape": f32_gmm_row["shape"], "dtype": "float32"},
+        **{k: f32_gmm_row[k] for k in keys}))
     # the training attention: the forward kernel writing lse, and its
     # backward (no pallas_call of its own: the adjoint of the forward's)
     for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):

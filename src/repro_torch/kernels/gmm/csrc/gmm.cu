@@ -34,13 +34,24 @@
 // (the tensor core's sum within each k16 step, then the steps in order):
 // bitwise the same from call to call. No split-K, no atomics.
 //
-// float32 keeps the CUDA-core kernel below: every product and sum in f32
-// (inputs exact, no TF32, as the port's f32 reference requires); a block
-// of 2 warps per (128-column f-tile, C-tile, expert), a thread owns two
-// adjacent columns of f and all BC rows of the C-tile (BC = 8, 16 or 32),
-// the x tile staged in shared memory as f32, w read straight into
-// registers 32 rows ahead. The dtype switch in gmm_ecd() below is the
-// only dispatch between the two.
+// float32, on the CUDA cores (every product and sum in f32, inputs exact:
+// no TF32, as the port's f32 reference requires), w streamed through a
+// ring of shared-memory stages like the bf16 kernel's. A block owns one
+// expert's 128-column f-tile for all its C rows while C <= 64 (C-tiles of
+// 64 past that), so each weight byte is read from device memory once: at
+// decode (C = 8) and at prefill (C = 15) the call is bound by that read,
+// at C = 60 (a 128-token prompt) by the FMAs (2 C d f per expert, 67
+// TFLOP/s). Stages of BK rows of w (BK x 128) and the matching BK columns
+// of x are filled by 16-byte cp.async STAGES - 1 stages ahead of the
+// FMAs; each thread keeps a register tile of TM rows of C by TN columns of
+// f, reads w from shared memory as float4 and x as float4 along d (a
+// warp's rows adjacent, so its x reads are broadcasts), and runs TM x TN
+// FMAs per k. Ragged C, d and f are zero-filled in the copies; where f or
+// d is not a multiple of 4 or a pointer is not 16-byte aligned the same
+// kernel copies single floats (the same sums in the same order). Each
+// output is one thread's sum over d in order: bitwise the same from call
+// to call. No split-K, no atomics. The dtype switch in gmm_ecd() below is
+// the only dispatch between the two.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,141 +60,234 @@
 
 namespace {
 
-constexpr int kThreads = 64;          // 2 warps
-constexpr int kCols = 2 * kThreads;   // columns of f per block
-constexpr int kChunk = 128;           // d-chunk of x staged in shared memory
-constexpr int kBatch = 32;            // rows of w loaded ahead of their FMAs
+using sm90::cp_async16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float zero_of(const float*) { return 0.f; }
+// ---- float32: CUDA cores fed by a cp.async ring ----
 
-// A thread's two adjacent elements of a w row as loaded.
-template <typename T>
-struct Pair;
-template <>
-struct Pair<float> {
-  using type = float2;
-  static __device__ __forceinline__ float2 f32(float2 v) { return v; }
-  static __device__ __forceinline__ float2 zero() { return make_float2(0.f, 0.f); }
-  static __device__ __forceinline__ float2 make(float a, float b) {
-    return make_float2(a, b);
-  }
+// 4 bytes from global to shared memory, zero-filled (src unread) if !ok:
+// the scalar-copy instance's stage
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(sm90::smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// A block of (BM / TM) x (BN / TN) threads over BM rows of C and BN
+// columns of f; thread (tx, ty) owns rows ty + i BM / TM (i < TM) and, in
+// each of TN / 4 column groups of BN / (TN / 4), the 4 columns at 4 tx. A
+// stage is BK rows of w ([BK][BN]) then BM rows of x ([BM][kXS], BK
+// columns of d each; padded where a warp holds rows of two ty, which
+// then read x rows apart in other banks).
+template <int BM, int BN, int BK, int TM, int TN>
+struct F32Tile {
+  static constexpr int kTY = BM / TM, kTX = BN / TN;
+  static constexpr int kThreads = kTY * kTX;
+  static constexpr int kNG = TN / 4;
+  static constexpr int kXS = kTX >= 32 ? BK : BK + 4;
+  static constexpr int kStage = BK * BN + BM * kXS;  // floats
+  static_assert(BM % TM == 0 && BN % TN == 0 && TN % 4 == 0 && BK % 4 == 0,
+                "tiles");
 };
 
-// two adjacent elements; `pair` = both in range and 2-aligned
-template <typename T>
-__device__ __forceinline__ typename Pair<T>::type load2(const T* p, bool in0,
-                                                        bool in1, bool pair) {
-  using P = Pair<T>;
-  if (pair) return *reinterpret_cast<const typename P::type*>(p);
-  const T z = zero_of(p);
-  return P::make(in0 ? p[0] : z, in1 ? p[1] : z);
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b, bool in1,
-                                       bool pair);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float a, float b,
-                                              bool in1, bool pair) {
-  if (pair) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-    return;
-  }
-  p[0] = a;
-  if (in1) p[1] = b;
-}
-
-// grid (ceil(f / kCols), ceil(C / BC), E); x, w, out contiguous.
-// kPair: f is even and w, out are aligned to two elements, so a thread's
-// two columns load and store as one vector (both in or both out).
-template <typename T, int BC, bool kPair>
-__global__ void __launch_bounds__(kThreads) gmm_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-    int C, int d, int f) {
-  using P = Pair<T>;
-  __shared__ __align__(16) float sx[BC][kChunk];
-  const int tid = threadIdx.x;
-  const int col = blockIdx.x * kCols + 2 * tid;
-  const int c0 = blockIdx.y * BC;
-  const int e = blockIdx.z;
-  const bool in0 = col < f, in1 = col + 1 < f;
-  const T* xe = x + (int64_t(e) * C + c0) * d;
-  const T* we = w + int64_t(e) * d * f + col;
-  const int rows = min(BC, C - c0);
-
-  float acc[BC][2];
+// acc[4 g + c] += x_k w_k[g][c] for the 4 k of xv in order
+template <int NG>
+__device__ __forceinline__ void fma_row(float (&acc)[4 * NG], float4 xv,
+                                        const float4 (&wv)[4][NG]) {
+  const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-  for (int r = 0; r < BC; ++r) acc[r][0] = acc[r][1] = 0.f;
-
-  for (int d0 = 0; d0 < d; d0 += kChunk) {
-    __syncthreads();  // the previous chunk of x is consumed
-    for (int i = tid; i < BC * kChunk; i += kThreads) {
-      const int r = i / kChunk, k = i - r * kChunk;
-      sx[r][k] = (r < rows && d0 + k < d) ? to_f32(xe[int64_t(r) * d + d0 + k])
-                                          : 0.f;
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      acc[4 * g + 0] = fmaf(xs[j], wv[j][g].x, acc[4 * g + 0]);
+      acc[4 * g + 1] = fmaf(xs[j], wv[j][g].y, acc[4 * g + 1]);
+      acc[4 * g + 2] = fmaf(xs[j], wv[j][g].z, acc[4 * g + 2]);
+      acc[4 * g + 3] = fmaf(xs[j], wv[j][g].w, acc[4 * g + 3]);
     }
-    __syncthreads();
-    const int kend = min(kChunk, d - d0);
-    for (int k0 = 0; k0 < kend; k0 += kBatch) {
-      typename P::type wv[kBatch];
+}
+
+// grid (ceil(f / BN), ceil(C / BM), E), F32Tile's threads, STAGES stages
+// of dynamic shared memory; x, w, out contiguous. kVec: f and d are
+// multiples of 4 and x, w, out 16-byte aligned, so the stages fill by
+// 16-byte copies and the output stores as float4; else single floats.
+template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB,
+          bool kVec>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
+    gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   float* __restrict__ out, int C, int d, int f) {
+  using T = F32Tile<BM, BN, BK, TM, TN>;
+  constexpr int TY = T::kTY, TX = T::kTX, NT = T::kThreads, NG = T::kNG,
+                XS = T::kXS, SE = T::kStage, GW = BN / NG;
+  extern __shared__ __align__(16) float f32_ring[];
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int f0 = blockIdx.x * BN, c0 = blockIdx.y * BM, e = blockIdx.z;
+  const float* we = w + int64_t(e) * d * f;
+  const float* xe = x + (int64_t(e) * C + c0) * d;
+  const int rows = min(BM, C - c0);
+  const int ktiles = (d + BK - 1) / BK;
+
+  // stage s <- w rows [k0, k0 + BK) x columns [f0, f0 + BN), then x rows
+  // [c0, c0 + BM) x columns [k0, k0 + BK); out-of-range elements zero.
+  // 16-byte copies: a thread's chunks are rows RW (RX) apart in one
+  // column, so their sources and destinations are fixed offsets from
+  // one pointer a stage
+  constexpr int CW = BN / 4, CX = BK / 4;  // 16-byte chunks a row
+  constexpr int RW = NT / CW, RX = NT / CX;
+  static_assert(!kVec || (NT % CW == 0 && NT % CX == 0), "copy layout");
+  const int wr = tid / CW, wq = tid % CW * 4, xr = tid / CX,
+            xq = tid % CX * 4;
+  const bool wcol = f0 + wq < f;
+  const float* wsrc = we + int64_t(wr) * f + f0 + wq;
+  const float* xsrc = xe + int64_t(xr) * d + xq;
+  auto load = [&](int s, int kt) {
+    float* sw = f32_ring + s * SE;
+    float* sx = sw + BK * BN;
+    const int k0 = kt * BK;
+    if constexpr (kVec) {
+      const float* ws = wsrc + int64_t(k0) * f;
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const bool krow = d0 + k0 + j < d;
-        wv[j] = (krow && in0)
-                    ? load2<T>(we + int64_t(d0 + k0 + j) * f, in0, in1, kPair)
-                    : P::zero();
-      }
-#pragma unroll
-      for (int j = 0; j < kBatch; j += 4) {
-        const float2 w0 = P::f32(wv[j]), w1 = P::f32(wv[j + 1]),
-                     w2 = P::f32(wv[j + 2]), w3 = P::f32(wv[j + 3]);
-#pragma unroll
-        for (int r = 0; r < BC; ++r) {
-          const float4 xv = *reinterpret_cast<const float4*>(&sx[r][k0 + j]);
-          acc[r][0] = fmaf(xv.x, w0.x, acc[r][0]);
-          acc[r][1] = fmaf(xv.x, w0.y, acc[r][1]);
-          acc[r][0] = fmaf(xv.y, w1.x, acc[r][0]);
-          acc[r][1] = fmaf(xv.y, w1.y, acc[r][1]);
-          acc[r][0] = fmaf(xv.z, w2.x, acc[r][0]);
-          acc[r][1] = fmaf(xv.z, w2.y, acc[r][1]);
-          acc[r][0] = fmaf(xv.w, w3.x, acc[r][0]);
-          acc[r][1] = fmaf(xv.w, w3.y, acc[r][1]);
+      for (int i = 0; i < (BK + RW - 1) / RW; ++i) {
+        const int r = wr + i * RW;
+        if (BK % RW == 0 || r < BK) {
+          const bool ok = wcol && k0 + r < d;
+          cp_async16(sw + r * BN + wq, ok ? ws + int64_t(i * RW) * f : we,
+                     ok);
         }
       }
+#pragma unroll
+      for (int i = 0; i < (BM + RX - 1) / RX; ++i) {
+        const int r = xr + i * RX;
+        if (BM % RX == 0 || r < BM) {
+          const bool ok = r < rows && k0 + xq < d;
+          cp_async16(sx + r * XS + xq,
+                     ok ? xsrc + int64_t(i * RX) * d + k0 : xe, ok);
+        }
+      }
+    } else {
+      for (int c = tid; c < BK * BN; c += NT) {
+        const int r = c / BN, q = c % BN;
+        const bool ok = k0 + r < d && f0 + q < f;
+        cp_async4(sw + r * BN + q,
+                  ok ? we + int64_t(k0 + r) * f + f0 + q : we, ok);
+      }
+      for (int c = tid; c < BM * BK; c += NT) {
+        const int r = c / BK, q = c % BK;
+        const bool ok = r < rows && k0 + q < d;
+        cp_async4(sx + r * XS + q, ok ? xe + int64_t(r) * d + k0 + q : xe,
+                  ok);
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();  // stage kt has landed (this thread's)
+    __syncthreads();              // ... every thread's; stage kt - 1 is free
+    if (kt + STAGES - 1 < ktiles)
+      load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    cp_async_commit();
+    const float* sw = f32_ring + kt % STAGES * SE;
+    const float* sx = sw + BK * BN;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 wv[4][NG];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          wv[j][g] = *reinterpret_cast<const float4*>(
+              sw + (kk + j) * BN + g * GW + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        fma_row<NG>(acc[i], *reinterpret_cast<const float4*>(
+                                sx + (ty + i * TY) * XS + kk),
+                    wv);
     }
   }
+  cp_async_wait<0>();
 
-  if (!in0) return;
-  T* oe = out + (int64_t(e) * C + c0) * f + col;
+  float* oe = out + (int64_t(e) * C + c0) * f;
 #pragma unroll
-  for (int r = 0; r < BC; ++r)
-    if (r < rows) store2<T>(oe + int64_t(r) * f, acc[r][0], acc[r][1], in1, kPair);
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty + i * TY;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int col = f0 + g * GW + 4 * tx;
+      float* p = oe + int64_t(r) * f + col;
+      const float* a = &acc[i][4 * g];
+      if constexpr (kVec) {
+        if (col < f)
+          *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (col + c < f) p[c] = a[c];
+      }
+    }
+  }
 }
 
-template <typename T, int BC>
-cudaError_t launch_bc(const void* x, const void* w, void* out, int E, int C,
-                      int d, int f, cudaStream_t stream) {
-  const dim3 grid((f + kCols - 1) / kCols, (C + BC - 1) / BC, E);
-  const uintptr_t align = 2 * sizeof(T);
-  const bool pair = f % 2 == 0 && reinterpret_cast<uintptr_t>(w) % align == 0
-                    && reinterpret_cast<uintptr_t>(out) % align == 0;
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  T* ot = static_cast<T*>(out);
-  if (pair)
-    gmm_kernel<T, BC, true><<<grid, kThreads, 0, stream>>>(xt, wt, ot, C, d, f);
-  else
-    gmm_kernel<T, BC, false><<<grid, kThreads, 0, stream>>>(xt, wt, ot, C, d, f);
+template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB,
+          bool kVec>
+cudaError_t launch_f32_as(const void* x, const void* w, void* out, int E,
+                          int C, int d, int f, cudaStream_t stream) {
+  using T = F32Tile<BM, BN, BK, TM, TN>;
+  constexpr int smem = STAGES * T::kStage * int(sizeof(float));
+  const auto kernel = gmm_f32_kernel<BM, BN, BK, TM, TN, STAGES, MINB, kVec>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
+  kernel<<<grid, T::kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), C, d, f);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_bc(const void* x, const void* w, void* out, int E, int C,
-                        int d, int f, cudaStream_t stream) {
-  if (C <= 8) return launch_bc<T, 8>(x, w, out, E, C, d, f, stream);
-  if (C <= 16) return launch_bc<T, 16>(x, w, out, E, C, d, f, stream);
-  return launch_bc<T, 32>(x, w, out, E, C, d, f, stream);
+template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB>
+cudaError_t launch_f32(const void* x, const void* w, void* out, int E, int C,
+                       int d, int f, cudaStream_t stream) {
+  const bool vec = f % 4 == 0 && d % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(w) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  return vec ? launch_f32_as<BM, BN, BK, TM, TN, STAGES, MINB, true>(
+                   x, w, out, E, C, d, f, stream)
+             : launch_f32_as<BM, BN, BK, TM, TN, STAGES, MINB, false>(
+                   x, w, out, E, C, d, f, stream);
+}
+
+// <BM rows of C, BN columns of f, BK rows of d a stage, TM x TN a thread,
+// STAGES, blocks an SM> by C: decode (8), prefill at prompt 32 (15) and
+// 128 (60), C-tiles of 64 past that. At C <= 16 the call streams w and
+// 8 blocks fit an SM (27 KB of stages, <= 128 registers), so a layer's
+// 704 or 1024 blocks are all resident at once: no partial last wave
+// starves the stream. At C = 60 the FMAs bound it; 32-row stages halve
+// the barriers, and 3 blocks an SM fit (168 registers, 75 KB).
+cudaError_t dispatch_f32(const void* x, const void* w, void* out, int E,
+                         int C, int d, int f, cudaStream_t stream) {
+  if (C <= 8)
+    return launch_f32<8, 128, 16, 4, 4, 3, 8>(x, w, out, E, C, d, f, stream);
+  if (C <= 16)
+    return launch_f32<16, 128, 16, 8, 4, 3, 8>(x, w, out, E, C, d, f, stream);
+  if (C <= 32)
+    return launch_f32<32, 128, 16, 8, 4, 3, 4>(x, w, out, E, C, d, f, stream);
+  return launch_f32<64, 128, 32, 8, 8, 3, 2>(x, w, out, E, C, d, f, stream);
 }
 
 // ---- bfloat16: tensor cores fed by a cp.async ring ----
@@ -205,9 +309,6 @@ __host__ __device__ constexpr int mma_smem_bytes() {
   return kStages * stage_elems<NT>() * 2;
 }
 
-using sm90::cp_async16;
-using sm90::cp_async_commit;
-using sm90::cp_async_wait;
 using sm90::ldmatrix_x2;
 using sm90::ldmatrix_x4_trans;
 using sm90::mma_bf16;
@@ -371,7 +472,7 @@ int gmm_ecd(const void* x, const void* w, void* out, int dtype, int E, int C,
   if (E <= 0 || E > 65535 || C <= 0 || (C + 7) / 8 > 65535 || d < 0 || f <= 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_bc<float>(x, w, out, E, C, d, f, s);
+  if (dtype == 0) return dispatch_f32(x, w, out, E, C, d, f, s);
   if (dtype == 1) return dispatch_bf16(x, w, out, E, C, d, f, s);
   return cudaErrorInvalidValue;
 }

@@ -33,6 +33,8 @@ def _inputs(E, C, d, f, seed=0):
     (2, 128, 128, 128),                # exact tiles
     (8, 16, 512, 64),
     (3, 5, 40, 24),                    # C below any tile
+    (4, 60, 96, 130),                  # f32 C-tile of 64 rows, ragged
+    (2, 240, 64, 48),                  # f32 C-tiles of 64, the last ragged
 ])
 def test_gmm_ref_matches_jax(E, C, d, f):
     x, w = _inputs(E, C, d, f)
@@ -51,6 +53,21 @@ def test_gmm_wrapper_takes_the_plain_version_on_the_cpu():
     assert gmm_ecd.launches == 0
     np.testing.assert_allclose(got.numpy(), np.asarray(
         jax_gmm(jnp.asarray(x), jnp.asarray(w))), **F32)
+
+
+@pytest.mark.parametrize("E,C,d,f", [(4, 60, 96, 130), (2, 240, 64, 48)])
+def test_gmm_f32_past_32_rows_matches_jax(E, C, d, f):
+    """The f32 wrapper at C past 32 rows (deepseek's C = 60 at a 128-token
+    prompt): the plain version on the CPU against JAX's kernel in
+    interpret mode and its oracle."""
+    x, w = _inputs(E, C, d, f, seed=3)
+    gmm_ecd.launches = 0
+    got = gmm(torch.tensor(x), torch.tensor(w))
+    assert gmm_ecd.launches == 0
+    assert got.dtype == torch.float32 and got.shape == (E, C, f)
+    for want in (jax_gmm(jnp.asarray(x), jnp.asarray(w)),
+                 jax_gmm_ref(jnp.asarray(x), jnp.asarray(w))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
 def test_gmm_bf16_matches_jax():

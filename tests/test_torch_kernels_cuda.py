@@ -1137,6 +1137,65 @@ def test_gmm_bf16_unaligned_rows(cuda):
     assert torch.equal(gmm_ecd(xu, wu), gmm_ecd(x, w))
 
 
+# (E, C, d, f) for the f32 CUDA-core kernel: C across its C-tiles (8, 16,
+# 32 and 64 rows; 65 and 240 in C-tiles of 64), d and f not multiples of
+# 4 (the scalar-copy instance), one expert
+GMM_F32_EDGES = [(4, C, 256, 384)
+                 for C in (1, 7, 8, 9, 15, 16, 17, 33, 60, 64, 65, 240)] + [
+    (3, 20, 102, 130), (2, 9, 77, 61), (2, 60, 64, 45), (1, 15, 2048, 1408),
+    (1, 60, 96, 128), (1, 1, 8, 8)]
+# the f32 serve path's expert shapes: deepseek-moe-16b decode (C = 8),
+# prefill at prompt 32 (C = 15) and 128 (C = 60), wi/wg and wo
+GMM_F32_PATH = [(64, C, d, f) for C in (8, 15, 60)
+                for d, f in ((2048, 1408), (1408, 2048))]
+
+
+def _gmm_f32_close(out, x, w):
+    ref = gmm_ref(x, w)
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", GMM_F32_EDGES)
+def test_gmm_f32_edges_within_rtol_and_repeatable(cuda, E, C, d, f):
+    x, w = _gmm_inputs(E, C, d, f, torch.float32, cuda)
+    out = gmm_ecd(x, w)
+    torch.cuda.synchronize()
+    assert gmm_ecd.launches == 1 and out.shape == (E, C, f)
+    _gmm_f32_close(out, x, w)
+    assert torch.equal(gmm_ecd(x, w), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 15, 60])
+def test_gmm_f32_unaligned_is_bitwise_the_aligned_call(cuda, C):
+    """x and w contiguous but one float off a 16-byte boundary: the
+    scalar-copy instance sums the same products in the same order."""
+    x, w = _gmm_inputs(4, C, 256, 384, torch.float32, cuda)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    ws = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)
+    xu, wu = xs[1:].view(x.shape), ws[1:].view(w.shape)
+    xu.copy_(x)
+    wu.copy_(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    out = gmm_ecd(x, w)
+    assert torch.equal(gmm_ecd(xu, wu), out)
+    assert torch.equal(gmm_ecd(xu, wu), out)
+    _gmm_f32_close(out, x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", GMM_F32_PATH)
+def test_gmm_f32_path_shapes_run_the_f32_kernel(cuda, E, C, d, f):
+    x, w = _gmm_inputs(E, C, d, f, torch.float32, cuda)
+    out = gmm_ecd(x, w)
+    _gmm_f32_close(out, x, w)
+    assert torch.equal(gmm_ecd(x, w), out)
+    names = _flash_kernel_names(lambda: gmm_ecd(x, w))
+    assert names and all("gmm_f32_kernel" in k for k in names), names
+
+
 @pytest.mark.cuda
 def test_gmm_repeats_calls_bitwise(cuda):
     x, w = _gmm_inputs(64, 15, 2048, 1408, torch.bfloat16, cuda)

@@ -185,8 +185,11 @@ def test_prefill_and_decode_match_jax(arch, use_kernels):
 
 # (arch, prompt) whose prefill attends past 32 keys, which the card runs
 # through flash_fwd_f32 at serve.py's default dtype (f32): smollm's prompt
-# alone, paligemma's 16 stub patches with the prompt
-LONG_PROMPTS = [("smollm-360m", 40), ("paligemma-3b", 20)]
+# alone, paligemma's 16 stub patches with the prompt, and deepseek's,
+# whose reduced MoE (4 experts, top 2) then packs C = 50 slots an expert
+# at batch 2, past 32 as C = 60 is at full width
+LONG_PROMPTS = [("smollm-360m", 40), ("paligemma-3b", 20),
+                ("deepseek-moe-16b", 40)]
 
 
 @pytest.mark.parametrize("arch,prompt_len", LONG_PROMPTS)

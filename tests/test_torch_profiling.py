@@ -4,6 +4,7 @@ their launch calls), on synthetic counts: no card needed."""
 import pytest
 
 from repro_torch.launch import profile_flash_tiles as pft
+from repro_torch.launch import profile_gmm_f32 as pgf
 from repro_torch.launch.profiling import records_whole
 
 
@@ -55,6 +56,18 @@ def test_f32_tile_variants_stand_in_the_source(name):
     text = (common.PACKAGE_DIR / "kernels" / "flash_attention" / "csrc" /
             "flash_attention.cu").read_text()
     reps = pft.f32_replacements(text, *pft.F32_VARIANTS[name])
+    assert psk.missing_texts(text, [(name, reps)]) == []
+    assert all(text.count(old) == 1 for old, _ in reps)
+
+
+@pytest.mark.parametrize("name", list(pgf.VARIANTS))
+def test_gmm_f32_variants_stand_in_the_source(name):
+    """Every `profile_gmm_f32` variant patches texts that stand in gmm.cu
+    as it is now, once each: its `dispatch_f32` lines (one a range of C),
+    its cuts'."""
+    from repro_torch.launch import profile_small_kernels as psk
+    text = pgf.SOURCE.read_text()
+    reps = pgf.replacements(text, *pgf.VARIANTS[name])
     assert psk.missing_texts(text, [(name, reps)]) == []
     assert all(text.count(old) == 1 for old, _ in reps)
 
