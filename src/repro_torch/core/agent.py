@@ -33,6 +33,8 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from repro_torch.tracing import span
+
 
 class PartitionList(list):
     """A per-block partition: the optimizer target split into entries
@@ -108,12 +110,13 @@ def value_and_grad(loss_fn, params, *args, has_aux=False):
     the result is ((loss, aux), grads)."""
     leaves = {k: v.detach().requires_grad_(v.is_floating_point())
               for k, v in params.items()}
-    with torch.enable_grad():
+    with torch.enable_grad(), span("repro_torch.rl.learner.loss"):
         out = loss_fn(leaves, *args)
     loss = out[0] if has_aux else out
     keys = [k for k, v in leaves.items() if v.requires_grad]
-    grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
-                                allow_unused=True)
+    with span("repro_torch.rl.learner.backward"):
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
+                                    allow_unused=True)
     grads = {k: torch.zeros_like(leaves[k]) if g is None else g
              for k, g in zip(keys, grads)}
     value = (loss.detach(), out[1]) if has_aux else loss.detach()

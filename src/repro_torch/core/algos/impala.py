@@ -18,6 +18,7 @@ from repro_torch.core.agent import (PolicyGradientAgent, register,
 from repro_torch.core.networks import make_policy
 from repro_torch.core.vtrace import epsilon_correction, vtrace
 from repro_torch.optim import adamw, clip_by_global_norm
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,20 +51,22 @@ class IMPALA:
         logp_t = logp_t.reshape(T, B)
         v_t = v_t.reshape(T, B)
         ent = ent.reshape(T, B)
-        _, boot = self.policy.apply(params, bootstrap_obs)
-        discounts = self.gamma * (1.0 - traj["done"].to(torch.float32))
-        if self.use_vtrace:
-            log_rhos = logp_t - traj["logp"]
-            vs, pg_adv = vtrace(log_rhos.detach(), discounts,
-                                traj["reward"], v_t.detach(), boot,
-                                self.clip_rho, self.clip_c,
-                                use_kernel=self.use_kernel)
-        else:  # naive on-policy targets computed from off-policy data
-            vs = discounted_return(traj["reward"], discounts, boot.detach(),
-                                   use_kernel=self.use_kernel)
-            vs_tp1 = torch.cat([vs[1:], boot[None]], dim=0)
-            pg_adv = (traj["reward"] + discounts * vs_tp1
-                      - v_t.detach()).detach()
+        with span("repro_torch.rl.learner.targets"):
+            _, boot = self.policy.apply(params, bootstrap_obs)
+            discounts = self.gamma * (1.0 - traj["done"].to(torch.float32))
+            if self.use_vtrace:
+                log_rhos = logp_t - traj["logp"]
+                vs, pg_adv = vtrace(log_rhos.detach(), discounts,
+                                    traj["reward"], v_t.detach(), boot,
+                                    self.clip_rho, self.clip_c,
+                                    use_kernel=self.use_kernel)
+            else:  # naive on-policy targets computed from off-policy data
+                vs = discounted_return(traj["reward"], discounts,
+                                       boot.detach(),
+                                       use_kernel=self.use_kernel)
+                vs_tp1 = torch.cat([vs[1:], boot[None]], dim=0)
+                pg_adv = (traj["reward"] + discounts * vs_tp1
+                          - v_t.detach()).detach()
         pg_loss = -torch.mean(logp_t * pg_adv)
         vf_loss = torch.mean(torch.square(v_t - vs))
         return pg_loss + self.vf_coef * vf_loss \

@@ -11,6 +11,7 @@ from repro_torch.core.agent import (PolicyGradientAgent, TrainState,
                                     register, value_and_grad)
 from repro_torch.core.networks import make_policy
 from repro_torch.optim import adamw, clip_by_global_norm
+from repro_torch.tracing import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +43,7 @@ class PPO:
         return pg + self.vf_coef * vf - self.ent_coef * torch.mean(ent)
 
     @torch.no_grad()
+    @spanned("repro_torch.rl.learner.targets")
     def make_batch(self, params, traj, last_obs):
         """traj: time-major rollout dict. Computes GAE (through the
         core.advantages seam) outside autograd and flattens."""

@@ -15,8 +15,10 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.tracing import spanned
 
 
+@spanned("repro_torch.attention")
 def attention(qg, k, v, *, causal=True, window=0, use_kernel=False):
     """Grouped-query attention over the model layout.
 

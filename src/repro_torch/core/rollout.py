@@ -16,6 +16,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch.envs.api import tree_map
+from repro_torch.tracing import span
 
 TRAJ_KEYS = ("obs", "action", "logp", "value", "reward", "done",
              "next_obs")
@@ -33,11 +34,13 @@ def rollout(policy, params, env, generator, env_state, T):
     boundary."""
     steps = {k: [] for k in TRAJ_KEYS}
     for _ in range(T):
-        obs = env.obs(env_state)
-        noise = policy.sample_noise(generator, obs.shape[0])
-        action, logp, value = policy.sample_value(params, obs, noise)
-        env_state, next_obs, reward, done = env.step_autoreset(
-            env_state, action, generator)
+        with span("repro_torch.rl.rollout.policy"):
+            obs = env.obs(env_state)
+            noise = policy.sample_noise(generator, obs.shape[0])
+            action, logp, value = policy.sample_value(params, obs, noise)
+        with span("repro_torch.rl.rollout.env"):
+            env_state, next_obs, reward, done = env.step_autoreset(
+                env_state, action, generator)
         for k, v in zip(TRAJ_KEYS, (obs, action, logp, value, reward, done,
                                     next_obs)):
             steps[k].append(v)

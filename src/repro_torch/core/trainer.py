@@ -99,6 +99,7 @@ from repro_torch.core.replay_service import ShardedPrioritizedReplay
 from repro_torch.core.rollout import rollout
 from repro_torch.core.topology import (ShardAxis, ZeRO3Agent, member_sum,
                                        zero_sharded_optimizer)
+from repro_torch.tracing import record, span, spanned
 
 # the per-iteration streams, and the set-up streams (iteration -1); an
 # elastic reshard's fresh envs draw from (-1, _RESHARD, superstep window)
@@ -319,6 +320,7 @@ class Trainer:
 
     # ---- episode accounting (carried across iterations) --------------
     @staticmethod
+    @spanned("repro_torch.rl.episodes")
     def _episode_stats(ep_run, ep_last, traj):
         """Exact per-episode returns from a (T, B) reward/done block.
 
@@ -339,6 +341,7 @@ class Trainer:
         return run, ep_ret
 
     # ---- producer/consumer halves ------------------------------------
+    @spanned("repro_torch.rl.rollout")
     def _produce(self, state, env_state, it, delay=None, rank=0):
         """One trajectory for iteration `it` plus its bootstrap
         observation, acting with the params `delay` updates old."""
@@ -350,6 +353,7 @@ class Trainer:
                                   env_state, self.cfg.unroll)
         return {"traj": traj, "boot": self.env.obs(env_state)}, env_state
 
+    @spanned("repro_torch.rl.learner")
     def _consume(self, state, ep_run, ep_last, item, it, rank=0):
         """One learner_step on an item plus the episode accounting; with
         more than one position the plan's collectives ride in the
@@ -554,9 +558,12 @@ class Trainer:
 
         return group.run(in_thread)
 
-    def fit(self, fused: bool = True):
+    def fit(self, fused: bool = True, trace_out=None):
         """Train for cfg.iters iterations. Returns (TrainState, history);
-        with more than one data position, position 0's state."""
+        with more than one data position, position 0's state. With
+        `trace_out` (a path), the last superstep runs under the profiler
+        and its Chrome trace and counters are written there
+        (`tracing.record`)."""
         cfg = self.cfg
         W = self.n_positions
         states, sims, delays = self._init_all()
@@ -593,27 +600,31 @@ class Trainer:
         self.superstep_s = []
         try:
             while start < cfg.iters:
-                t0 = time.perf_counter()
                 k = min(K, cfg.iters - start)
-                # the schedule's window is the cfg.superstep-iteration
-                # window, not the dispatch: fused and unfused fits
-                # reshard at the same iterations
-                s_idx = start // cfg.superstep
-                n_envs = self.plan.actor_schedule(s_idx, cfg.n_envs)
-                sims = self._reshard_envs(sims, n_envs, s_idx)
-                self.actor_shards.append(n_envs)
-                per = self._run(states, sims, queues, delays, start, k,
-                                group)
-                names = sorted(per[0][0])
-                stacked = [torch.stack([torch.stack([m[n] for m in p])
-                                        for n in names]) for p in per]
-                if W > 1 and self._procs is not None:
-                    stacked = self._procs.all_gather(stacked[0])
-                # positions averaged each iteration, in rank order
-                values = (stacked[0] if W == 1
-                          else member_sum(torch.stack(stacked)) / W)
-                values = values.cpu()                  # ONE host sync
-                self.superstep_s.append(time.perf_counter() - t0)
+                traced = trace_out is not None and start + k == cfg.iters
+                with (record(trace_out) if traced
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    # the schedule's window is the cfg.superstep-iteration
+                    # window, not the dispatch: fused and unfused fits
+                    # reshard at the same iterations
+                    s_idx = start // cfg.superstep
+                    n_envs = self.plan.actor_schedule(s_idx, cfg.n_envs)
+                    sims = self._reshard_envs(sims, n_envs, s_idx)
+                    self.actor_shards.append(n_envs)
+                    per = self._run(states, sims, queues, delays, start, k,
+                                    group)
+                    names = sorted(per[0][0])
+                    stacked = [torch.stack([torch.stack([m[n] for m in p])
+                                            for n in names]) for p in per]
+                    if W > 1 and self._procs is not None:
+                        stacked = self._procs.all_gather(stacked[0])
+                    # positions averaged each iteration, in rank order
+                    values = (stacked[0] if W == 1
+                              else member_sum(torch.stack(stacked)) / W)
+                    with span("repro_torch.rl.sync"):
+                        values = values.cpu()          # ONE host sync
+                    self.superstep_s.append(time.perf_counter() - t0)
                 for j in range(k):
                     it = start + j
                     if it % cfg.log_every == 0 or it == cfg.iters - 1:

@@ -7,6 +7,7 @@ import torch
 from repro_torch.kernels.flash_attention.kernel import (
     SHORT_SPAN, flash_attention_bwd, flash_attention_fwd_lse,
     flash_attention_grouped, flash_attention_hsd)
+from repro_torch.tracing import span
 
 
 def _head_contiguous(t):
@@ -44,9 +45,10 @@ class _FlashAttention(torch.autograd.Function):
         # autograd may hand a non-contiguous cotangent: the kernel reads
         # any strides with a contiguous head dim
         do = _hsd(_head_contiguous(dout), KVH * G)
-        dq, dk, dv = flash_attention_bwd(q, kt, vt, o, lse, do,
-                                         causal=ctx.causal,
-                                         window=ctx.window)
+        with span("repro_torch.attention.backward"):
+            dq, dk, dv = flash_attention_bwd(q, kt, vt, o, lse, do,
+                                             causal=ctx.causal,
+                                             window=ctx.window)
         return (dq.transpose(1, 2).reshape(B, S, KVH, G, D),
                 dk.transpose(1, 2), dv.transpose(1, 2), None, None)
 

@@ -42,6 +42,13 @@ def _is_copy(name: str) -> bool:
     return name.startswith(("Memset", "Memcpy"))
 
 
+def _is_span(evt) -> bool:
+    """A span's range on the device timeline (a `record_function`, such
+    as the program's `repro_torch.*` spans): it covers kernels, it is
+    none."""
+    return bool(getattr(evt, "is_user_annotation", False))
+
+
 def kernel_us(fn, calls=10, tries=TRIES):
     """Device time per call of each kernel `fn` launches, in us, from
     torch.profiler's key_averages (acc_events windows lost fewer records
@@ -65,6 +72,8 @@ def kernel_us(fn, calls=10, tries=TRIES):
             if evt.device_type != DeviceType.CUDA:
                 if _is_launch(evt.key):
                     launched += evt.count
+                continue
+            if _is_span(evt):
                 continue
             t = getattr(evt, "self_device_time_total", None)
             times[evt.key[:60]] = (t if t is not None
@@ -116,7 +125,8 @@ def device_window(fn, n, share_of=None, tries=TRIES) -> dict:
             wall_us = (time.perf_counter() - w0) * 1e6
         events = prof.events()
         kernels = [e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not _is_span(e)]
         launched = sum(1 for e in events
                        if e.device_type != torch.autograd.DeviceType.CUDA
                        and _is_launch(e.name))

@@ -16,6 +16,9 @@ port of src/repro/launch/rl_train.py).
   --actors    elastic env-shard schedule, e.g. ``16,32``: the total env
               count cycles through these values per superstep
   --device    the torch device (default: the card; raises without one)
+  --trace-out PATH  profile the last superstep: its Chrome trace to PATH,
+              the program's counters beside it (PATH less `.json`, plus
+              `.counters.json`; repro_torch.tracing)
 
 The legacy single-axis flags (``--n-workers``, ``--topology``,
 ``--sync``, ``--max-delay``, ``--staleness-bound``) lower onto
@@ -95,6 +98,9 @@ def build_parser():
                          "queue as deep as the plan's sync admits")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: the card)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace of the last superstep to "
+                         "PATH and the program's counters beside it")
     ap.add_argument("--backend", default="positions", choices=BACKENDS,
                     help="positions: every data position a thread on "
                          "--device; gloo, nccl: a process each, over "
@@ -173,7 +179,9 @@ def _rank_fit(group, args):
     t0 = time.time()
     trainer = Trainer(envs.make(args.env), _config(args, plan),
                       device=group.device, positions=group)
-    state, history = trainer.fit(fused=not args.unfused)
+    state, history = trainer.fit(
+        fused=not args.unfused,
+        trace_out=args.trace_out if group.rank == 0 else None)
     out = {"launches": kernels.launch_counts(), "fit_s": time.time() - t0}
     if group.rank == 0:
         out.update(line=_line(args, plan, trainer, t0, history),
@@ -247,7 +255,8 @@ def main(argv=None):
         ap.error(str(e))     # a prioritized buffer, n_envs that does not
         #                      divide across the positions, or --pipeline
         #                      with a zero3 or replay axis
-    state, history = trainer.fit(fused=not args.unfused)
+    state, history = trainer.fit(fused=not args.unfused,
+                                 trace_out=args.trace_out)
     print(json.dumps(_line(args, plan, trainer, t0, history)))
     return trainer, state, history
 

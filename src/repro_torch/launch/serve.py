@@ -24,6 +24,11 @@ llama4-maverick-400b-a17b (~795 GB) do not fit one 80 GB card whole;
 `serve()` takes a `ModelConfig` with fewer layers in place of a name
 (chip_smoke.py serves 8 and 2 of their layers).
 
+`--trace-out PATH` prefills the prompts once more after the timed run,
+under the profiler, and takes the first token: that prefill's Chrome
+trace goes to PATH and the program's counters (the MoE experts' load)
+beside it (`repro_torch.tracing.record`).
+
 `--use-kernels` (the reference's `ModelOpts.use_kernels`) runs the
 prefill's causal full attention (ATTN layers) in the flash-attention
 kernel, the MoE expert matmuls in the grouped-matmul kernel and RWKV-6's
@@ -48,6 +53,7 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.model import ModelOpts, build_model
+from repro_torch.tracing import record, spanned
 
 
 def _sync(device):
@@ -55,6 +61,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+@spanned("repro_torch.lm.sample")
 def _next_token(logits, temperature, generator):
     """Greedy at temperature 0, else a Gumbel-max draw from
     softmax(logits / temperature) with noise from `generator`."""
@@ -112,13 +119,15 @@ def generate(model, params, prompts, gen_len, temperature=0.0,
 
 def serve(arch="smollm-360m", reduced=True, batch=4, prompt_len=32,
           gen_len=16, temperature=1.0, seed=0, dtype="float32", *,
-          device="cuda", use_kernels=False, params=None, prompts=None):
+          device="cuda", use_kernels=False, params=None, prompts=None,
+          trace_out=None):
     """The reference's LM serving benchmark. `arch` is a config name or a
     `ModelConfig`. Params are drawn from seed `seed` on `device` unless
     given; prompts are drawn from the same generator unless given as
     (batch, prompt_len) tokens; a config with a frontend gets the stub
     input. Returns the reference's keys (times unrounded) and the
-    device."""
+    device. With `trace_out` (a path), one more prefill and its first
+    token run after the timed run under `tracing.record(trace_out)`."""
     device = resolve_device(device)
     model = build_model(arch, ModelOpts(dtype=dtype, remat=False,
                                         use_kernels=use_kernels),
@@ -143,6 +152,11 @@ def serve(arch="smollm-360m", reduced=True, batch=4, prompt_len=32,
         del logits_w, cache_w
     run = generate(model, params, prompts, gen_len, temperature, gen, fe)
     out = run["tokens"]
+    if trace_out is not None:
+        with torch.inference_mode(), record(trace_out):
+            logits, _ = model.prefill(params, prompts, prompt_len + gen_len,
+                                      frontend=fe)
+            _next_token(logits, temperature, gen)
     return {"arch": cfg.name, "batch": batch,
             "warmup_s": t_warmup,
             "prefill_s": run["prefill_s"],
@@ -180,11 +194,15 @@ def main(argv=None):
                          "kernels on the card")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace of one more prefill to PATH "
+                         "and the program's counters beside it")
     args = ap.parse_args(argv)
     print(json.dumps(serve(args.arch, args.reduced, args.batch,
                            args.prompt_len, args.gen_len, dtype=args.dtype,
                            device=args.device,
-                           use_kernels=args.use_kernels)))
+                           use_kernels=args.use_kernels,
+                           trace_out=args.trace_out)))
 
 
 if __name__ == "__main__":

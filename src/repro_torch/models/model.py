@@ -56,6 +56,7 @@ from repro_torch.models.layers import (Params, add_param, apply_norm,
                                        apply_params, dense, embed_params,
                                        embed_tokens, init_params, normal,
                                        norm_params, unembed)
+from repro_torch.tracing import spanned
 
 
 def _rounds_before(name):
@@ -330,6 +331,7 @@ class LanguageModel(nn.Module):
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
+    @spanned("repro_torch.lm.prefill")
     def prefill(self, params, tokens, cache_capacity=None, *,
                 frontend=None):
         """tokens (B,S) int -> (last-token logits (B,1,V), cache). A model

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import Params, apply_mlp, dense, silu
+from repro_torch.tracing import count as trace_count, span, spanned
 
 
 def init_moe(cfg) -> Params:
@@ -41,6 +42,7 @@ def init_moe(cfg) -> Params:
     return p
 
 
+@spanned("repro_torch.moe.experts")
 def _gmm(x, w, use_kernels):
     """Grouped matmul: (E,C,d) @ (E,d,f) -> (E,C,f)."""
     if use_kernels:
@@ -49,6 +51,7 @@ def _gmm(x, w, use_kernels):
     return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
 
 
+@spanned("repro_torch.moe")
 def apply_moe(cfg, p, x, use_kernels=False, local_dispatch=False):
     """x: (B,S,d) -> (out (B,S,d), aux_loss f32 scalar).
 
@@ -68,10 +71,13 @@ def apply_moe(cfg, p, x, use_kernels=False, local_dispatch=False):
                                     use_kernels)
         out = out.reshape(B, S, d)
     if cfg.moe.n_shared:
-        out = out + apply_mlp(p["shared"], x)
+        with span("repro_torch.moe.shared"):
+            shared = apply_mlp(p["shared"], x)
+        out = out + shared
     return out, aux
 
 
+@spanned("repro_torch.moe.route")
 def _route(cfg, p, xt):
     """Router gates (T,E) f32 and the top-k (weights renormalized, expert
     indices), ties to the lower index."""
@@ -103,46 +109,53 @@ def _dispatch_tokens(cfg, p, xt, use_kernels):
 
     # ---- sort-by-expert dispatch with capacity ----
     C = int(max(8, round(T * K / E * m.capacity_factor)))
-    fe = topi.reshape(-1)                                      # (T*K,)
-    order = torch.argsort(fe, stable=True)
-    se = fe[order]
-    tok_of = order // K
-    first = torch.searchsorted(se, se, side="left")
-    rank = torch.arange(T * K, device=dev) - first             # rank in group
-    keep = rank < C
-    dest = se * C + rank                                       # slot if kept
+    with span("repro_torch.moe.dispatch"):
+        fe = topi.reshape(-1)                                  # (T*K,)
+        order = torch.argsort(fe, stable=True)
+        se = fe[order]
+        tok_of = order // K
+        first = torch.searchsorted(se, se, side="left")
+        rank = torch.arange(T * K, device=dev) - first         # rank in group
+        keep = rank < C
+        dest = se * C + rank                                   # slot if kept
 
-    # gather, slot (e, c) <- the c-th assignment of expert e, if any
-    experts = torch.arange(E, device=dev)
-    start = torch.searchsorted(se, experts, side="left")
-    count = torch.searchsorted(se, experts, side="right") - start
-    c = torch.arange(C, device=dev)
-    src = torch.clamp_max(start[:, None] + c, T * K - 1)      # (E, C)
-    filled = c < count[:, None]
-    eb = torch.where(filled[..., None], xt[tok_of[src]],
-                     torch.zeros((), dtype=dt, device=dev))    # (E,C,d)
+        # gather, slot (e, c) <- the c-th assignment of expert e, if any
+        experts = torch.arange(E, device=dev)
+        start = torch.searchsorted(se, experts, side="left")
+        count = torch.searchsorted(se, experts, side="right") - start
+        # each expert's load beside its capacity: min(load, C) rows of the
+        # E·C the experts multiply are routed, max(load - C, 0) dropped
+        trace_count("repro_torch.moe.expert_load",
+                    {"load": count, "capacity": C, "assigned": T * K})
+        c = torch.arange(C, device=dev)
+        src = torch.clamp_max(start[:, None] + c, T * K - 1)  # (E, C)
+        filled = c < count[:, None]
+        eb = torch.where(filled[..., None], xt[tok_of[src]],
+                         torch.zeros((), dtype=dt, device=dev))  # (E,C,d)
 
     h = _gmm(eb, p["wi"], use_kernels)
     g = _gmm(eb, p["wg"], use_kernels)
     o = _gmm(silu(g) * h, p["wo"], use_kernels)  # (E,C,d)
 
-    o_flat = o.reshape(E * C, d)
-    gathered = torch.where(keep[:, None],
-                           o_flat[torch.clamp_max(dest, E * C - 1)],
-                           torch.zeros((), dtype=dt, device=dev))
-    w_sorted = topv.reshape(-1)[order][:, None].to(dt)
-    contrib = gathered * w_sorted                              # sorted order
+    with span("repro_torch.moe.combine"):
+        o_flat = o.reshape(E * C, d)
+        gathered = torch.where(keep[:, None],
+                               o_flat[torch.clamp_max(dest, E * C - 1)],
+                               torch.zeros((), dtype=dt, device=dev))
+        w_sorted = topv.reshape(-1)[order][:, None].to(dt)
+        contrib = gathered * w_sorted                          # sorted order
 
-    # combine: each token's K entries in ascending expert (= sorted)
-    # order, summed in f32 and rounded once, as the reference's compiled
-    # scatter-add does
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=dev)
-    at = torch.sort(inv.reshape(T, K), dim=1).values           # (T, K)
-    out = torch.zeros((T, d), dtype=torch.float32, device=dev)
-    for j in range(K):
-        out = out + contrib[at[:, j]]
-    return out.to(dt), aux
+        # combine: each token's K entries in ascending expert (= sorted)
+        # order, summed in f32 and rounded once, as the reference's
+        # compiled scatter-add does
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(T * K, device=dev)
+        at = torch.sort(inv.reshape(T, K), dim=1).values       # (T, K)
+        out = torch.zeros((T, d), dtype=torch.float32, device=dev)
+        for j in range(K):
+            out = out + contrib[at[:, j]]
+        out = out.to(dt)
+    return out, aux
 
 
 def apply_moe_dense_oracle(cfg, p, x):

@@ -14,6 +14,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.tracing import spanned
+
 
 def tree_map(fn, *trees):
     """`fn` over the leaves of flat dicts of tensors with the same keys."""
@@ -32,10 +34,12 @@ class Optimizer:
     pre: Optional[Callable] = None
     shard_update: Optional[Callable] = None
 
+    @spanned("repro_torch.rl.learner.optimizer")
     def apply(self, params, state, grads):
         updates, state = self.update(grads, state, params)
         return tree_map(lambda p, u: p + u, params, updates), state
 
+    @spanned("repro_torch.rl.learner.optimizer")
     def apply_leafwise(self, params, state, grads, group_numel=1 << 26):
         """`apply` on dicts it updates in place, a group of leaves at a
         time (consecutive leaves of at most `group_numel` elements, a
