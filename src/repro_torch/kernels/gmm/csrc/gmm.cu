@@ -52,6 +52,17 @@
 // output is one thread's sum over d in order: bitwise the same from call
 // to call. No split-K, no atomics. The dtype switch in gmm_ecd() below is
 // the only dispatch between the two.
+//
+// Rows that hold no input, both dtypes: an MoE layer packs each expert's
+// routed tokens into the first rows of its C capacity rows and zeros the
+// rest, so a caller may pass each expert's count of rows that hold input
+// (`nrows`, E int64 on the card, each clamped to [0, C]; null: all C).
+// Rows at or past expert e's count n_e are written as zeros and their x
+// is never read: a block whose rows all lie past n_e stores zeros over
+// its tile and returns before its first copy; a block that holds n_e
+// copies x's rows below it (the rest zero-filled) and writes zeros past
+// it. Rows below n_e take the same copies and the same sums in the same
+// order as with no count: bitwise the same outputs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +74,13 @@ namespace {
 using sm90::cp_async16;
 using sm90::cp_async_commit;
 using sm90::cp_async_wait;
+
+// expert e's rows that hold input, clamped to [0, C]; C with no counts
+__device__ __forceinline__ int rows_held(const int64_t* nrows, int e, int C) {
+  if (nrows == nullptr) return C;
+  const int64_t n = nrows[e];
+  return n < 0 ? 0 : n > C ? C : int(n);
+}
 
 // ---- float32: CUDA cores fed by a cp.async ring ----
 
@@ -108,15 +126,31 @@ __device__ __forceinline__ void fma_row(float (&acc)[4 * NG], float4 xv,
     }
 }
 
+// rows x min(BN, f - f0) outputs from column f0 of the rows at oe (f
+// apart) <- 0, by NT threads; kVec: float4 stores (f a multiple of 4)
+template <int BN, int NT, bool kVec>
+__device__ void zero_tile_f32(float* oe, int rows, int f0, int f, int tid) {
+  const int cols = min(BN, f - f0), q4 = kVec ? cols / 4 : cols;
+  for (int c = tid; c < rows * q4; c += NT) {
+    float* p = oe + int64_t(c / q4) * f + f0 + (kVec ? 4 : 1) * (c % q4);
+    if constexpr (kVec)
+      *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      *p = 0.f;
+  }
+}
+
 // grid (ceil(f / BN), ceil(C / BM), E), F32Tile's threads, STAGES stages
-// of dynamic shared memory; x, w, out contiguous. kVec: f and d are
-// multiples of 4 and x, w, out 16-byte aligned, so the stages fill by
-// 16-byte copies and the output stores as float4; else single floats.
+// of dynamic shared memory; x, w, out contiguous; nrows null or E counts.
+// kVec: f and d are multiples of 4 and x, w, out 16-byte aligned, so the
+// stages fill by 16-byte copies and the output stores as float4; else
+// single floats.
 template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB,
           bool kVec>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
     gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ out, int C, int d, int f) {
+                   float* __restrict__ out,
+                   const int64_t* __restrict__ nrows, int C, int d, int f) {
   using T = F32Tile<BM, BN, BK, TM, TN>;
   constexpr int TY = T::kTY, TX = T::kTX, NT = T::kThreads, NG = T::kNG,
                 XS = T::kXS, SE = T::kStage, GW = BN / NG;
@@ -125,7 +159,15 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
   const int f0 = blockIdx.x * BN, c0 = blockIdx.y * BM, e = blockIdx.z;
   const float* we = w + int64_t(e) * d * f;
   const float* xe = x + (int64_t(e) * C + c0) * d;
-  const int rows = min(BM, C - c0);
+  // rows [0, live) of the tile hold input, [live, min(BM, C - c0)) are
+  // written as 0; the bound min(BM, C - c0) is taken again after the
+  // loop, so the loop holds one register for both
+  const int live = max(0, min(BM, rows_held(nrows, e, C) - c0));
+  if (live == 0) {  // uniform over the block: no barrier is skipped
+    zero_tile_f32<BN, NT, kVec>(out + (int64_t(e) * C + c0) * f,
+                                min(BM, C - c0), f0, f, tid);
+    return;
+  }
   const int ktiles = (d + BK - 1) / BK;
 
   // stage s <- w rows [k0, k0 + BK) x columns [f0, f0 + BN), then x rows
@@ -160,7 +202,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
       for (int i = 0; i < (BM + RX - 1) / RX; ++i) {
         const int r = xr + i * RX;
         if (BM % RX == 0 || r < BM) {
-          const bool ok = r < rows && k0 + xq < d;
+          const bool ok = r < live && k0 + xq < d;
           cp_async16(sx + r * XS + xq,
                      ok ? xsrc + int64_t(i * RX) * d + k0 : xe, ok);
         }
@@ -174,7 +216,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
       }
       for (int c = tid; c < BM * BK; c += NT) {
         const int r = c / BK, q = c % BK;
-        const bool ok = r < rows && k0 + q < d;
+        const bool ok = r < live && k0 + q < d;
         cp_async4(sx + r * XS + q, ok ? xe + int64_t(r) * d + k0 + q : xe,
                   ok);
       }
@@ -219,10 +261,12 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
   cp_async_wait<0>();
 
   float* oe = out + (int64_t(e) * C + c0) * f;
+  const int rows = min(BM, C - c0);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = ty + i * TY;
     if (r >= rows) continue;
+    const bool held = r < live;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int col = f0 + g * GW + 4 * tx;
@@ -230,11 +274,13 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
       const float* a = &acc[i][4 * g];
       if constexpr (kVec) {
         if (col < f)
-          *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+          *reinterpret_cast<float4*>(p) =
+              held ? make_float4(a[0], a[1], a[2], a[3])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (col + c < f) p[c] = a[c];
+          if (col + c < f) p[c] = held ? a[c] : 0.f;
       }
     }
   }
@@ -242,8 +288,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
 
 template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB,
           bool kVec>
-cudaError_t launch_f32_as(const void* x, const void* w, void* out, int E,
-                          int C, int d, int f, cudaStream_t stream) {
+cudaError_t launch_f32_as(const void* x, const void* w, void* out,
+                          const void* nrows, int E, int C, int d, int f,
+                          cudaStream_t stream) {
   using T = F32Tile<BM, BN, BK, TM, TN>;
   constexpr int smem = STAGES * T::kStage * int(sizeof(float));
   const auto kernel = gmm_f32_kernel<BM, BN, BK, TM, TN, STAGES, MINB, kVec>;
@@ -255,21 +302,31 @@ cudaError_t launch_f32_as(const void* x, const void* w, void* out, int E,
   const dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
   kernel<<<grid, T::kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), C, d, f);
+      static_cast<float*>(out), static_cast<const int64_t*>(nrows), C, d, f);
   return cudaGetLastError();
 }
 
 template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB>
-cudaError_t launch_f32(const void* x, const void* w, void* out, int E, int C,
-                       int d, int f, cudaStream_t stream) {
+cudaError_t launch_f32(const void* x, const void* w, void* out,
+                       const void* nrows, int E, int C, int d, int f,
+                       cudaStream_t stream) {
   const bool vec = f % 4 == 0 && d % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(x) |
                     reinterpret_cast<uintptr_t>(w) |
                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   return vec ? launch_f32_as<BM, BN, BK, TM, TN, STAGES, MINB, true>(
-                   x, w, out, E, C, d, f, stream)
+                   x, w, out, nrows, E, C, d, f, stream)
              : launch_f32_as<BM, BN, BK, TM, TN, STAGES, MINB, false>(
-                   x, w, out, E, C, d, f, stream);
+                   x, w, out, nrows, E, C, d, f, stream);
+}
+
+// the rows of C a block owns (the f32 kernel's BM, the bf16 kernel's 8 NT)
+// by dtype and C: the one table that dispatch_f32, dispatch_bf16 and
+// gmm_ecd_row_tile() read
+int row_tile(int dtype, int C) {
+  if (C <= 8) return 8;
+  if (C <= 16) return 16;
+  return C <= 32 || dtype == 1 ? 32 : 64;
 }
 
 // <BM rows of C, BN columns of f, BK rows of d a stage, TM x TN a thread,
@@ -279,15 +336,19 @@ cudaError_t launch_f32(const void* x, const void* w, void* out, int E, int C,
 // 704 or 1024 blocks are all resident at once: no partial last wave
 // starves the stream. At C = 60 the FMAs bound it; 32-row stages halve
 // the barriers, and 3 blocks an SM fit (168 registers, 75 KB).
-cudaError_t dispatch_f32(const void* x, const void* w, void* out, int E,
-                         int C, int d, int f, cudaStream_t stream) {
-  if (C <= 8)
-    return launch_f32<8, 128, 16, 4, 4, 3, 8>(x, w, out, E, C, d, f, stream);
-  if (C <= 16)
-    return launch_f32<16, 128, 16, 8, 4, 3, 8>(x, w, out, E, C, d, f, stream);
-  if (C <= 32)
-    return launch_f32<32, 128, 16, 8, 4, 3, 4>(x, w, out, E, C, d, f, stream);
-  return launch_f32<64, 128, 32, 8, 8, 3, 2>(x, w, out, E, C, d, f, stream);
+cudaError_t dispatch_f32(const void* x, const void* w, void* out,
+                         const void* n, int E, int C, int d, int f,
+                         cudaStream_t s) {
+  switch (row_tile(0, C)) {
+    case 8:
+      return launch_f32<8, 128, 16, 4, 4, 3, 8>(x, w, out, n, E, C, d, f, s);
+    case 16:
+      return launch_f32<16, 128, 16, 8, 4, 3, 8>(x, w, out, n, E, C, d, f, s);
+    case 32:
+      return launch_f32<32, 128, 16, 8, 4, 3, 4>(x, w, out, n, E, C, d, f, s);
+    default:
+      return launch_f32<64, 128, 32, 8, 8, 3, 2>(x, w, out, n, E, C, d, f, s);
+  }
 }
 
 // ---- bfloat16: tensor cores fed by a cp.async ring ----
@@ -314,19 +375,30 @@ using sm90::ldmatrix_x4_trans;
 using sm90::mma_bf16;
 
 // grid (ceil(f / kBM), ceil(C / (8 NT)), E), kMmaThreads threads,
-// mma_smem_bytes<NT>() of dynamic shared memory; x, w, out contiguous.
-// kVec: f and d are multiples of 8 and x, w are 16-byte aligned, so the
-// tiles are staged by 16-byte cp.async; else by plain loads.
+// mma_smem_bytes<NT>() of dynamic shared memory; x, w, out contiguous;
+// nrows null or E counts. kVec: f and d are multiples of 8 and x, w are
+// 16-byte aligned, so the tiles are staged by 16-byte cp.async; else by
+// plain loads.
 template <int NT, bool kVec>
 __global__ void __launch_bounds__(kMmaThreads) gmm_bf16_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    __nv_bfloat16* __restrict__ out, int C, int d, int f) {
+    __nv_bfloat16* __restrict__ out, const int64_t* __restrict__ nrows,
+    int C, int d, int f) {
   extern __shared__ __align__(16) __nv_bfloat16 ring[];
   constexpr int BN = 8 * NT, SE = stage_elems<NT>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int f0 = blockIdx.x * kBM, c0 = blockIdx.y * BN, e = blockIdx.z;
   const __nv_bfloat16* we = w + int64_t(e) * d * f;
   const __nv_bfloat16* xe = x + int64_t(e) * C * d;
+  // rows c0 + [0, live) hold input, c0 + [live, min(BN, C - c0)) give 0
+  const int live = max(0, min(BN, rows_held(nrows, e, C) - c0));
+  if (live == 0) {  // uniform over the block: no barrier is skipped
+    const int rows = min(BN, C - c0), cols = min(kBM, f - f0);
+    for (int c = tid; c < rows * cols; c += kMmaThreads)
+      out[(int64_t(e) * C + c0 + c / cols) * f + f0 + c % cols] =
+          __float2bfloat16(0.f);
+    return;
+  }
   const int ktiles = (d + kBK - 1) / kBK;
 
   // stage s: w rows [k0, k0 + kBK) x columns [f0, f0 + kBM) as
@@ -347,7 +419,7 @@ __global__ void __launch_bounds__(kMmaThreads) gmm_bf16_kernel(
       }
       for (int c = tid; c < BN * kBK / 8; c += kMmaThreads) {
         const int r = c / (kBK / 8), q = c % (kBK / 8) * 8;
-        const bool ok = c0 + r < C && k0 + q < d;
+        const bool ok = r < live && k0 + q < d;
         cp_async16(sx + r * kXS + q,
                    ok ? xe + int64_t(c0 + r) * d + k0 + q : xe, ok);
       }
@@ -361,7 +433,7 @@ __global__ void __launch_bounds__(kMmaThreads) gmm_bf16_kernel(
       }
       for (int c = tid; c < BN * kBK; c += kMmaThreads) {
         const int r = c / kBK, q = c % kBK;
-        sx[r * kXS + q] = c0 + r < C && k0 + q < d
+        sx[r * kXS + q] = r < live && k0 + q < d
                               ? xe[int64_t(c0 + r) * d + k0 + q]
                               : zero;
       }
@@ -422,13 +494,15 @@ __global__ void __launch_bounds__(kMmaThreads) gmm_bf16_kernel(
         const int m = f0 + (warp * kMT + mt) * 16 + (lane >> 2) + (i >> 1) * 8;
         const int n = c0 + nt * 8 + (lane & 3) * 2 + (i & 1);
         if (m < f && n < C)
-          out[(int64_t(e) * C + n) * f + m] = __float2bfloat16(acc[mt][nt][i]);
+          out[(int64_t(e) * C + n) * f + m] =
+              __float2bfloat16(n < c0 + live ? acc[mt][nt][i] : 0.f);
       }
 }
 
 template <int NT, bool kVec>
-cudaError_t launch_mma(const void* x, const void* w, void* out, int E, int C,
-                       int d, int f, cudaStream_t stream) {
+cudaError_t launch_mma(const void* x, const void* w, void* out,
+                       const void* nrows, int E, int C, int d, int f,
+                       cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<NT>();
   const cudaError_t err = cudaFuncSetAttribute(
       gmm_bf16_kernel<NT, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -438,25 +512,29 @@ cudaError_t launch_mma(const void* x, const void* w, void* out, int E, int C,
   gmm_bf16_kernel<NT, kVec><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      C, d, f);
+      static_cast<const int64_t*>(nrows), C, d, f);
   return cudaGetLastError();
 }
 
 template <int NT>
-cudaError_t launch_nt(const void* x, const void* w, void* out, int E, int C,
-                      int d, int f, cudaStream_t stream) {
+cudaError_t launch_nt(const void* x, const void* w, void* out,
+                      const void* nrows, int E, int C, int d, int f,
+                      cudaStream_t stream) {
   const bool vec = f % 8 == 0 && d % 8 == 0 &&
                    (reinterpret_cast<uintptr_t>(x) |
                     reinterpret_cast<uintptr_t>(w)) % 16 == 0;
-  return vec ? launch_mma<NT, true>(x, w, out, E, C, d, f, stream)
-             : launch_mma<NT, false>(x, w, out, E, C, d, f, stream);
+  return vec ? launch_mma<NT, true>(x, w, out, nrows, E, C, d, f, stream)
+             : launch_mma<NT, false>(x, w, out, nrows, E, C, d, f, stream);
 }
 
-cudaError_t dispatch_bf16(const void* x, const void* w, void* out, int E,
-                          int C, int d, int f, cudaStream_t stream) {
-  if (C <= 8) return launch_nt<1>(x, w, out, E, C, d, f, stream);
-  if (C <= 16) return launch_nt<2>(x, w, out, E, C, d, f, stream);
-  return launch_nt<4>(x, w, out, E, C, d, f, stream);
+cudaError_t dispatch_bf16(const void* x, const void* w, void* out,
+                          const void* n, int E, int C, int d, int f,
+                          cudaStream_t s) {
+  switch (row_tile(1, C)) {
+    case 8: return launch_nt<1>(x, w, out, n, E, C, d, f, s);
+    case 16: return launch_nt<2>(x, w, out, n, E, C, d, f, s);
+    default: return launch_nt<4>(x, w, out, n, E, C, d, f, s);
+  }
 }
 
 }  // namespace
@@ -464,17 +542,26 @@ cudaError_t dispatch_bf16(const void* x, const void* w, void* out, int E,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out alike); x (E, C, d),
-// w (E, d, f), out (E, C, f), all contiguous. Launches on `stream`,
-// allocates nothing, and returns cudaGetLastError() after the launch (or
+// w (E, d, f), out (E, C, f), all contiguous; nrows null or E int64 on
+// the card, expert e's rows that hold input (clamped to [0, C]; rows past
+// it are written as zeros and not read). Launches on `stream`, allocates
+// nothing, and returns cudaGetLastError() after the launch (or
 // cudaErrorInvalidValue for a dtype or shape it does not take).
-int gmm_ecd(const void* x, const void* w, void* out, int dtype, int E, int C,
-            int d, int f, void* stream) {
+int gmm_ecd(const void* x, const void* w, void* out, const void* nrows,
+            int dtype, int E, int C, int d, int f, void* stream) {
   if (E <= 0 || E > 65535 || C <= 0 || (C + 7) / 8 > 65535 || d < 0 || f <= 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(x, w, out, E, C, d, f, s);
-  if (dtype == 1) return dispatch_bf16(x, w, out, E, C, d, f, s);
+  if (dtype == 0) return dispatch_f32(x, w, out, nrows, E, C, d, f, s);
+  if (dtype == 1) return dispatch_bf16(x, w, out, nrows, E, C, d, f, s);
   return cudaErrorInvalidValue;
+}
+
+// the rows of C one block of gmm_ecd owns at this dtype and C (0 for a
+// dtype or C it does not take)
+int gmm_ecd_row_tile(int dtype, int C) {
+  if ((dtype != 0 && dtype != 1) || C <= 0) return 0;
+  return row_tile(dtype, C);
 }
 
 }  // extern "C"

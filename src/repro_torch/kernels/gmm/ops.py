@@ -5,6 +5,7 @@ w to x's dtype."""
 from repro_torch.kernels.gmm.kernel import gmm_ecd
 
 
-def gmm(x, w):
-    """x: (E,C,d) @ w: (E,d,f) -> (E,C,f), per expert."""
-    return gmm_ecd(x.contiguous(), w.to(x.dtype).contiguous())
+def gmm(x, w, rows=None):
+    """x: (E,C,d) @ w: (E,d,f) -> (E,C,f), per expert; rows: each expert's
+    count of rows of x that hold input, or None (see `gmm_ecd`)."""
+    return gmm_ecd(x.contiguous(), w.to(x.dtype).contiguous(), rows)

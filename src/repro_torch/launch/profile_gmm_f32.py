@@ -9,8 +9,16 @@ expert shapes.
 
 `SHAPES` are deepseek-moe-16b's (E, C, d, f) at batch 4: decode (C = 8),
 prefill at the launcher's default prompt of 32 (C = 15) and at a
-128-token prompt (C = 60), each for wi/wg (d 2048, f 1408) and wo (d
-1408, f 2048). One library is built per variant from a copy of gmm.cu
+128-token prompt (C = 60), then at batch 1 at 2048- and 4096-token
+prompts (C = 202 and 480; the benchmark's prompts run 512 to 4096, C =
+60 to 480), each for wi/wg (d 2048, f 1408) and wo (d 1408, f 2048). A
+library whose `gmm_ecd` takes each expert's count of rows that hold
+input is timed twice: without the counts, and as `<name>+rows` with
+counts drawn as a skewed routing leaves them (`routed_rows`: E C / 1.25
+assignments over gamma(4) shares, one expert 8% more; ~68% of the rows
+routed, ~15% of the assignments past C, as the benchmark's deepseek cell
+reads them), the bound then of the routed rows. One library is built
+per variant from a copy of gmm.cu
 and the shared headers (profile_small_kernels.build_variants, every
 build started at once): `committed` is the source as it is; a tile
 variant replaces the `launch_f32<BM, BN, BK, TM, TN, STAGES, MINB>`
@@ -46,14 +54,15 @@ from repro_torch.launch.profiling import card, kernel_us
 
 SOURCE = PACKAGE_DIR / "kernels" / "gmm" / "csrc" / "gmm.cu"
 SHAPES = [(64, 8, 2048, 1408), (64, 8, 1408, 2048), (64, 15, 2048, 1408),
-          (64, 15, 1408, 2048), (64, 60, 2048, 1408), (64, 60, 1408, 2048)]
+          (64, 15, 1408, 2048), (64, 60, 2048, 1408), (64, 60, 1408, 2048),
+          (64, 202, 2048, 1408), (64, 202, 1408, 2048), (64, 480, 2048, 1408),
+          (64, 480, 1408, 2048)]
 BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# a line of `dispatch_f32` by the range of C it launches for
+# a line of `dispatch_f32` by the row tile (the range of C) it launches
 LINES = {
-    **{n: rf"if \(C <= {n}\)\n    return launch_f32<[^>]*>"
-       for n in (8, 16, 32)},
-    64: r"\n  return launch_f32<[^>]*>",
+    **{n: rf"case {n}:\n      return launch_f32<[^>]*>" for n in (8, 16, 32)},
+    64: r"default:\n      return launch_f32<[^>]*>",
 }
 # name: ({line of LINES: (BM, BN, BK, TM, TN, STAGES, MINB)} replacing the
 # committed tiles, edits of EDITS)
@@ -77,6 +86,7 @@ VARIANTS = {
     "c60_tm5": ({64: (60, 128, 32, 5, 8, 3, 2)}, ()),
     "c60_tm5_m3": ({64: (60, 128, 32, 5, 8, 3, 3)}, ()),
     "unroll2": ({}, ("unroll2",)),
+    "group_skip": ({}, ("group_skip",)),
     "loads_only": ({}, ("loads_only",)),
     "fma_only": ({}, ("fma_only",)),
 }
@@ -84,6 +94,13 @@ _KK = "#pragma unroll\n    for (int kk = 0; kk < BK; kk += 4) {"
 EDITS = {
     # the k loop over a stage unrolled twice (committed: whole)
     "unroll2": [(_KK, _KK.replace("unroll", "unroll 2"))],
+    # a thread's row group i (rows i TY .. i TY + TY - 1 of the tile) skips
+    # its FMAs where every row of it lies past the count: a branch uniform
+    # over the block
+    "group_skip": [("      for (int i = 0; i < TM; ++i)\n"
+                    "        fma_row<NG>(",
+                    "      for (int i = 0; i < TM; ++i)\n"
+                    "        if (i * TY < live) fma_row<NG>(")],
     "loads_only": [("    for (int kk = 0; kk < BK; kk += 4) {\n"
                     "      float4 wv[4][NG];",
                     "    for (int kk = 0; kk < 0; kk += 4) {\n"
@@ -113,8 +130,9 @@ def replacements(source, tiles, edits):
 
 
 def libraries(tmp, names, parents):
-    """{library name: its C entry `gmm_ecd`}: the variants `names` and each
-    parent source, every build started at once."""
+    """{library name: (its C entry `gmm_ecd`, whether that takes counts of
+    rows)}: the variants `names` and each parent source, every build
+    started at once."""
     from repro_torch.launch.profile_small_kernels import build_variants
     text = SOURCE.read_text()
     variants = [(n, replacements(text, *VARIANTS[n])) for n in names
@@ -129,20 +147,37 @@ def libraries(tmp, names, parents):
                                     [])["whole"]
     fns = {}
     for name, dll in libs.items():
+        takes_rows = hasattr(dll, "gmm_ecd_row_tile")
         fn = dll.gmm_ecd
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (4 if takes_rows else 3) + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[name] = (fn, takes_rows)
     return fns
 
 
-def bound_us(E, C, d, f):
+def routed_rows(E, C, seed=0):
+    """(E,) int64 counts of rows a skewed routing gives each expert at
+    capacity C: round(E C / 1.25) assignments over gamma(4) shares, 8% more
+    to expert 0; counts past C stay (the kernel clamps them)."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch._standard_gamma(torch.full((E,), 4.0, dtype=torch.float64),
+                              generator=g)
+    p = p / p.sum() * 0.92
+    p[0] += 0.08
+    n = round(E * C / 1.25)
+    return torch.multinomial(p, n, replacement=True, generator=g).bincount(
+        minlength=E)
+
+
+def bound_us(E, C, d, f, routed=None):
     """(the least time the card could take, in us, and what bounds it):
     each f32 input read once and the output written once at 3.35 TB/s,
-    against 2 E C d f flops at 67 TFLOP/s."""
-    t_bytes = 4 * (E * C * d + E * d * f + E * C * f) / BYTES_PER_S * 1e6
-    t_ops = 2 * E * C * d * f / F32_FLOPS * 1e6
+    against 2 E C d f flops at 67 TFLOP/s; with `routed` (the rows that
+    hold input, in all), only those rows' x and flops count."""
+    rows = E * C if routed is None else routed
+    t_bytes = 4 * (rows * d + E * d * f + E * C * f) / BYTES_PER_S * 1e6
+    t_ops = 2 * rows * d * f / F32_FLOPS * 1e6
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -156,31 +191,42 @@ def sweep(tmp, names, parents, reps, shapes=SHAPES):
     for E, C, d, f in shapes:
         x = torch.randn((E, C, d), generator=gen, device="cuda")
         w = torch.randn((E, d, f), generator=gen, device="cuda") * d ** -0.5
-        ref = gmm_ref(x, w)
+        rows = routed_rows(E, C).cuda()
+        refs = {False: gmm_ref(x, w), True: gmm_ref(x, w, rows)}
         o = torch.empty((E, C, f), device="cuda")
         bound, by = bound_us(E, C, d, f)
+        routed = int(rows.clamp_max(C).sum())
         row = {"bound_us": bound, "bound_by": by,
-               "max_abs_ref": ref.abs().max().item()}
+               "max_abs_ref": refs[False].abs().max().item(),
+               "rows": rows.tolist(), "routed_share": routed / (E * C),
+               "bound_rows_us": bound_us(E, C, d, f, routed)[0]}
         calls = {}
-        for name, fn in fns.items():
-            def call(fn=fn):
-                return fn(x.data_ptr(), w.data_ptr(), o.data_ptr(), 0, E, C,
-                          d, f, stream)
-            o.fill_(float("nan"))
-            code = call()
-            torch.cuda.synchronize()
-            whole = not set(VARIANTS.get(name, ({}, ()))[1]) & set(CUTS)
-            first = o.clone()
-            call()
-            torch.cuda.synchronize()
-            row[name] = {
-                "launch_code": code, "device_us": [], "events_us": [],
-                "max_abs_err": ((first - ref).abs().max().item()
-                                if code == 0 and whole else None),
-                "bitwise_repeat": (torch.equal(first, o)
-                                   if code == 0 and whole else None)}
-            if code == 0:
-                calls[name] = call
+        for lib, (fn, takes_rows) in fns.items():
+            for counted in (False, True) if takes_rows else (False,):
+                name = lib + ("+rows" if counted else "")
+                args = (x.data_ptr(), w.data_ptr(), o.data_ptr()) + (
+                    ((rows.data_ptr() if counted else None),)
+                    if takes_rows else ())
+
+                def call(fn=fn, args=args):
+                    return fn(*args, 0, E, C, d, f, stream)
+                ref = refs[counted]
+                o.fill_(float("nan"))
+                code = call()
+                torch.cuda.synchronize()
+                whole = not set(VARIANTS.get(lib, ({}, ()))[1]) & set(CUTS)
+                first = o.clone()
+                call()
+                torch.cuda.synchronize()
+                row[name] = {
+                    "launch_code": code, "device_us": [], "events_us": [],
+                    "max_abs_err": ((first - ref).abs().max().item()
+                                    if code == 0 and whole else None),
+                    "bitwise_repeat": (torch.equal(first, o)
+                                       if code == 0 and whole else None)}
+                if code == 0:
+                    calls[name] = call
+        ref = refs[False]
 
         def bmm():
             return torch.bmm(x, w)
@@ -196,7 +242,7 @@ def sweep(tmp, names, parents, reps, shapes=SHAPES):
                     None if times is None else sum(times.values()))
                 row[name]["events_us"].append(event_us(calls[name], 20))
         out[str((E, C, d, f))] = row
-        del x, w, ref, o
+        del x, w, ref, refs, o
     return out
 
 

@@ -43,11 +43,14 @@ def init_moe(cfg) -> Params:
 
 
 @spanned("repro_torch.moe.experts")
-def _gmm(x, w, use_kernels):
-    """Grouped matmul: (E,C,d) @ (E,d,f) -> (E,C,f)."""
+def _gmm(x, w, use_kernels, rows=None):
+    """Grouped matmul: (E,C,d) @ (E,d,f) -> (E,C,f). rows: each expert's
+    count of rows of x that hold input (the rest are zero); the kernel
+    never reads the rows past it and skips the row tiles that hold none,
+    the einsum multiplies them (zeros either way)."""
     if use_kernels:
         from repro_torch.kernels.gmm import ops as gmm_ops
-        return gmm_ops.gmm(x, w)
+        return gmm_ops.gmm(x, w, rows)
     return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
 
 
@@ -133,9 +136,11 @@ def _dispatch_tokens(cfg, p, xt, use_kernels):
         eb = torch.where(filled[..., None], xt[tok_of[src]],
                          torch.zeros((), dtype=dt, device=dev))  # (E,C,d)
 
-    h = _gmm(eb, p["wi"], use_kernels)
-    g = _gmm(eb, p["wg"], use_kernels)
-    o = _gmm(silu(g) * h, p["wo"], use_kernels)  # (E,C,d)
+    # rows of eb past count[e] are zero: the kernel writes their outputs
+    # as zeros without reading them
+    h = _gmm(eb, p["wi"], use_kernels, rows=count)
+    g = _gmm(eb, p["wg"], use_kernels, rows=count)
+    o = _gmm(silu(g) * h, p["wo"], use_kernels, rows=count)  # (E,C,d)
 
     with span("repro_torch.moe.combine"):
         o_flat = o.reshape(E * C, d)

@@ -2,6 +2,9 @@
 version (`gmm_ref`) against JAX's `gmm_ref` and against JAX's `ops.gmm`
 (the Pallas kernel in interpret mode, as tests/test_kernels.py runs it),
 and the port's wrapper, which takes the plain version for CPU tensors.
+With each expert's count of rows that hold input (`rows`), both hold
+JAX's `gmm` on x with the rows past the count zeroed; the rows there
+hold NaN, so a read of them would show.
 
 Tolerances: f32 atol = 3e-4, rtol = 1e-4 (tests/test_kernels.py's, the
 same f32 products summed in another order over d <= 512); bf16 inputs,
@@ -85,3 +88,49 @@ def test_gmm_bf16_matches_jax():
         np.asarray(jax_gmm_ref(jnp.asarray(x).astype(jnp.bfloat16),
                                jnp.asarray(w).astype(jnp.bfloat16)),
                    np.float32), **BF16)
+
+
+# (E, C, d, f, rows): counts of 0, C, past C (clamped), negative
+# (clamped to 0) and inside a 64-row tile
+ROWS_CASES = [
+    (4, 70, 96, 130, [0, 70, 71, 33]),
+    (4, 202, 64, 48, [202, 64, 65, -1]),
+    (2, 8, 40, 24, [3, 9]),
+]
+
+
+def _held_x(x, rows):
+    """x with rows c >= rows[e] zeroed (the masked x), and x with NaN
+    there (what the kernel must not read)."""
+    held = np.arange(x.shape[1])[None, :] < np.asarray(rows)[:, None]
+    return (np.where(held[..., None], x, 0).astype(np.float32),
+            np.where(held[..., None], x, np.nan).astype(np.float32))
+
+
+@pytest.mark.parametrize("E,C,d,f,rows", ROWS_CASES)
+def test_gmm_rows_match_jax_on_the_masked_x(E, C, d, f, rows):
+    x, w = _inputs(E, C, d, f, seed=4)
+    masked, poisoned = _held_x(x, rows)
+    want = np.asarray(jax_gmm(jnp.asarray(masked), jnp.asarray(w)))
+    r = torch.tensor(rows, dtype=torch.int64)
+    past = np.arange(C)[None, :] >= np.asarray(rows)[:, None]
+    gmm_ecd.launches = 0
+    for got in (gmm_ref(torch.tensor(poisoned), torch.tensor(w), r),
+                gmm(torch.tensor(poisoned), torch.tensor(w), r)):
+        assert np.isfinite(got.numpy()).all()
+        np.testing.assert_allclose(got.numpy(), want, **F32)
+        assert (got.numpy()[past] == 0).all()
+    assert gmm_ecd.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["int32", "length", "strided", "list"])
+def test_gmm_refuses_rows_of_another_form(bad):
+    """rows must be a contiguous int64 (E,) tensor on x's device: no
+    silent cast (the card tests add a CPU-resident rows beside card x)."""
+    x, w = (torch.tensor(a) for a in _inputs(4, 16, 8, 8))
+    rows = {"int32": torch.full((4,), 3, dtype=torch.int32),
+            "length": torch.full((5,), 3, dtype=torch.int64),
+            "strided": torch.full((8,), 3, dtype=torch.int64)[::2],
+            "list": [3, 3, 3, 3]}[bad]
+    with pytest.raises(ValueError, match="rows must be"):
+        gmm_ecd(x, w, rows)

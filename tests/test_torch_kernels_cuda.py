@@ -17,7 +17,8 @@ round as the plain version's do) and its weights agree within
 rtol = atol = 1e-5 (the partition function is summed in another order),
 ties forced. The per-shard draw of the sharded replay service must
 equal its plain version bitwise, indices and scores. The grouped matmul sums f32 products in another order than
-the plain einsum: f32 is held to rtol = 1e-4 with atol = 1e-4 x max|ref|;
+the plain einsum (given each expert's count of rows that hold input, it
+is bitwise its own call on x with the rows past the counts zeroed): f32 is held to rtol = 1e-4 with atol = 1e-4 x max|ref|;
 bf16 outputs against the f32 product of the same bf16 inputs to rtol =
 2^-8 (the output's rounding to bf16) with the same atol. The MoE layer on
 the card, kernel against use_kernels=False, is held to the same bf16
@@ -1224,6 +1225,90 @@ def test_gmm_refuses_what_it_does_not_take(cuda, bad):
     with pytest.raises(err):
         gmm_ecd(x, w)
     assert gmm_ecd.launches == 0
+
+
+# ---- rows: each expert's count of rows that hold input ----
+
+# C across every f32 row tile (8, 16, 32, 64) and bf16's (8, 16, 32),
+# deepseek's prefill capacities at 2048- and 4096-token prompts (202, 480:
+# C-tiles of 64 and 32, the last ragged), and the scalar-copy / plain-load
+# instances (d, f off a multiple of 4 and 8)
+GMM_ROWS = [(4, C, 256, 384) for C in (8, 16, 32, 60, 202, 480)] + [
+    (4, 60, 102, 130), (4, 202, 77, 61)]
+
+
+def _rows_of(C):
+    """Counts of none, all, past C (clamped to C) and a boundary inside
+    a row tile."""
+    return [0, C, C + 7, C // 2 + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,f", GMM_ROWS)
+def test_gmm_rows_is_bitwise_the_call_on_the_masked_x(cuda, E, C, d, f,
+                                                      dtype):
+    """With rows, the output equals (torch.equal) the call without rows
+    on x with the rows past each count zeroed, though x holds NaN there
+    (never read); the rows past the count are exactly 0; one launch a
+    call."""
+    x, w = _gmm_inputs(E, C, d, f, getattr(torch, dtype), cuda)
+    rows = torch.tensor(_rows_of(C), dtype=torch.int64, device=cuda)
+    held = (torch.arange(C, device=cuda)[None, :] < rows[:, None])[..., None]
+    masked = torch.where(held, x, torch.zeros((), dtype=x.dtype,
+                                              device=cuda))
+    poisoned = torch.where(held, x, torch.full((), float("nan"),
+                                               dtype=x.dtype, device=cuda))
+    want = gmm_ecd(masked, w)
+    gmm_ecd.launches = 0
+    got = gmm_ecd(poisoned, w, rows)
+    torch.cuda.synchronize()
+    assert gmm_ecd.launches == 1 and got.shape == (E, C, f)
+    assert torch.equal(got, want)
+    past = ~held[..., 0]
+    assert (got[past] == 0).all() and not got[past].signbit().any()
+    assert torch.equal(gmm_ecd(poisoned, w, rows), got)
+    assert gmm_ecd.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["int32", "cpu", "length", "strided"])
+def test_gmm_refuses_rows_of_another_form(cuda, bad):
+    x, w = _gmm_inputs(4, 16, 64, 32, torch.float32, cuda)
+    rows = {"int32": torch.full((4,), 3, dtype=torch.int32, device=cuda),
+            "cpu": torch.full((4,), 3, dtype=torch.int64),
+            "length": torch.full((5,), 3, dtype=torch.int64, device=cuda),
+            "strided": torch.full((8,), 3, dtype=torch.int64,
+                                  device=cuda)[::2]}[bad]
+    with pytest.raises(ValueError, match="rows must be"):
+        gmm_ecd(x, w, rows)
+    assert gmm_ecd.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,C,tile", [("float32", 202, 64),
+                                          ("float32", 15, 16),
+                                          ("bfloat16", 202, 32),
+                                          ("bfloat16", 8, 8)])
+def test_gmm_rows_record_the_row_tiles_counter(cuda, dtype, C, tile):
+    """Under a profiler a launch with rows appends its rows, C and the
+    kernel's row tile to `repro_torch.gmm.row_tiles`; one without rows,
+    and any launch with no profiler, appends nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tracing
+    from repro_torch.kernels.gmm.kernel import row_tile
+    assert row_tile(getattr(torch, dtype), C) == tile
+    x, w = _gmm_inputs(4, C, 64, 32, getattr(torch, dtype), cuda)
+    rows = torch.tensor(_rows_of(C), dtype=torch.int64, device=cuda)
+    tracing.reset_counters()
+    gmm_ecd(x, w, rows)
+    with profile(activities=[ProfilerActivity.CPU]):
+        gmm_ecd(x, w)
+        gmm_ecd(x, w, rows)
+    torch.cuda.synchronize()
+    assert tracing.read_counters() == {"repro_torch.gmm.row_tiles": [
+        {"rows": _rows_of(C), "capacity": C, "tile": tile}]}
+    tracing.reset_counters()
 
 
 @pytest.mark.cuda

@@ -95,6 +95,35 @@ def test_apply_moe_drops_the_same_tokens_as_jax(use_kernels):
     assert float((oracle - got).abs().max()) > 1e-3
 
 
+def test_dispatch_passes_each_experts_routed_rows_to_the_gmm(monkeypatch):
+    """The three grouped matmuls of a dispatch get each expert's routed
+    count (the load before capacity, which the kernel clamps to C) as
+    `rows`, a keyword, with x and w positional (bench/trace.py wraps
+    `_gmm` and reads args[0] and args[1]); x's rows past the count are
+    zero, so the kernel may skip them."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(jcfg)
+    lean = np.asarray(jp["router"])[:, 0]
+    x = _x((4, 16, tcfg.d_model)) + lean / np.linalg.norm(lean)
+    seen, gmm = [], tmoe._gmm
+    monkeypatch.setattr(tmoe, "_gmm", lambda *a, **k: (
+        seen.append((a, k)), gmm(*a, **k))[1])
+    want, _ = jmoe.apply_moe(jcfg, jp, jnp.asarray(x), use_kernels=True)
+    got, _ = tmoe.apply_moe(tcfg, tp, torch.tensor(x), use_kernels=True)
+    _close(got.numpy(), want)
+    load = _group_sizes(tcfg, tp, x)
+    C = 40
+    assert len(seen) == 3 and int(load.max()) == 55
+    for (xe, w, use_kernels), kw in seen:
+        assert use_kernels is True and set(kw) == {"rows"}
+        rows = kw["rows"]
+        assert rows.dtype == torch.int64 and rows.is_contiguous()
+        assert torch.equal(rows, load)
+        past = torch.arange(C)[None, :] >= rows.clamp_max(C)[:, None]
+        assert xe.shape[:2] == (4, C) and not xe[past].any()
+        assert xe[~past].abs().sum(-1).min() > 0
+
+
 def test_apply_moe_matches_dense_oracles_without_drops():
     jcfg, tcfg = _cfgs(capacity_factor=16.0)
     jp, tp = _params(jcfg, seed=2)

@@ -3,8 +3,9 @@ keep nothing with no profiler recording; under torch.profiler a tiny
 PPO or IMPALA fit and a tiny MoE prefill show every span of the RL loop,
 the learner, the prefill, attention and the MoE dispatch, nested as the
 program runs them, and the experts' load counter gives the gmm's fill
-and the dropped share that a recount from the routing gives. The
-launchers' `--trace-out` writes the trace and its counters."""
+and the dropped share that a recount from the routing gives; the
+grouped matmul's row-tiles record keeps its rows, C and tile only then.
+The launchers' `--trace-out` writes the trace and its counters."""
 import collections
 import contextlib
 import dataclasses
@@ -217,6 +218,20 @@ def test_expert_load_matches_a_recount_from_the_routing(capacity_factor,
     C = max(8, round(T * K / E * capacity_factor))
     assert rec == {"load": load, "capacity": C, "assigned": T * K}
     assert (sum(max(n - C, 0) for n in load) > 0) is drops
+
+
+def test_gmm_row_tiles_counter_records_only_while_profiling():
+    """What a launch with `rows` records (kernels/gmm/kernel.py, on the
+    card): the device counts, C and the row tile, only under a profiler;
+    the counts reach the host only in `read_counters`."""
+    from repro_torch.kernels.gmm import kernel as gmm_kernel
+    rows = torch.tensor([0, 64, 65, 300])
+    gmm_kernel.count_row_tiles(rows, 202, 64)
+    assert tracing.read_counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        gmm_kernel.count_row_tiles(rows, 202, 64)
+    assert tracing.read_counters() == {"repro_torch.gmm.row_tiles": [
+        {"rows": [0, 64, 65, 300], "capacity": 202, "tile": 64}]}
 
 
 def test_read_counters_moves_tensors_to_host_lists():
